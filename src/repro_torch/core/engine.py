@@ -150,7 +150,7 @@ def match_glm_template(g: HDFG, part: Partition) -> str | None:
     return sorted(candidates)[0] if candidates else None
 
 
-class _PinnedStager:
+class PinnedStager:
     """Carries page chunks to the card through two pinned host buffers.
 
     A pageable copy to the card waits for the card to drain the stream, a
@@ -202,7 +202,7 @@ class Engine:
     def __post_init__(self):
         self._pre, self._post, self._conv, _ = compile_hdfg(self.g, self.part)
         self._stage = (
-            _PinnedStager(self.device) if self.device.type == "cuda" else None
+            PinnedStager(self.device) if self.device.type == "cuda" else None
         )
 
     # -- one merge batch -------------------------------------------------------

@@ -1,0 +1,441 @@
+"""Concurrent mixed-workload query executor on PyTorch: one device, many
+statements (counterpart of ``repro.db.executor``, which it is held against).
+
+DAnA's striders and execution engine share the database's buffer pool across
+concurrent queries; ReProVide's lesson (PAPERS.md) is that an accelerated
+DBMS earns its keep scheduling *sequences* of queries against one hardware
+datapath, not one query at a time. This module is that admission layer for
+the SQL surface: multiple TRAIN and PREDICT statements run over the shared
+:class:`~repro.db.bufferpool.BufferPool`/device, interleaved at **chunk
+granularity** — the natural quantum, since both workloads already dispatch
+one fused device program per page chunk and only join the device once per
+epoch/scan.
+
+Mechanics:
+
+  * Every statement compiles to a Python generator that yields after each
+    chunk *dispatch*: ``solver.train_units`` for TRAIN (the pipelined
+    double-buffered epoch loop, one sync per epoch) and ``_predict_units``
+    for PREDICT (the ``PredictScan`` chunk program under the same
+    double-buffered prefetch, ONE sync per scan: ``PredictScan.units``).
+    Between yields the device queue drains asynchronously, so interleaving
+    costs no extra syncs —
+    per-query results are byte-identical to serial execution because each
+    query's op sequence is untouched; only the host-side dispatch order
+    changes.
+  * Admission reuses ``serve/scheduler.py`` wholesale: the
+    :class:`AdmissionScheduler` queue (``"priority"`` = (class, submission
+    order), lower value more important; ``"fifo"`` the ablation), the
+    QUEUED/RUNNING/FINISHED/CANCELLED_DEADLINE/REJECTED lifecycle, and
+    ``deadline_missed`` for both the queued-side and running-side deadline
+    sweeps. A query that raises lands in the executor-local ``FAILED``
+    terminal status with the exception attached — one bad statement never
+    takes down the others.
+  * ``step()`` is one scheduling quantum: sweep deadlines, admit while
+    ``max_running`` slots are free, then advance ONE unit of one running
+    query round-robin. ``max_running=1, policy="fifo"`` is the serial
+    ablation the interleaving benchmark compares against.
+  * :class:`ExecutorMetrics` mirrors ``serve.metrics.ServeMetrics``:
+    counters + derived properties + ``as_dict`` for the bench JSON, with
+    per-priority rollups (wait/turnaround in scheduler steps — the
+    deterministic clock the querymix gate uses).
+
+LM UDFs are rejected at submit: their PREDICT path spins up a BatchedServer
+session holding device state; nesting that inside another scheduler would
+fight over the device.
+
+Device policy: ``QueryExecutor`` takes ``device=None``, meaning the card, and
+raises ``RuntimeError`` when there is none; every statement it runs uses that
+device. Each PREDICT scan stages its pages through pinned buffers of its own
+and each TRAIN through its engine's, so interleaved queries never refill a
+buffer another query's copy still reads.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+from repro_torch.db.bufferpool import BufferPool
+from repro_torch.db.catalog import Catalog
+from repro_torch.db.heap import HeapFile
+from repro_torch.serve.scheduler import (
+    CANCELLED_DEADLINE,
+    FINISHED,
+    QUEUED,
+    REJECTED,
+    RUNNING,
+    AdmissionScheduler,
+    deadline_missed,
+)
+from repro_torch.serve import scheduler as _sched
+
+#: executor-local terminal status: the statement raised (error attached)
+FAILED = "FAILED"
+
+#: statuses a query can end in (serving's set + FAILED)
+TERMINAL = frozenset(_sched.TERMINAL | {FAILED})
+
+DEFAULT_CHUNK_PAGES = 64  # small chunks -> fine-grained interleaving
+
+
+@dataclasses.dataclass
+class QueryRequest:
+    """One submitted statement moving through the executor.
+
+    Field layout is scheduler-compatible (``seq``/``priority``/``submit_s``/
+    ``deadline_s``/``deadline_ttft_s``/``ttft_s``/``admit_seq`` are what
+    ``AdmissionScheduler`` and ``deadline_missed`` read). Steps are the
+    executor's deterministic clock: ``submit_step``/``admit_step``/
+    ``first_unit_step``/``finish_step`` index ``step()`` calls; ``ttft_s``
+    here is time-to-first-*chunk* (the query's first unit of device work).
+    """
+
+    qid: int
+    stmt: object  # query.Statement
+    priority: int = 0
+    deadline_s: float | None = None
+    deadline_ttft_s: float | None = None
+    exec_kwargs: dict = dataclasses.field(default_factory=dict)
+    # -- scheduler-protocol fields -------------------------------------------
+    seq: int = -1
+    status: str = QUEUED
+    submit_s: float | None = None
+    admit_s: float | None = None
+    ttft_s: float | None = None
+    admit_seq: int = -1
+    # -- step-clock accounting -----------------------------------------------
+    submit_step: int = 0
+    admit_step: int | None = None
+    first_unit_step: int | None = None
+    finish_step: int | None = None
+    units: int = 0
+    result: object | None = None  # query.QueryResult when FINISHED
+    error: BaseException | None = None  # set when FAILED
+
+    @property
+    def done(self) -> bool:
+        return self.status in TERMINAL
+
+
+@dataclasses.dataclass
+class ExecutorMetrics:
+    """Mixed-workload rollup, ``ServeMetrics``-shaped: per-step counters,
+    derived saturation numbers, ``as_dict`` for the bench JSON.
+
+    ``occupancy_pct`` is active-query-slots per step capacity
+    (``steps * max_running``) — the interleaving win is keeping this high
+    while a long TRAIN would otherwise serialize everything behind it.
+    ``wait_steps`` (submit→first unit) and ``turnaround_steps``
+    (submit→terminal) are per-query samples in scheduler steps, the
+    deterministic clock; per_priority carries the same split per class.
+    """
+
+    max_running: int
+    steps: int = 0
+    active_query_steps: int = 0
+    submitted: int = 0
+    admitted: int = 0
+    finished: int = 0
+    cancelled_deadline: int = 0
+    failed: int = 0
+    rejected: int = 0
+    train_units: int = 0
+    predict_units: int = 0
+    wait_steps: list[int] = dataclasses.field(default_factory=list)
+    turnaround_steps: list[int] = dataclasses.field(default_factory=list)
+    per_priority: dict = dataclasses.field(default_factory=dict)
+
+    def prio(self, priority: int) -> dict:
+        return self.per_priority.setdefault(int(priority), {
+            "submitted": 0, "finished": 0, "cancelled_deadline": 0,
+            "failed": 0, "wait_steps": [], "turnaround_steps": [],
+        })
+
+    @property
+    def slot_steps(self) -> int:
+        return self.steps * self.max_running
+
+    @property
+    def occupancy_pct(self) -> float:
+        return (100.0 * self.active_query_steps / self.slot_steps
+                if self.slot_steps else 0.0)
+
+    @property
+    def units(self) -> int:
+        return self.train_units + self.predict_units
+
+    @property
+    def mean_wait_steps(self) -> float | None:
+        return (sum(self.wait_steps) / len(self.wait_steps)
+                if self.wait_steps else None)
+
+    @property
+    def mean_turnaround_steps(self) -> float | None:
+        return (sum(self.turnaround_steps) / len(self.turnaround_steps)
+                if self.turnaround_steps else None)
+
+    def as_dict(self) -> dict:
+        return {
+            "max_running": self.max_running,
+            "steps": self.steps,
+            "slot_steps": self.slot_steps,
+            "active_query_steps": self.active_query_steps,
+            "occupancy_pct": self.occupancy_pct,
+            "submitted": self.submitted,
+            "admitted": self.admitted,
+            "finished": self.finished,
+            "cancelled_deadline": self.cancelled_deadline,
+            "failed": self.failed,
+            "rejected": self.rejected,
+            "train_units": self.train_units,
+            "predict_units": self.predict_units,
+            "units": self.units,
+            "mean_wait_steps": self.mean_wait_steps,
+            "mean_turnaround_steps": self.mean_turnaround_steps,
+            "wait_steps": list(self.wait_steps),
+            "turnaround_steps": list(self.turnaround_steps),
+            "per_priority": {str(k): dict(v)
+                             for k, v in self.per_priority.items()},
+        }
+
+
+class QueryExecutor:
+    """Admission queue + round-robin chunk interleaver over one catalog,
+    pool, and device.
+
+    ``submit`` parses/validates and enqueues (rejecting LM UDFs loudly);
+    ``step`` runs one scheduling quantum; ``drain`` steps until every
+    submitted query is terminal. ``max_running=1, policy="fifo"`` is the
+    serial ablation — same generators, same op sequences, so per-query
+    results match interleaved execution byte for byte.
+    """
+
+    def __init__(
+        self,
+        catalog: Catalog,
+        pool: BufferPool | None = None,
+        *,
+        max_running: int = 2,
+        policy: str = "priority",
+        chunk_pages: int | None = None,
+        clock=time.monotonic,
+        device=None,
+    ):
+        if max_running < 1:
+            raise ValueError(f"max_running must be >= 1, got {max_running}")
+        from repro_torch.core.engine import resolve_device
+
+        self.device = resolve_device(device)
+        self.catalog = catalog
+        self.pool = pool
+        self.max_running = max_running
+        self.chunk_pages = chunk_pages or DEFAULT_CHUNK_PAGES
+        self.clock = clock
+        self.sched = AdmissionScheduler(policy)
+        self.running: list[QueryRequest] = []
+        self.metrics = ExecutorMetrics(max_running=max_running)
+        self._gens: dict[int, object] = {}
+        self._next_qid = 0
+        self._next_admit = 0
+        self._rr = 0
+        self._all: list[QueryRequest] = []
+
+    # -- submission ----------------------------------------------------------
+    def submit(
+        self,
+        stmt,
+        *,
+        priority: int = 0,
+        deadline_s: float | None = None,
+        deadline_ttft_s: float | None = None,
+        **exec_kwargs,
+    ) -> QueryRequest:
+        """Enqueue a Statement (or SQL text). Raises — and marks the request
+        REJECTED — when the statement can never run here (LM UDFs)."""
+        from repro_torch.db import query as q
+
+        if isinstance(stmt, str):
+            stmt = q.parse(stmt)
+        req = QueryRequest(
+            qid=self._next_qid, stmt=stmt, priority=priority,
+            deadline_s=deadline_s, deadline_ttft_s=deadline_ttft_s,
+            exec_kwargs=dict(exec_kwargs),
+        )
+        self._next_qid += 1
+        req.submit_s = self.clock()
+        req.submit_step = self.metrics.steps
+        self._all.append(req)
+        self.metrics.submitted += 1
+        self.metrics.prio(priority)["submitted"] += 1
+        try:
+            artifact = self.catalog.udf(stmt.udf)
+            if artifact.get("kind") == "lm":
+                raise ValueError(
+                    f"UDF {stmt.udf!r} is a language model; LM PREDICT runs "
+                    f"a serving session holding device state and cannot be "
+                    f"interleaved — run it via Session.sql instead"
+                )
+        except Exception as e:
+            req.status = REJECTED
+            req.error = e
+            req.finish_step = self.metrics.steps
+            self.metrics.rejected += 1
+            raise
+        self.sched.push(req)
+        return req
+
+    # -- unit generators -----------------------------------------------------
+    def _predict_units(self, req: QueryRequest):
+        """PredictScan's double-buffered scan, yielding per chunk dispatch;
+        ONE device sync per scan, then finalize."""
+        from repro_torch.db import scoring
+
+        stmt = req.stmt
+        kw = req.exec_kwargs
+        t_start = time.perf_counter()
+        scan = scoring.PredictScan(
+            stmt, self.catalog, self.pool,
+            chunk_pages=kw.get("chunk_pages", self.chunk_pages),
+            into=stmt.insert_into if stmt.insert_into is not None
+            else kw.get("into"),
+            or_replace=stmt.or_replace or kw.get("or_replace", False),
+            device=self.device,
+        )
+        req.result = yield from scan.units(t_start)
+
+    def _train_units(self, req: QueryRequest):
+        """solver.train_units with the catalog write-back and QueryResult
+        assembly execute()'s TRAIN branch does, yielding per chunk."""
+        from repro_torch.core import solver
+        from repro_torch.db import query as q
+
+        stmt = req.stmt
+        kw = req.exec_kwargs
+        artifact = self.catalog.udf(stmt.udf)
+        heap = HeapFile(self.catalog.table(stmt.table)["heap"])
+        args = (artifact["hdfg"], artifact["partition"], heap)
+        opts = dict(pool=self.pool, mode=kw.get("mode", "dana"),
+                    max_epochs=kw.get("max_epochs"), seed=kw.get("seed", 0),
+                    device=self.device)
+        if heap.n_pages == 0:
+            # nothing to interleave; the synchronous path defines empty-heap
+            res = solver.train(*args, **opts)
+        else:
+            res = yield from solver.train_units(*args, **opts)
+        req.result = q._train_result(self.catalog, stmt, heap, artifact, res)
+
+    def _make_gen(self, req: QueryRequest):
+        if req.stmt.verb == "TRAIN":
+            return self._train_units(req)
+        return self._predict_units(req)
+
+    # -- lifecycle transitions -----------------------------------------------
+    def _finish(self, req: QueryRequest, status: str, error=None) -> None:
+        req.status = status
+        req.error = error
+        req.finish_step = self.metrics.steps
+        m = self.metrics
+        p = m.prio(req.priority)
+        turnaround = req.finish_step - req.submit_step
+        m.turnaround_steps.append(turnaround)
+        p["turnaround_steps"].append(turnaround)
+        if status == FINISHED:
+            m.finished += 1
+            p["finished"] += 1
+        elif status == CANCELLED_DEADLINE:
+            m.cancelled_deadline += 1
+            p["cancelled_deadline"] += 1
+        elif status == FAILED:
+            m.failed += 1
+            p["failed"] += 1
+
+    def _cancel_running(self, req: QueryRequest) -> None:
+        gen = self._gens.pop(req.qid, None)
+        if gen is not None:
+            gen.close()  # runs the generator's finally: pool left quiescent
+        self.running.remove(req)
+
+    # -- the scheduling quantum ----------------------------------------------
+    def step(self) -> bool:
+        """One quantum: deadline sweeps -> admission -> one unit of one
+        running query (round-robin). Returns True while work remains."""
+        m = self.metrics
+        m.steps += 1
+        now = self.clock()
+
+        # queued-side deadline sweep (scheduler removes, executor cancels)
+        for req in self.sched.expired(now):
+            self._finish(req, CANCELLED_DEADLINE)
+        # running-side sweep
+        for req in list(self.running):
+            if deadline_missed(req, now):
+                self._cancel_running(req)
+                self._finish(req, CANCELLED_DEADLINE)
+
+        # admit while slots are free
+        while len(self.running) < self.max_running and self.sched:
+            req = self.sched.pop()
+            req.status = RUNNING
+            req.admit_s = now
+            req.admit_step = m.steps
+            req.admit_seq = self._next_admit
+            self._next_admit += 1
+            m.admitted += 1
+            self.running.append(req)
+            self._gens[req.qid] = self._make_gen(req)
+
+        m.active_query_steps += len(self.running)
+
+        # advance one unit of one running query, round-robin
+        if self.running:
+            self._rr %= len(self.running)
+            req = self.running[self._rr]
+            gen = self._gens[req.qid]
+            try:
+                next(gen)
+            except StopIteration:
+                self._gens.pop(req.qid, None)
+                self.running.remove(req)
+                self._finish(req, FINISHED)
+            except Exception as e:
+                self._gens.pop(req.qid, None)
+                self.running.remove(req)
+                self._finish(req, FAILED, error=e)
+            else:
+                req.units += 1
+                if req.stmt.verb == "TRAIN":
+                    m.train_units += 1
+                else:
+                    m.predict_units += 1
+                if req.first_unit_step is None:
+                    req.first_unit_step = m.steps
+                    req.ttft_s = now - req.submit_s
+                    wait = req.first_unit_step - req.submit_step
+                    m.wait_steps.append(wait)
+                    m.prio(req.priority)["wait_steps"].append(wait)
+                self._rr += 1
+        return bool(self.running) or bool(self.sched)
+
+    def drain(self, max_steps: int | None = None) -> ExecutorMetrics:
+        """Step until every submitted query is terminal (or ``max_steps``).
+
+        The backstop exists for tests/benches; a healthy trace always
+        terminates — every generator is finite."""
+        steps = 0
+        while self.step():
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                raise RuntimeError(
+                    f"executor did not drain within {max_steps} steps "
+                    f"({len(self.running)} running, {len(self.sched)} queued)"
+                )
+        return self.metrics
+
+    # -- introspection -------------------------------------------------------
+    @property
+    def queries(self) -> list[QueryRequest]:
+        """Every request this executor has seen, submission order."""
+        return list(self._all)
+
+    def pending(self) -> int:
+        return len(self.running) + len(self.sched)

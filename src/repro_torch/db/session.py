@@ -1,0 +1,222 @@
+"""The SQL surface's front door on PyTorch: ``Database`` / ``Session``
+(counterpart of ``repro.db.session``, which it is held against).
+
+Everything the db/ layer grew — typed parse/execute, projected scoring,
+predicate trees, on-device aggregates, INSERT…SELECT chaining, the
+concurrent chunk-interleaving executor — lands behind one facade:
+
+    from repro_torch.db import connect
+
+    sess = connect("/path/to/catalog")
+    sess.sql("SELECT * FROM dana.linearR('training_table');")       # TRAIN
+    res = sess.sql("SELECT AVG(prediction) FROM dana.predict("
+                   "'linearR', 't') WHERE c1 > 0 AND c2 <= 0.5;")
+    h = sess.submit("SELECT * FROM dana.predict('linearR', 'big');",
+                    priority=1)                                      # async
+    res2 = h.result()
+    sess.close()                                                     # flush
+
+``Database`` owns the shared substrate — one :class:`Catalog`, one
+:class:`BufferPool`, one :class:`QueryExecutor` over one device — and hands
+out ``Session`` views via ``connect()``. ``Session.sql`` runs a statement
+synchronously through the typed ``parse``/``execute`` lower layer (which
+stays public for typed callers); ``Session.submit`` enqueues it on the
+concurrent executor and returns a :class:`QueryHandle` whose ``result()``
+drives the executor until that query is terminal — TRAIN epochs and PREDICT
+scans interleave at chunk granularity over the shared pool. ``close()``
+drains in-flight queries and flushes the pool.
+
+This module is the documented entry point for examples, launch CLIs, and
+tests; ``parse``/``execute`` remain the stable typed layer underneath.
+
+Device policy: ``Database`` and ``connect`` take ``device=None``, meaning the
+card, and raise ``RuntimeError`` when there is none; every statement of the
+database's sessions runs on that device (``device="cpu"`` for the CPU).
+"""
+from __future__ import annotations
+
+from repro_torch.db.bufferpool import BufferPool
+from repro_torch.db.catalog import Catalog
+from repro_torch.db.executor import FAILED, TERMINAL, QueryExecutor, QueryRequest
+from repro_torch.serve.scheduler import CANCELLED_DEADLINE, FINISHED, REJECTED
+
+DEFAULT_POOL_PAGES = 512  # shared-pool capacity in pages (solver's chunk)
+
+
+class QueryHandle:
+    """A submitted statement's future. ``result()`` drives the shared
+    executor until this query is terminal, then returns its QueryResult —
+    or raises: the query's own exception when FAILED/REJECTED, TimeoutError
+    when a deadline cancelled it."""
+
+    def __init__(self, executor: QueryExecutor, req: QueryRequest):
+        self._executor = executor
+        self.req = req
+
+    @property
+    def status(self) -> str:
+        return self.req.status
+
+    def done(self) -> bool:
+        return self.req.status in TERMINAL
+
+    def result(self):
+        while not self.done():
+            if not self._executor.step() and not self.done():
+                raise RuntimeError(
+                    f"executor drained but query {self.req.qid} is still "
+                    f"{self.req.status!r}"
+                )
+        st = self.req.status
+        if st == FINISHED:
+            return self.req.result
+        if st == CANCELLED_DEADLINE:
+            raise TimeoutError(
+                f"query {self.req.qid} cancelled: deadline exceeded "
+                f"({self.req.stmt.sql!r})"
+            )
+        # FAILED / REJECTED carry the original exception
+        raise self.req.error
+
+
+class Session:
+    """One connection's view of a :class:`Database` (shared pool, catalog,
+    executor). ``sql`` is synchronous; ``submit`` is the async path through
+    the concurrent executor. Closing the session drains its database's
+    executor and flushes the shared pool."""
+
+    def __init__(self, db: "Database"):
+        self._db = db
+        self._closed = False
+
+    # -- queries -------------------------------------------------------------
+    def sql(self, text: str, *, into: str | None = None,
+            or_replace: bool = False, **exec_kwargs):
+        """Parse + execute one statement synchronously; returns the typed
+        QueryResult. ``into=`` mirrors ``INSERT INTO`` for callers building
+        statements programmatically; remaining kwargs flow to ``execute``
+        (``max_epochs=``, ``chunk_pages=``, ...)."""
+        from repro_torch.db import query as q
+
+        self._check_open()
+        stmt = q.parse(text)
+        return q.execute(
+            stmt, self._db.catalog, pool=self._db.pool,
+            into=into, or_replace=or_replace, device=self._db.device,
+            **exec_kwargs,
+        )
+
+    def submit(self, text: str, *, priority: int = 0,
+               deadline_s: float | None = None,
+               deadline_ttft_s: float | None = None,
+               **exec_kwargs) -> QueryHandle:
+        """Enqueue a statement on the shared concurrent executor; returns a
+        :class:`QueryHandle`. Queries submitted before calling ``result()``
+        (or ``drain()``) interleave at chunk granularity."""
+        self._check_open()
+        req = self._db.executor.submit(
+            text, priority=priority, deadline_s=deadline_s,
+            deadline_ttft_s=deadline_ttft_s, **exec_kwargs,
+        )
+        return QueryHandle(self._db.executor, req)
+
+    def drain(self):
+        """Run the executor until every submitted query is terminal; returns
+        its ExecutorMetrics rollup."""
+        self._check_open()
+        return self._db.executor.drain()
+
+    # -- lifecycle -----------------------------------------------------------
+    def close(self) -> None:
+        """Drain in-flight queries and flush the shared buffer pool."""
+        if self._closed:
+            return
+        self._closed = True
+        self._db.executor.drain()
+        self._db.pool.clear()
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError("session is closed")
+
+    def __enter__(self) -> "Session":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- introspection (catalog passthrough) ---------------------------------
+    @property
+    def catalog(self) -> Catalog:
+        return self._db.catalog
+
+    @property
+    def pool(self) -> BufferPool:
+        return self._db.pool
+
+    @property
+    def metrics(self):
+        """The shared executor's ExecutorMetrics (live, not a snapshot)."""
+        return self._db.executor.metrics
+
+    def tables(self) -> list[str]:
+        return self._db.catalog.tables()
+
+    def udfs(self) -> list[str]:
+        return self._db.catalog.udfs()
+
+
+class Database:
+    """The shared substrate behind every session: one catalog, one buffer
+    pool, one concurrent query executor over one device.
+
+    ``catalog`` is a :class:`Catalog` or a path (created if absent).
+    ``scheduler``/``max_running`` configure the concurrent executor
+    (``max_running=1, scheduler="fifo"`` is the serial ablation).
+    ``device=None`` means the card.
+    """
+
+    def __init__(
+        self,
+        catalog,
+        *,
+        pool: BufferPool | None = None,
+        pool_bytes: int | None = None,
+        page_bytes: int = 32 * 1024,
+        max_running: int = 2,
+        scheduler: str = "priority",
+        chunk_pages: int | None = None,
+        device=None,
+    ):
+        from repro_torch.core.engine import resolve_device
+
+        self.device = resolve_device(device)
+        self.catalog = catalog if isinstance(catalog, Catalog) else Catalog(catalog)
+        self.pool = pool or BufferPool(
+            pool_bytes=pool_bytes or DEFAULT_POOL_PAGES * page_bytes,
+            page_bytes=page_bytes,
+        )
+        self.executor = QueryExecutor(
+            self.catalog, self.pool, max_running=max_running,
+            policy=scheduler, chunk_pages=chunk_pages, device=self.device,
+        )
+
+    def connect(self) -> Session:
+        return Session(self)
+
+    def close(self) -> None:
+        """Drain the executor and flush the pool (idempotent)."""
+        self.executor.drain()
+        self.pool.clear()
+
+
+def connect(catalog, **kwargs) -> Session:
+    """One-call front door: ``connect(catalog_path_or_obj) -> Session``.
+    Keyword arguments configure the underlying :class:`Database`."""
+    return Database(catalog, **kwargs).connect()
+
+
+__all__ = [
+    "Database", "Session", "QueryHandle", "connect",
+    "FAILED", "TERMINAL", "CANCELLED_DEADLINE", "FINISHED", "REJECTED",
+]

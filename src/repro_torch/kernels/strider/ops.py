@@ -1,15 +1,18 @@
-"""Public strider decode: the plain version for a CPU tensor, the Hopper
-kernel for a CUDA tensor (counterpart of ``repro.kernels.strider.ops``).
+"""Public strider decode, full and projected: the plain version for a CPU
+tensor, the Hopper kernel for a CUDA tensor (counterpart of
+``repro.kernels.strider.ops``).
 
-There is no fallback: a CUDA tensor either launches the kernel or raises.
-The TPU's VMEM check has no counterpart, since the kernel never holds a
-whole page on chip.
+The JAX wrapper's ``use_kernel=`` has no counterpart: the tensor's device
+picks the kernel or the plain version. There is no fallback: a CUDA tensor
+either launches the kernel or raises. The TPU's VMEM check has no
+counterpart, since neither kernel holds a whole page on chip.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.striders import ProjectionPlan
 from repro_torch.db.page import PageLayout
 from repro_torch.kernels.strider import kernel, ref
 
@@ -29,3 +32,15 @@ def decode_pages(
     if pages.device.type == "cpu":
         return ref.decode_pages_ref(pages, layout)
     return kernel.strider_decode(pages, layout)
+
+
+def decode_pages_projected(
+    pages: torch.Tensor, layout: PageLayout, plan: ProjectionPlan,
+    src: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pushdown decode: pages (P, page_words) int32 -> (feats (P,T,C) in
+    ``plan.columns`` order, labels (P,T), mask (P,T)) f32 on the pages'
+    device. ``src`` is the kernel's prebuilt plan table (CUDA only)."""
+    if pages.device.type == "cpu":
+        return ref.decode_pages_projected_ref(pages, layout, plan)
+    return kernel.strider_decode_projected(pages, layout, plan, src)

@@ -1,0 +1,193 @@
+"""Scoring launcher of the port: drive the SQL surface through a
+``Database`` session on the card (counterpart of ``repro.launch.score``).
+
+    PYTHONPATH=src python -m repro_torch.launch.score --algo linear --rows 2000 \\
+        --features 16 --extra-cols 16 --where "c1 > 0.0 AND c2 <= 0.5" \\
+        --project c0,c1 [--device cpu]
+
+Builds a synthetic train table + wider scoring table, registers the UDF,
+then runs the mixed workload end to end through ``repro.db.connect``:
+TRAIN, a projected/filtered PREDICT (WHERE takes full AND/OR/NOT predicate
+trees), an on-device aggregate over the same scan, and an ``INSERT OR
+REPLACE INTO`` chaining the scored rows back into the catalog. Prints the
+pushdown bookkeeping — the end-to-end strider→engine scoring loop on one
+machine.
+
+``--concurrent`` replays the same statements through the session's
+*concurrent* executor instead (``session.submit``): a background TRAIN
+interleaves with the interactive PREDICTs at chunk granularity
+(``--scheduler fifo`` + ``--max-running 1`` is the serial ablation), and
+the ExecutorMetrics rollup is printed / written via ``--bench-out``.
+
+``--device`` defaults to ``cuda``; without a card the launcher raises unless
+``--device cpu`` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+
+import numpy as np
+
+from repro_torch.algorithms import ALGORITHMS
+from repro_torch.db import Database
+from repro_torch.db.heap import HeapFile, write_table
+from repro_torch.db.query import register_udf_from_trace
+from repro_torch.launch import common
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--algo", choices=["linear", "logistic", "svm"],
+                    default="linear")
+    ap.add_argument("--rows", type=int, default=2000)
+    ap.add_argument("--features", type=int, default=16,
+                    help="model input columns (schema prefix)")
+    ap.add_argument("--extra-cols", type=int, default=16,
+                    help="extra scoring-table columns the model ignores — "
+                         "what projection pushdown never decodes")
+    ap.add_argument("--where", default=None,
+                    help="predicate tree, e.g. 'c1 > 0.0 AND (c2 <= 0.5 "
+                         "OR NOT label == 0)'")
+    ap.add_argument("--project", default=None,
+                    help="comma list of result columns (default: c0)")
+    ap.add_argument("--aggregate", default="COUNT(*), AVG(prediction)",
+                    help="aggregate select list for the reduction query "
+                         "('' skips it)")
+    ap.add_argument("--epochs", type=int, default=40)
+    ap.add_argument("--page-bytes", type=int, default=32 * 1024)
+    ap.add_argument("--workdir", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--concurrent", action="store_true",
+                    help="run the statements through the concurrent "
+                         "executor (background TRAIN + interactive "
+                         "PREDICTs interleaved at chunk granularity)")
+    ap.add_argument("--max-running", type=int, default=2,
+                    help="concurrent executor slots (1 = serial ablation)")
+    ap.add_argument("--chunk-pages", type=int, default=None,
+                    help="pages per device chunk (the interleaving quantum)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device the statements run on (cpu: the "
+                         "kernels' plain versions)")
+    common.add_scheduler_flags(ap)
+    common.add_bench_out_flag(ap)
+    args = ap.parse_args(argv)
+
+    root = args.workdir or tempfile.mkdtemp(prefix="dana_score_")
+    rng = np.random.default_rng(args.seed)
+    d = args.features
+
+    Xtr = rng.normal(0, 1, (args.rows, d)).astype(np.float32)
+    w_true = rng.normal(0, 1, d).astype(np.float32)
+    if args.algo == "linear":
+        ytr = Xtr @ w_true
+    else:
+        ytr = np.where(Xtr @ w_true > 0, 1.0, -1.0).astype(np.float32)
+        if args.algo == "logistic":
+            ytr = (ytr + 1) / 2
+    write_table(os.path.join(root, "train.heap"), Xtr, ytr,
+                page_bytes=args.page_bytes)
+
+    wide = d + args.extra_cols
+    Xs = rng.normal(0, 1, (args.rows, wide)).astype(np.float32)
+    write_table(os.path.join(root, "score.heap"), Xs,
+                np.zeros(args.rows, np.float32), page_bytes=args.page_bytes)
+
+    db = Database(
+        os.path.join(root, "catalog"), page_bytes=args.page_bytes,
+        max_running=args.max_running, scheduler=args.scheduler,
+        chunk_pages=args.chunk_pages, device=args.device,
+    )
+    # or_replace: a reused --workdir re-registers the same names
+    db.catalog.register_table("train_t", os.path.join(root, "train.heap"),
+                              {"n_features": d}, or_replace=True)
+    db.catalog.register_table("score_t", os.path.join(root, "score.heap"),
+                              {"n_features": wide}, or_replace=True)
+    layout = HeapFile(os.path.join(root, "train.heap")).layout
+    algo_fn = ALGORITHMS[args.algo]
+    register_udf_from_trace(
+        db.catalog, "udf",
+        lambda: algo_fn(d, lr=0.1, merge_coef=32, epochs=args.epochs),
+        layout=layout,
+    )
+
+    sess = db.connect()
+    proj = args.project or "c0"
+    where = f" WHERE {args.where}" if args.where else ""
+    train_sql = "SELECT * FROM dana.udf('train_t');"
+    predict_sql = f"SELECT {proj} FROM dana.predict('udf', 'score_t'){where};"
+    agg_sql = (f"SELECT {args.aggregate} FROM dana.predict"
+               f"('udf', 'score_t'){where};" if args.aggregate else None)
+    insert_sql = ("INSERT OR REPLACE INTO scored "
+                  + predict_sql.rstrip(";").lstrip() + ";")
+
+    if args.concurrent:
+        res = _run_concurrent(sess, args, train_sql, predict_sql, agg_sql)
+    else:
+        print(f"[score] {train_sql}")
+        tr = sess.sql(train_sql, max_epochs=args.epochs, seed=args.seed)
+        print(f"[score] trained: {tr.train.epochs_run} epochs, "
+              f"{tr.total_s:.2f}s, exposed io {tr.exposed_io_s*1e3:.1f}ms")
+        print(f"[score] {predict_sql}")
+        res = sess.sql(predict_sql, chunk_pages=args.chunk_pages)
+        if agg_sql:
+            print(f"[score] {agg_sql}")
+            agg = sess.sql(agg_sql, chunk_pages=args.chunk_pages)
+            print(f"[score] aggregates (device-reduced, no result pages): "
+                  f"{agg.aggregates}")
+        print(f"[score] {insert_sql}")
+        ins = sess.sql(insert_sql, chunk_pages=args.chunk_pages)
+        print(f"[score] chained {ins.n_rows} scored rows into catalog "
+              f"table 'scored' (schema {list(ins.schema)})")
+
+    pd = res.pushdown
+    print(f"[score] {res.n_rows}/{res.rows_scanned} rows "
+          f"({res.rows_filtered} filtered), schema {res.schema}")
+    print(f"[score] pushdown: decoded cols {pd.columns_decoded} of "
+          f"{pd.n_columns_total}; {pd.bytes_decoded}/{pd.bytes_full_decode} "
+          f"bytes ({pd.decode_bytes_ratio:.2f}x fewer), "
+          f"cycles {pd.strider_cycles} vs {pd.strider_cycles_full}")
+    print(f"[score] wall {res.total_s:.3f}s — exposed io "
+          f"{res.exposed_io_s*1e3:.1f}ms, overlapped "
+          f"{res.overlapped_io_s*1e3:.1f}ms, device syncs {res.device_syncs}")
+    common.write_bench_out(args, {
+        "algo": args.algo,
+        "rows": args.rows,
+        "pushdown_decode_bytes_ratio": pd.decode_bytes_ratio,
+        "device_syncs": res.device_syncs,
+        "querymix": sess.metrics.as_dict() if args.concurrent else None,
+    })
+    sess.close()
+    return res
+
+
+def _run_concurrent(sess, args, train_sql, predict_sql, agg_sql):
+    """Background TRAIN + interactive PREDICT/aggregate via session.submit."""
+    print(f"[score] concurrent executor: scheduler={args.scheduler} "
+          f"max_running={args.max_running}")
+    # Seed the model so the interactive PREDICTs (which admit immediately)
+    # have something to scan; the background TRAIN below is the retrain.
+    sess.sql(train_sql, max_epochs=1, seed=args.seed)
+    h_train = sess.submit(train_sql, priority=2,
+                          max_epochs=args.epochs, seed=args.seed,
+                          deadline_s=args.deadline)
+    h_pred = sess.submit(predict_sql, priority=0,
+                         deadline_ttft_s=args.deadline_ttft,
+                         deadline_s=args.deadline)
+    h_agg = sess.submit(agg_sql, priority=0) if agg_sql else None
+    res = h_pred.result()
+    if h_agg is not None:
+        print(f"[score] aggregates (device-reduced, no result pages): "
+              f"{h_agg.result().aggregates}")
+    tr = h_train.result()
+    print(f"[score] background TRAIN finished: {tr.train.epochs_run} epochs")
+    m = sess.metrics
+    print(f"[score] executor: {m.steps} steps, occupancy "
+          f"{m.occupancy_pct:.0f}%, {m.train_units} train / "
+          f"{m.predict_units} predict units, finished {m.finished}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -210,8 +210,11 @@ _ISOLATION_SCRIPT = textwrap.dedent(
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
     for name in names:
         importlib.import_module(name)
-    assert "repro_torch.core.solver" in sys.modules
-    assert "repro_torch.kernels.engine.kernel" in sys.modules
+    for name in ("core.solver", "kernels.engine.kernel", "core.isa", "core.striders",
+                 "core.scheduler", "core.hwgen", "db.catalog", "db.query", "db.scoring",
+                 "db.executor", "db.session", "serve.scheduler", "launch.common",
+                 "launch.score"):
+        assert "repro_torch." + name in sys.modules, name
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "jax"
     bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
     assert not bad, bad
