@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card: DAnA's TRAIN path and
-its in-database scoring (SQL PREDICT) at full size, through the port's
-hand-written CUDA kernels.
+its in-database scoring (SQL PREDICT) at full size, and LM serving of
+mistral-nemo-12b at full width and depth, through the port's hand-written
+CUDA kernels.
 
 Phases, one JSON line each:
 
@@ -9,8 +10,10 @@ Phases, one JSON line each:
   build    nvcc builds of src/repro_torch/csrc/*.cu, all started together
   parity   each kernel against its plain PyTorch version on the same CUDA
            tensors: the full and the projected strider decode bit for bit,
-           the GLM gradient at rtol=2e-5, atol=2e-4 and GLM scoring at
-           atol=2e-6, svm exactly (the reference's own tolerances)
+           the GLM gradient at rtol=2e-5, atol=2e-4, GLM scoring at
+           atol=2e-6, svm exactly, and paged attention at rtol=atol=2e-5
+           over the CPU tests' cases and the MLA shapes (the reference's own
+           tolerances), each deterministic
   e2e      remote_sensing_lr from the paper's Table 3 (logistic regression,
            54 features, 581,102 tuples in 4,211 pages of 32 KB, warm pool)
            trained for 3 epochs by solver.train(mode="dana") on the card;
@@ -25,6 +28,18 @@ Phases, one JSON line each:
            two of them replayed on the CPU, the concurrent executor against
            the serial run byte for byte, and one scan under the sync debug
            mode
+  serve    mistral-nemo-12b (40 layers, full width, bf16 weights from seed
+           0 on the card) serving 48 greedy requests through
+           BatchedServer(kv="paged", step_mode="tokens", attn_impl="kernel"):
+           every request FINISHED, the kernel's launches against the fused
+           steps, the same stream through the gather path and 8 requests
+           through chunked stepping token for token (except at near-ties,
+           which are reported, measured against a logit deviation that must
+           stay within DEVIATION_LIMIT; a kernel that drops each token's own
+           row must break that limit), one host read per fused step under
+           the sync debug mode, and 5 profiled steps (busy time from the
+           device's own events)
+  launch   launch/serve.py's main() at the same full configuration
   kernels  each kernel's launches on the main path, error, time, bound,
            plain version's time and library yardstick
 
@@ -41,6 +56,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -55,7 +71,24 @@ MERGE_COEF = 256
 # 9 chunks of at most 512 pages and 2,270 merge batches of 256 per epoch
 EXPECT = {"geometry": (581_102, 54, 138, 4211),
           "launches": {"strider_decode": 27, "glm_grad": 6810}}
-KERNEL_SOURCES = ("strider_decode", "glm_grad", "strider_decode_projected", "glm_predict")
+# the serve phase: mistral-nemo-12b at full width and depth; the longest
+# prompt (1024 tokens) plus 64 new tokens fits max_seq
+SERVE_ARCH = "mistral-nemo-12b"
+SERVE = {"batch_slots": 16, "kv": "paged", "block_size": 16, "step_mode": "tokens",
+         "prefill_chunk": 16, "attn_impl": "kernel"}
+SERVE_REQUESTS = 48
+SERVE_MAX_NEW = 64
+SERVE_MAX_SEQ = 1088
+TEMPLATE_LEN = 256
+TEMPLATE_ONLY = (4, 30)
+# the most that two sound computations' greedy logits may deviate (largest
+# spread over the vocab of their difference, teacher-forced) before a
+# divergence between them stops counting as a near-tie. Sound runs on an
+# H100 spread 0.094-0.106 (kernel vs gather) and 0.146 (8 vs 64 tokens per
+# call); a bf16 logit in [4, 8) moves in steps of 0.03125
+DEVIATION_LIMIT = 0.25
+KERNEL_SOURCES = ("strider_decode", "glm_grad", "strider_decode_projected", "glm_predict",
+                  "paged_attn")
 # the predict phase's statements (table 'remote_sensing', UDF 'rs_lr')
 SQL = {
     "train": "SELECT * FROM dana.rs_lr('remote_sensing');",
@@ -325,12 +358,14 @@ def phase_parity_predict():
 def _wrappers():
     """Each kernel's wrapper by name: each counts the launches of its kernel."""
     from repro_torch.kernels.engine import kernel as glm_kernel
+    from repro_torch.kernels.paged_attn import kernel as pa_kernel
     from repro_torch.kernels.strider import kernel as strider_kernel
 
     return {"strider_decode": strider_kernel.strider_decode,
             "glm_grad": glm_kernel.glm_grad,
             "strider_decode_projected": strider_kernel.strider_decode_projected,
-            "glm_predict": glm_kernel.glm_predict}
+            "glm_predict": glm_kernel.glm_predict,
+            "paged_attn": pa_kernel.paged_attention}
 
 
 def zero_launches() -> None:
@@ -381,26 +416,51 @@ def _scan_loop_lines():
         glm_kernel, glm_ops, strider_kernel, strider_ops))
 
 
-def _device_profile(run):
+def _device_busy(events):
+    """(busy seconds, {name: [ms, count]}) of the device's own events
+    (kernels, copies, sets): busy time is the union of their intervals, so
+    overlapping events count once."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name: dict[str, list] = {}
+    for e in events:
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += (e.time_range.end - e.time_range.start) / 1e3
+        entry[1] += 1
+    return busy_us / 1e6, by_name
+
+
+def _device_profile(run, kernels=()):
     """Run ``run()`` under torch.profiler: (traced seconds, the card's busy
-    seconds, the top device and host-self entries in ms totals)."""
+    seconds, the top device and host-self entries in ms totals). Only the
+    device's own events are read for device time: an op's
+    ``self_device_time_total`` holds the kernels it launched, which are also
+    entries of their own. ``kernels`` names substrings whose device ms are
+    reported under ``device_ms_of``."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         traced_s = time.perf_counter() - t0
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy_s, by_name = _device_busy(device)
     stats = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0) or 0
-
-    top = {"top_device": [[e.key, dev_us(e) / 1e3, e.count]
-                          for e in sorted(stats, key=dev_us, reverse=True)[:6]],
+    top = {"top_device": [[name, ms, n] for name, (ms, n) in
+                          sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]],
            "top_host_self": [[e.key, e.self_cpu_time_total / 1e3, e.count]
                              for e in sorted(stats, key=lambda e: e.self_cpu_time_total,
                                              reverse=True)[:8]]}
-    return traced_s, sum(dev_us(e) for e in stats) / 1e6, top
+    if kernels:
+        top["device_ms_of"] = {k: sum(ms for name, (ms, _) in by_name.items() if k in name)
+                               for k in kernels}
+    return traced_s, busy_s, top
 
 
 def _synchronizing_calls(run, spans):
@@ -485,9 +545,9 @@ def phase_e2e():
     epoch_s = [b - a for a, b in zip([t_start] + sync_at[:-1], sync_at)]
 
     want = {"strider_decode": EPOCHS * n_chunks, "glm_grad": EPOCHS * batches,
-            "strider_decode_projected": 0, "glm_predict": 0}
+            "strider_decode_projected": 0, "glm_predict": 0, "paged_attn": 0}
     if launches != want or want != dict(EXPECT["launches"], strider_decode_projected=0,
-                                        glm_predict=0):
+                                        glm_predict=0, paged_attn=0):
         raise AssertionError(f"launches {launches}, expected {want}")
     if res.device_syncs != EPOCHS or res.epochs_run != EPOCHS or len(sync_at) != EPOCHS:
         raise AssertionError(f"device_syncs {res.device_syncs} != {EPOCHS}")
@@ -614,7 +674,8 @@ def _predict_phase(heap, res, db, n_chunks, joins):
         raise AssertionError("the SQL TRAIN's coefficients differ from solver.train's")
     want = {"strider_decode": EXPECT["launches"]["strider_decode"],
             "glm_grad": EXPECT["launches"]["glm_grad"],
-            "strider_decode_projected": 3 * n_chunks, "glm_predict": 3 * n_chunks}
+            "strider_decode_projected": 3 * n_chunks, "glm_predict": 3 * n_chunks,
+            "paged_attn": 0}
     if launches != want:
         raise AssertionError(f"predict-path launches {launches}, expected {want}")
     if [n for n, _ in joins] != [n_chunks] * 3:
@@ -872,7 +933,467 @@ def phase_kernels(heap, engine, res, launches, db, predict_launches):
     }
     if b4_err > 2e-6:
         raise AssertionError(f"glm_predict differs by {b4_err} at the main path's chunks")
-    emit({"kernels": [b1, b2, b3, b4]})
+    return [b1, b2, b3, b4]
+
+
+def phase_parity_paged_attn():
+    import numpy as np
+    import torch
+
+    from test_torch_paged_attn_cases import CASES, make
+    from repro_torch.kernels.paged_attn import kernel, ref
+
+    cases = {name: fn() for name, fn in CASES.items()}
+    # the absorbed-MLA call shapes a later slice gives the kernel: one kv
+    # head, G = n_heads, Dk = kv_lora + rope, Dv = kv_lora
+    for g, dk, dv in ((40, 288, 256), (128, 576, 512)):
+        cases[f"mla_g{g}_dk{dk}_dv{dv}"] = make(t=7, kvh=1, g=g, dk=dk, dv=dv, nb_slot=8, bs=16,
+                                               num_blocks=64, seed=g, bf16=True,
+                                               scale=1 / np.sqrt(dk))
+    worst = 0.0
+    for name, (q, k, v, table, pos, kw, bf16) in cases.items():
+        dt = torch.bfloat16 if bf16 else torch.float32
+        q, k, v = (torch.from_numpy(a).cuda().to(dt) for a in (q, k, v))
+        table, pos = torch.from_numpy(table).cuda(), torch.from_numpy(pos).cuda()
+        got = kernel.paged_attention(q, k, v, table, pos, **kw)
+        again = kernel.paged_attention(q, k, v, table, pos, **kw)
+        plain = ref.paged_attn_ref(q, k, v, table, pos, **kw)
+        torch.testing.assert_close(got, plain, rtol=2e-5, atol=2e-5, msg=name)
+        if not torch.equal(got, again):
+            raise AssertionError(f"paged_attn is not deterministic: {name}")
+        worst = max(worst, float((got - plain).abs().max()))
+    emit({"phase": "parity", "kernel": "paged_attn", "cases": len(cases),
+          "names": sorted(cases), "rtol": 2e-5, "atol": 2e-5, "max_abs_err": worst,
+          "deterministic": True})
+
+
+def _serve_stream(vocab: int):
+    """The serve phase's traffic, from seed 0: (rid, prompt, priority, arrival
+    step) for 48 greedy requests. Prompt lengths are drawn over 128-1024;
+    every even rid opens with one shared 256-token template (rids in
+    TEMPLATE_ONLY are the template alone: their last prompt position lies in
+    a shared block, which is copied before it is written); a quarter of the
+    requests are priority 0, the rest priority 2; 16 arrive at step 0, then
+    one every 3 steps, so priority-0 arrivals find the slots full."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    template = rng.integers(1, vocab, TEMPLATE_LEN).tolist()
+    stream = []
+    for rid in range(SERVE_REQUESTS):
+        n = int(rng.integers(128, 1025))
+        if rid in TEMPLATE_ONLY:
+            prompt = list(template)
+        elif rid % 2 == 0:
+            prompt = template + rng.integers(1, vocab, max(n - TEMPLATE_LEN, 16)).tolist()
+        else:
+            prompt = rng.integers(1, vocab, n).tolist()
+        prio = 0 if rng.random() < 0.25 else 2
+        stream.append((rid, prompt, prio, 0 if rid < 16 else 3 * (rid - 16)))
+    return stream
+
+
+class _Arrivals:
+    """A stream replayed against a server's step clock: each request is
+    submitted at its arrival step."""
+
+    def __init__(self, server, stream):
+        self.server = server
+        self.pending = sorted(stream, key=lambda r: (r[3], r[0]))
+        self.i = 0
+
+    def run(self, max_steps=None):
+        """Step until everything is terminal (or ``max_steps`` steps):
+        {rid: request} of the terminal requests."""
+        from repro_torch.serve.serving import Request
+
+        srv, steps = self.server, 0
+        while (self.i < len(self.pending) or srv.queue
+               or any(r is not None for r in srv.active)) \
+                and (max_steps is None or steps < max_steps):
+            while self.i < len(self.pending) and self.pending[self.i][3] <= srv.step_no:
+                rid, prompt, prio, _ = self.pending[self.i]
+                srv.submit(Request(rid, list(prompt), SERVE_MAX_NEW, priority=prio))
+                self.i += 1
+            srv.step()
+            steps += 1
+        return {r.rid: r for r in srv.finished}
+
+
+def _count_forwards(server):
+    """Count the server's fused decodes (each runs the 40 layers' attention)."""
+    calls = [0]
+    real = server._forward
+
+    def forward(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    server._forward = forward
+    return calls
+
+
+def _teacher_forced(cfg, params, seq, impl, chunk, block):
+    """Logits (f32, true vocab) of ``seq`` teacher-forced through the paged
+    decode of one slot, ``chunk`` tokens per call, yielded ``block`` rows at
+    a time."""
+    import torch
+
+    from repro_torch.models import model_zoo
+
+    bs = SERVE["block_size"]
+    nb = -(-len(seq) // bs)
+    dev = params["embed"]["table"].device
+    cache = model_zoo.make_paged_cache(cfg, nb, bs, dev)
+    row = torch.arange(nb, dtype=torch.int32, device=dev)
+    decode = model_zoo.decode_fn(cfg)
+    for b0 in range(0, len(seq), block):
+        parts = []
+        for s in range(b0, min(b0 + block, len(seq)), chunk):
+            toks = seq[s:min(s + chunk, b0 + block, len(seq))]
+            t = len(toks)
+            ctx = {"table": row.expand(t, nb).contiguous(), "block_size": bs,
+                   "write_ok": torch.ones(t, dtype=torch.bool, device=dev),
+                   "max_seq": len(seq), "impl": impl}
+            logits, _ = decode(params, torch.tensor(toks, dtype=torch.int32, device=dev),
+                               cache, torch.arange(s, s + t, dtype=torch.int32, device=dev),
+                               paged=ctx)
+            parts.append(logits[:, :cfg.vocab_size].float())
+        yield torch.cat(parts)
+
+
+def _deviation(cfg, params, seq, side, ref_side):
+    """The logits' measured deviation along ``seq``: the largest spread (max
+    minus min over the vocab) of the difference between two computations
+    (``side`` and ``ref_side``, each (impl, tokens per call)),
+    teacher-forced; and the reference's logits at the last position."""
+    block = max(side[1], ref_side[1])
+    deviation, last = 0.0, None
+    for a, b in zip(_teacher_forced(cfg, params, seq, *side, block),
+                    _teacher_forced(cfg, params, seq, *ref_side, block)):
+        d = a - b
+        deviation = max(deviation, float((d.max(1).values - d.min(1).values).max()))
+        last = b[-1]
+    return deviation, last
+
+
+def _divergence(cfg, params, rid, prompt, got, want, side, ref_side):
+    """Where ``got`` first leaves ``want`` (the reference's tokens), the
+    reference's top-2 logit margin and the logits' deviation along the common
+    history. A margin can move by no more than that spread, so a divergence
+    is a near-tie when the margin is below it."""
+    import torch
+
+    k = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    deviation, last = _deviation(cfg, params, list(prompt) + list(want[:k]), side, ref_side)
+    top = torch.topk(last, 2).values
+    margin = float(top[0] - top[1])
+    return {"rid": rid, "index": k, "margin": margin, "deviation": deviation,
+            "near_tie": margin < deviation}
+
+
+def _limit_check(cfg, params, seq):
+    """The deviation limit against two broken kernels, teacher-forced on
+    ``seq`` beside the gather path: one that drops each token's own row
+    (its position read as one less), which the limit must catch, and one
+    whose softmax scale is 5% off, reported to show how fine an error the
+    limit can see (the parity phase holds the kernel to 2e-5)."""
+    from repro_torch.kernels.paged_attn import kernel, ops
+
+    real = kernel.paged_attention
+    mutants = {
+        "drop_own_row": lambda q, k, v, t, p, **kw: real(q, k, v, t, (p - 1).clamp(min=0), **kw),
+        "scale_x1.05": lambda q, k, v, t, p, **kw: real(q, k, v, t, p,
+                                                        **dict(kw, scale=kw["scale"] * 1.05)),
+    }
+    got = {}
+    try:
+        for name, fn in mutants.items():
+            ops.kernel = types.SimpleNamespace(paged_attention=fn)
+            got[name] = _deviation(cfg, params, seq, ("kernel", 64), ("gather", 64))[0]
+    finally:
+        ops.kernel = kernel
+    if got["drop_own_row"] <= DEVIATION_LIMIT:
+        raise AssertionError(f"the deviation limit does not catch a kernel that drops each "
+                             f"token's own row: {got}")
+    return {"tokens": len(seq), **got}
+
+
+def _near_ties(cfg, params, stream, got, want, side, ref_side, what):
+    """Compare ``got`` with ``want`` token for token. A divergence passes only
+    as a near-tie, and only while the deviation it is measured against stays
+    within DEVIATION_LIMIT: the deviation comes from the computations under
+    test, so a wrong one would otherwise excuse its own divergences. The
+    deviation is also measured on one probe request (the longest compared),
+    whether or not anything diverged. Returns (divergences, probe)."""
+    prompts = {rid: prompt for rid, prompt, _, _ in stream}
+    ties = []
+    for rid, out in sorted(got.items()):
+        if len(out) != len(want[rid]):
+            raise AssertionError(f"{what}: request {rid} generated {len(out)} tokens, "
+                                 f"the reference {len(want[rid])}")
+        if out != want[rid]:
+            ties.append(_divergence(cfg, params, rid, prompts[rid], out, want[rid], side,
+                                    ref_side))
+    rid = max(got, key=lambda r: (len(prompts[r]), r))
+    probe = {"rid": rid, "deviation": _deviation(cfg, params, list(prompts[rid]) +
+                                                 list(want[rid][:-1]), side, ref_side)[0]}
+    wide = [t for t in ties + [probe] if t["deviation"] > DEVIATION_LIMIT]
+    if wide:
+        raise AssertionError(f"{what}: logits deviate by more than {DEVIATION_LIMIT}: {wide}")
+    bad = [t for t in ties if not t["near_tie"]]
+    if bad:
+        raise AssertionError(f"{what}: divergences that are not near-ties: {bad}")
+    return ties, probe
+
+
+def phase_serve():
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attn import kernel as pa_kernel
+    from repro_torch.kernels.paged_attn import ops as pa_ops
+    from repro_torch.models import model_zoo
+    from repro_torch.models.params import leaves
+    from repro_torch.serve import scheduler as sched
+    from repro_torch.serve.serving import BatchedServer
+
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = model_zoo.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    stream = _serve_stream(cfg.vocab_size)
+
+    def server(**kw):
+        return BatchedServer(cfg, params, max_seq=SERVE_MAX_SEQ, device="cuda",
+                             **dict(SERVE, **kw))
+
+    # the main path: tokens stepping through the kernel, with the kernel's
+    # first call of step 100 captured for the kernels phase (a mixed step:
+    # prefill chunks beside decode tokens, at contexts of hundreds of rows)
+    main = server()
+    if main.attn_impl != "kernel" or main.step_mode != "tokens" or not main.prefix_cache:
+        raise AssertionError("the server did not take the kernel path with token stepping")
+    forwards = _count_forwards(main)
+    real = pa_kernel.paged_attention
+    captured = {}
+
+    def capture(q, k_pool, v_pool, table, pos, **kw):
+        if not captured and main.step_no >= 100:
+            captured.update(q=q.clone(), k_pool=k_pool.clone(), v_pool=v_pool.clone(),
+                            table=table.clone(), pos=pos.clone(), kw=kw, step=main.step_no)
+        return real(q, k_pool, v_pool, table, pos, **kw)
+
+    zero_launches()
+    # the wrapper counts its launches on itself, so the capture goes between
+    # ops and the kernel module rather than in the module's place
+    pa_ops.kernel = types.SimpleNamespace(paged_attention=capture)
+    try:
+        t0 = time.perf_counter()
+        done = _Arrivals(main, stream).run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        pa_ops.kernel = pa_kernel
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    m = main.metrics
+    if sorted(done) != list(range(SERVE_REQUESTS)) or \
+            any(r.status != sched.FINISHED or len(r.out) != SERVE_MAX_NEW for r in done.values()):
+        raise AssertionError("not every request FINISHED with its 64 tokens")
+    if launches["paged_attn"] != cfg.n_layers * forwards[0] or forwards[0] == 0:
+        raise AssertionError(f"paged_attn launched {launches['paged_attn']} times over "
+                             f"{forwards[0]} fused decodes of {cfg.n_layers} layers")
+    if any(v for k, v in launches.items() if k != "paged_attn"):
+        raise AssertionError(f"the serve path launched other kernels: {launches}")
+    if m.prefix_hits == 0 or m.cow_splits == 0:
+        raise AssertionError(f"prefix hits {m.prefix_hits}, copy-on-write splits "
+                             f"{m.cow_splits}: sharing did not run")
+    if not captured:
+        raise AssertionError("no decode call of the kernel was captured")
+    outs = {rid: r.out for rid, r in done.items()}
+    for out in outs.values():
+        if not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError("a token outside the true vocab")
+    del main
+
+    # the same stream through the gather path: token for token except at
+    # near-ties (the two paths round the attention output differently)
+    gather = server(attn_impl="gather")
+    t0 = time.perf_counter()
+    gdone = _Arrivals(gather, stream).run()
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    g_steps = gather.metrics.steps
+    del gather
+    gather_ties, gather_probe = _near_ties(
+        cfg, params, stream, outs, {r: q.out for r, q in gdone.items()},
+        ("kernel", 64), ("gather", 64), "kernel vs gather")
+
+    # 8 requests (the 4 shortest with the template, the 4 shortest without)
+    # through chunked stepping: token for token except at near-ties, where
+    # the deviation is that of 8 tokens per call (the chunked step's 8 rows)
+    # against 64 (a token step's batch)
+    by_len = sorted(stream, key=lambda r: len(r[1]))
+    subset = [r for r in by_len if r[0] % 2 == 0][:4] + [r for r in by_len if r[0] % 2][:4]
+    chunked = server(step_mode="chunked", batch_slots=8)
+    cdone = _Arrivals(chunked, [(rid, p, prio, 0) for rid, p, prio, _ in subset]).run()
+    del chunked
+    chunked_ties, chunked_probe = _near_ties(
+        cfg, params, stream, {r: q.out for r, q in cdone.items()}, {r: outs[r] for r in cdone},
+        ("kernel", 8), ("kernel", 64), "chunked vs tokens")
+    limit_check = _limit_check(cfg, params, stream[1][1][:512])
+
+    # one host read per fused step, under the sync debug mode, over the first
+    # 24 steps of the stream (admission, shared prefixes, prefill and decode)
+    synced = _Arrivals(server(), stream)
+    where, _ = _synchronizing_calls(lambda: synced.run(max_steps=24), [])
+    reads = sum(where.values())
+    if reads != 24 or len(where) != 1 or \
+            not next(iter(where)).startswith("src/repro_torch/serve/serving.py:"):
+        raise AssertionError(f"expected one host read per fused step over 24 steps: {where}")
+
+    # the card's busy and idle share over 5 steps of the same server, after
+    # 5 untraced steps timed alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    synced.run(max_steps=5)
+    torch.cuda.synchronize()
+    untraced_s = time.perf_counter() - t0
+    traced_s, busy_s, top = _device_profile(lambda: synced.run(max_steps=5),
+                                            kernels=("paged_attn",))
+    del synced
+
+    emit({"phase": "serve", "arch": SERVE_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "weights": "bf16 from seed 0, drawn on the card",
+          "weight_bytes": weight_bytes, "init_s": init_s, "server": SERVE,
+          "max_seq": SERVE_MAX_SEQ, "requests": SERVE_REQUESTS, "max_new_tokens": SERVE_MAX_NEW,
+          "prompt_tokens_submitted": sum(len(p) for _, p, _, _ in stream),
+          "finished": len(done), "wall_s": wall_s, "steps": m.steps,
+          "fused_decodes": forwards[0], "launches": launches,
+          "tokens_per_s": m.tokens_generated / wall_s, "metrics_tok_per_s": m.tok_per_s,
+          "mean_ttft_s": m.mean_ttft_s, "mean_ttft_steps": m.mean_ttft_steps,
+          "occupancy_pct": m.occupancy_pct, "prefix_hits": m.prefix_hits,
+          "prefix_tokens": m.prefix_tokens, "cow_splits": m.cow_splits,
+          "preemptions": m.preemptions, "recompute_tokens": m.recompute_tokens,
+          "mean_step_s": m.wall_s / m.steps, "batched_tokens": m.batched_tokens,
+          "kv_blocks_peak": m.kv_blocks_peak, "kv_blocks_total": m.kv_blocks_total,
+          "peak_memory_bytes": peak,
+          "deviation_limit": DEVIATION_LIMIT, "limit_check": limit_check,
+          "gather": {"wall_s": gather_s, "steps": g_steps, "near_ties": len(gather_ties),
+                     "divergences": gather_ties, "probe": gather_probe},
+          "chunked_subset": {"rids": sorted(cdone), "near_ties": len(chunked_ties),
+                             "divergences": chunked_ties, "probe": chunked_probe},
+          "syncs": {"steps": 24, "synchronizing_calls": reads, "where": where},
+          "profile": {"steps": 5, "traced_s": traced_s, "untraced_s": untraced_s,
+                      "device_busy_s": busy_s if busy_s else None,
+                      "device_idle_share": 1.0 - busy_s / untraced_s if busy_s else None,
+                      "paged_attn_share_of_busy": (top["device_ms_of"]["paged_attn"] / 1e3
+                                                   / busy_s if busy_s else None),
+                      **top, "units": "ms totals over the 5 steps"}})
+    return cfg, captured, launches
+
+
+def phase_launch_serve():
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.launch import serve as serve_cli
+
+    argv = ["--arch", SERVE_ARCH, "--kv", "paged", "--attn-impl", "kernel", "--batch", "8",
+            "--requests", "16", "--prefill-chunk", "16"]
+    torch.cuda.empty_cache()
+    zero_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        done = serve_cli.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    lines = out.getvalue().splitlines()
+    rollup = [ln for ln in lines if ln.startswith(f"[serve] {SERVE_ARCH} on ")]
+    if not rollup or len(done) != 16 or launches["paged_attn"] == 0:
+        raise AssertionError(f"launch/serve.py: {lines[:3]}, {len(done)} requests, {launches}")
+    print(rollup[0], flush=True)
+    emit({"phase": "launch", "argv": argv, "seconds": seconds, "rollup": rollup[0],
+          "lines": lines[:8], "launches": launches})
+
+
+def kernel_row_paged_attn(cfg, captured, launches):
+    """B5's row of the kernels line, at the decode call captured from the
+    serve phase."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attn import kernel, ref
+
+    q, table, pos, kw = captured["q"], captured["table"], captured["pos"], captured["kw"]
+    pools = [(captured["k_pool"], captured["v_pool"])]
+    # three more copies of the layer's pools, so each call in turn finds the
+    # pools out of the 50 MB L2, as the next layer's call does
+    pools += [(k.clone(), v.clone()) for k, v in pools * 3]
+    got = kernel.paged_attention(q, *pools[0], table, pos, **kw)
+    plain = ref.paged_attn_ref(q, *pools[0], table, pos, **kw)
+    err = float((got - plain).abs().max())
+    if err > 2e-5 + 2e-5 * float(plain.abs().max()):
+        raise AssertionError(f"paged_attn differs by {err} at the serve phase's call")
+    t, kvh, g, dk = q.shape
+    dv = pools[0][1].shape[-1]
+    bs = kw["block_size"]
+    last = torch.minimum(pos, torch.tensor(kw["max_rows"] - 1, device=pos.device))
+    rows = int((last + 1).sum())
+    per_row = kvh * (dk + dv) * pools[0][0].element_size()
+    io_bytes = (q.numel() * q.element_size() + t * kvh * g * dv * 4
+                + (table.numel() + pos.numel()) * 4)
+    # the bound counts each K/V row once: the tokens of one slot, and the
+    # slots that share the template, read the same rows (a token-by-token
+    # count, the rows each token reads, is kept beside it)
+    tab, lst = table.tolist(), last.tolist()
+    unique = {(tab[i][n // bs], n % bs) for i in range(t) for n in range(lst[i] + 1)}
+    unique_bytes = len(unique) * per_row + io_bytes
+    per_token_bytes = rows * per_row + io_bytes
+    flops = 2 * rows * kvh * g * (dk + dv)
+    calls = [lambda k=k, v=v: kernel.paged_attention(q, k, v, table, pos, **kw)
+             for k, v in pools] * 5
+    plain_calls = [lambda k=k, v=v: ref.paged_attn_ref(q, k, v, table, pos, **kw)
+                   for k, v in pools] * 5
+    groups = (kvh * g) // kvh
+    mask = (torch.arange(table.shape[1] * bs, device=q.device)[None, :] <= last[:, None])
+
+    def library(k, v):
+        gk = k[table.long()].reshape(t, -1, kvh, dk).transpose(1, 2)
+        gv = v[table.long()].reshape(t, -1, kvh, dv).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q.reshape(t, kvh * g, 1, dk), gk, gv, attn_mask=mask[:, None, None, :],
+            scale=kw["scale"], enable_gqa=groups > 1)
+
+    lib_calls = [lambda k=k, v=v: library(k, v) for k, v in pools] * 5
+    torch.testing.assert_close(library(*pools[0]).float().reshape(got.shape), got,
+                               rtol=2e-2, atol=2e-2)
+    bound_bytes_ms = 1e3 * unique_bytes / HBM_BYTES_PER_S
+    bound_ops_ms = 1e3 * flops / F32_FLOPS
+    return {
+        "name": "paged_attn", "route": "cuda", "source": "src/repro_torch/csrc/paged_attn.cu",
+        "replaces": "src/repro/kernels/paged_attn/kernel.py:32",
+        "launches": launches["paged_attn"], "max_abs_err": err,
+        "shape": (f"q ({t}, {kvh}, {g}, {dk}) bf16, pools {tuple(pools[0][0].shape)} bf16, "
+                  f"table {tuple(table.shape)}, positions {int(pos.min())}-{int(pos.max())}, "
+                  f"captured at step {captured['step']}"),
+        "ms": device_ms(calls), "host_ms": eager_ms(calls), "plain_ms": device_ms(plain_calls),
+        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        "bound_bytes": unique_bytes, "unique_rows": len(unique), "flops": flops,
+        "per_token_bytes": per_token_bytes, "valid_rows": rows,
+        "per_token_bound_ms": max(1e3 * per_token_bytes / HBM_BYTES_PER_S, bound_ops_ms),
+        "library_ms": device_ms(lib_calls),
+        "library": ("composite, no single call: gather k_pool[table], v_pool[table] + "
+                    "F.scaled_dot_product_attention(attn_mask=valid rows, enable_gqa)"),
+    }
 
 
 def main() -> int:
@@ -882,6 +1403,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, os.path.join(ROOT, "tests"))  # the paged-attention parity cases
     import repro_torch  # noqa: F401  (fails where the repository is absent)
 
     smi = nvidia_smi()
@@ -897,9 +1419,15 @@ def main() -> int:
         phase_parity_glm()
         phase_parity_projected()
         phase_parity_predict()
+        phase_parity_paged_attn()
         heap, engine, res, launches = phase_e2e()
         db, predict_launches = phase_predict(heap, res)
-        phase_kernels(heap, engine, res, launches, db, predict_launches)
+        rows = phase_kernels(heap, engine, res, launches, db, predict_launches)
+        del heap, engine, res, db
+        cfg, captured, serve_launches = phase_serve()
+        phase_launch_serve()
+        rows.append(kernel_row_paged_attn(cfg, captured, serve_launches))
+        emit({"kernels": rows})
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     print(smi, flush=True)

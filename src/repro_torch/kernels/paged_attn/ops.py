@@ -1,0 +1,36 @@
+"""Public block-table paged decode attention: the plain gather version for CPU
+tensors, the Hopper kernel B5 for CUDA tensors (counterpart of
+``repro.kernels.paged_attn.ops``).
+
+The JAX wrapper's ``use_kernel=`` has no counterpart: the tensors' device
+picks the kernel or the plain version. Its padding of G to 8 sublanes and of
+Dk and Dv to 128 lanes has none either: the kernel takes any G, Dk and Dv.
+There is no fallback: CUDA tensors either launch the kernel or raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.paged_attn import kernel, ref
+
+
+def paged_attention(q, k_pool, v_pool, table, pos, *, block_size: int,
+                    ring_width: int = 0, max_rows: int, scale: float) -> torch.Tensor:
+    """Block-table paged decode attention.
+
+    q (T, KVH, G, Dk) queries (G query heads per kv head; an MLA absorbed
+    decode passes KVH=1, G=n_heads, Dk=kv_lora+rope, Dv=kv_lora);
+    k_pool/v_pool (NB, bs, KVH, D*) block pools; table (T, nb_slot) physical
+    block ids per token (unmapped entries clamped to 0: reads through them
+    are masked); pos (T,) positions. ``ring_width`` > 0 selects SWA ring
+    validity (logical rows are ``pos % ring_width``). Returns
+    (T, KVH, G, Dv) float32 on q's device.
+    """
+    table = table.to(torch.int32).contiguous()
+    pos = pos.to(torch.int32).contiguous()
+    kw = dict(block_size=int(block_size), ring_width=int(ring_width),
+              max_rows=int(max_rows), scale=float(scale))
+    if q.device.type == "cpu":
+        return ref.paged_attn_ref(q, k_pool, v_pool, table, pos, **kw)
+    return kernel.paged_attention(q.contiguous(), k_pool.contiguous(),
+                                  v_pool.contiguous(), table, pos, **kw)

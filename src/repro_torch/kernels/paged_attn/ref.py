@@ -1,0 +1,44 @@
+"""Gather oracle for block-table paged decode attention (plain PyTorch), held
+against ``repro.kernels.paged_attn.ref`` (``paged_valid``,
+``paged_attn_ref``).
+
+Gather every table-mapped block into a padded ``(T, nb*bs, KVH, D)`` view,
+mask invalid rows with NEG (which softmaxes to exactly 0.0 in f32), and run
+a plain softmax attention in f32. The kernel B5 must match it on every
+mapped-block pattern: partial trailing blocks, recycled (stale) blocks,
+unmapped entries clamped to 0, ``max_rows`` clipping and SWA rings.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG = -1e9
+
+
+def paged_valid(pos, s_pad, ring_width: int, max_rows: int):
+    """(T, s_pad) bool validity over the gathered (ring-ordered for SWA)
+    view. Full region: rows <= pos and rows < max_rows. Ring region: rows <=
+    pos while cold, every ring row once warm, gather padding always dead."""
+    kpos = torch.arange(s_pad, device=pos.device)[None, :]
+    p = pos[:, None]
+    if ring_width:
+        return (kpos < ring_width) & ((kpos <= p) | (p >= ring_width))
+    return (kpos <= p) & (kpos < max_rows)
+
+
+def paged_attn_ref(q, k_pool, v_pool, table, pos, *, block_size: int,
+                   ring_width: int = 0, max_rows: int, scale: float):
+    """q (T, KVH, G, Dk); k_pool (NB, bs, KVH, Dk); v_pool (NB, bs, KVH, Dv);
+    table (T, nb_slot) int32 physical block ids; pos (T,) int32 positions.
+    Returns (T, KVH, G, Dv) float32."""
+    del block_size  # the pools carry it
+    t, kvh, _, dk = q.shape
+    dv = v_pool.shape[-1]
+    table = table.long()
+    gk = k_pool[table].reshape(t, -1, kvh, dk).to(torch.float32)
+    gv = v_pool[table].reshape(t, -1, kvh, dv).to(torch.float32)
+    scores = torch.einsum("tkgd,tskd->tkgs", q.to(torch.float32), gk) * scale
+    valid = paged_valid(pos, gk.shape[1], ring_width, max_rows)
+    scores = scores + torch.where(valid, 0.0, NEG)[:, None, None, :]
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("tkgs,tskd->tkgd", probs, gv)

@@ -1,0 +1,86 @@
+"""Shared neural layers: RMSNorm, RoPE, embeddings, gated MLP (counterpart of
+``repro.models.layers``, lines 18-86, which it is held against).
+
+Every cast of the reference is kept where it is: norms and rotary
+embeddings compute in f32 and return the input's type, the embedding and
+the unembedding run in bf16 whatever the configuration says (the reference's
+``embed`` casts the table to bf16, so every activation after it is bf16),
+and the projections cast their weights to the activation type (a no-op for
+weights stored already cast, see ``params``). The cross-entropy losses wait
+for the training slice (ROADMAP A18).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import Maker
+
+
+def rms_norm(x, weight, eps):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    return (x * weight.to(torch.float32)).to(dt)
+
+
+def make_norm(m: Maker, d: int):
+    # stored as (w - 1), and always f32: the reference applies it in f32
+    return {"scale": m.param((d,), ("embed",), scale=0.0, dtype=torch.float32)}
+
+
+def apply_norm(p, x, eps):
+    return rms_norm(x, p["scale"].to(torch.float32) + 1.0, eps)
+
+
+# -- rotary position embeddings -------------------------------------------------
+def rope_tables(positions, dim: int, theta: float):
+    """positions (...,) int -> cos/sin (..., dim/2) f32. The frequencies are
+    ``theta ** (-arange/half)`` in f32, as the reference computes them."""
+    half = dim // 2
+    expo = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = torch.pow(theta, expo)  # f32: the Python base takes the exponent's type
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x (..., S, H, D); cos/sin broadcastable (..., S, 1, D/2)."""
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- embedding --------------------------------------------------------------------
+def make_embedding(m: Maker, cfg: ModelConfig):
+    v, d = cfg.padded_vocab, cfg.d_model
+    p = {"table": m.param((v, d), ("vocab", "embed"), scale=0.01)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = m.param((d, v), ("embed", "vocab"))
+    return p
+
+
+def embed(p, tokens, cfg: ModelConfig):
+    return p["table"][tokens].to(torch.bfloat16)
+
+
+def unembed(p, x, cfg: ModelConfig):
+    w = (p["table"].T if cfg.tie_embeddings else p["unembed"]).to(torch.bfloat16)
+    return x.to(torch.bfloat16) @ w
+
+
+# -- gated MLP (SwiGLU) -----------------------------------------------------------
+def make_mlp(m: Maker, d: int, d_ff: int):
+    return {
+        "wi": m.param((d, d_ff), ("embed", "ff")),
+        "wg": m.param((d, d_ff), ("embed", "ff")),
+        "wo": m.param((d_ff, d), ("ff", "embed")),
+    }
+
+
+def apply_mlp(p, x):
+    dt = x.dtype
+    h = x @ p["wi"].to(dt)
+    g = x @ p["wg"].to(dt)
+    return (F.silu(g) * h) @ p["wo"].to(dt)

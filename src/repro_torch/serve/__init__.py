@@ -1,2 +1,4 @@
-"""Serving layer (counterpart of ``repro.serve``): so far only the host-side
-admission policy, which the query executor reuses."""
+"""Serving layer (counterpart of ``repro.serve``): the continuous-batching
+``BatchedServer`` (``serving``), its block pool (``kv_pool``), admission
+policy (``scheduler``, which the query executor reuses too), metrics and
+fault plans."""

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version on the same CUDA tensors, and the TRAIN and PREDICT paths on the card
-against the same runs on the CPU. Marked ``cuda``; every test skips where no card is
+version on the same CUDA tensors, the TRAIN and PREDICT paths on the card
+against the same runs on the CPU, and the server's kernel path against its
+gather path on the card. Marked ``cuda``; every test skips where no card is
 present. This file imports no JAX, so it runs on a machine that has only
 PyTorch:
 
@@ -23,6 +24,10 @@ from repro_torch.kernels.engine import ref as glm_ref
 from repro_torch.kernels.strider import kernel as strider_kernel
 from repro_torch.kernels.strider import ops as strider_ops
 from repro_torch.kernels.strider import ref as strider_ref
+from repro_torch.kernels.paged_attn import kernel as pa_kernel
+from repro_torch.kernels.paged_attn import ref as pa_ref
+from test_torch_paged_attn_cases import CASES as PA_CASES
+from test_torch_paged_attn_cases import make as pa_case
 
 pytestmark = pytest.mark.cuda
 
@@ -243,3 +248,52 @@ def test_executor_on_card_interleaved_matches_serial(card, tmp_path):
     np.testing.assert_array_equal(serial[1].result_pages, inter[1].result_pages)
     assert serial[2].aggregates == inter[2].aggregates
     assert all(r.device_syncs == 1 for r in serial[1:] + inter[1:])
+
+
+def _paged_attn_on_card(card, case):
+    q, k, v, table, pos, kw, bf16 = case
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, k, v = (torch.from_numpy(a).to(card, dt) for a in (q, k, v))
+    table, pos = torch.from_numpy(table).to(card), torch.from_numpy(pos).to(card)
+    launches = pa_kernel.paged_attention.launches
+    got = pa_kernel.paged_attention(q, k, v, table, pos, **kw)
+    assert pa_kernel.paged_attention.launches == launches + 1
+    torch.testing.assert_close(got, pa_ref.paged_attn_ref(q, k, v, table, pos, **kw),
+                               rtol=2e-5, atol=2e-5)
+    assert torch.equal(got, pa_kernel.paged_attention(q, k, v, table, pos, **kw))
+
+
+@pytest.mark.parametrize("name", sorted(PA_CASES))
+def test_paged_attn_kernel_matches_plain(card, name):
+    _paged_attn_on_card(card, PA_CASES[name]())
+
+
+@pytest.mark.parametrize("g,dk,dv", [(40, 288, 256), (128, 576, 512)])
+def test_paged_attn_kernel_mla_shapes(card, g, dk, dv):
+    """The absorbed-MLA call shapes: one kv head, G = n_heads, Dk = kv_lora +
+    rope, Dv = kv_lora, bf16 pools of 16-row blocks."""
+    _paged_attn_on_card(card, pa_case(t=7, kvh=1, g=g, dk=dk, dv=dv, nb_slot=8, bs=16,
+                                      num_blocks=64, seed=g, bf16=True,
+                                      scale=1 / np.sqrt(dk)))
+
+
+def test_server_kernel_path_matches_gather_on_card(card):
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.serving import BatchedServer, Request
+
+    cfg = get_reduced_config("mistral-nemo-12b")
+    params, _ = model_zoo.init_params(cfg, seed=2, device=card)
+    stream = [([5, 6, 7, 8], 9), ([1, 2], 3), ([9, 3, 9, 4], 5), ([2, 7], 4)]
+
+    def serve(impl):
+        srv = BatchedServer(cfg, params, batch_slots=2, max_seq=24, kv="paged",
+                            block_size=4, step_mode="tokens", prefill_chunk=4,
+                            attn_impl=impl, device=card)
+        for i, (p, n) in enumerate(stream):
+            srv.submit(Request(i, list(p), n))
+        return [r.out for r in srv.run()]
+
+    launches = pa_kernel.paged_attention.launches
+    assert serve("kernel") == serve("gather")
+    assert pa_kernel.paged_attention.launches > launches

@@ -1,0 +1,76 @@
+"""The plain version of the paged-attention kernel B5
+(``repro_torch.kernels.paged_attn``) against ``repro``'s gather oracle
+``paged_attn_ref`` and its Pallas kernel in interpret mode, on the same numpy
+inputs, at the reference's tolerance (rtol=atol=2e-5,
+``tests/test_paged_attn_kernel.py``). The cases are in
+``test_torch_paged_attn_cases.py``; ``test_torch_cuda.py`` holds the kernel
+against this plain version on the card."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_paged_attn_cases import CASES
+from repro.kernels.paged_attn import ref as jref
+from repro.kernels.paged_attn.kernel import paged_attn_pallas
+from repro_torch.kernels.paged_attn import kernel, ops, ref
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _torch_inputs(case):
+    q, k, v, table, pos, kw, bf16 = case
+    dt = torch.bfloat16 if bf16 else torch.float32
+    return ([torch.from_numpy(a).to(dt) for a in (q, k, v)]
+            + [torch.from_numpy(table), torch.from_numpy(pos)], kw)
+
+
+def _jax_inputs(case):
+    q, k, v, table, pos, kw, bf16 = case
+    dt = jnp.bfloat16 if bf16 else jnp.float32
+    return [jnp.asarray(a, dt) for a in (q, k, v)] + [jnp.asarray(table), jnp.asarray(pos)], kw
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_matches_repro_ref(name):
+    case = CASES[name]()
+    (q, k, v, table, pos), kw = _torch_inputs(case)
+    got = ops.paged_attention(q, k, v, table, pos, **kw)
+    assert got.dtype == torch.float32 and got.shape == (*q.shape[:3], v.shape[-1])
+    want = jref.paged_attn_ref(*_jax_inputs(case)[0], **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("name", ["gqa", "mqa_dk_ne_dv", "g5_dk_ne_dv", "bs5", "ring6",
+                                  "max_rows", "bf16", "unmapped_clamped"])
+def test_plain_matches_repro_kernel_interpret(name):
+    case = CASES[name]()
+    (q, k, v, table, pos), kw = _torch_inputs(case)
+    got = ref.paged_attn_ref(q, k, v, table, pos, **kw)
+    want = paged_attn_pallas(*_jax_inputs(case)[0], interpret=True, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_stale_rows_never_read():
+    """Rewriting every row past each token's last valid row (stale content
+    of recycled blocks, and block 0 behind unmapped entries) leaves the
+    output bit for bit."""
+    case = CASES["unmapped_clamped"]()
+    (q, k, v, table, pos), kw = _torch_inputs(case)
+    out = ops.paged_attention(q, k, v, table, pos, **kw)
+    read = torch.zeros(k.shape[:2], dtype=torch.bool)
+    for t in range(q.shape[0]):
+        for n in range(int(pos[t]) + 1):
+            read[table[t, n // kw["block_size"]], n % kw["block_size"]] = True
+    k2, v2 = k.clone(), v.clone()
+    k2[~read], v2[~read] = 1e4, -1e4
+    torch.testing.assert_close(ops.paged_attention(q, k2, v2, table, pos, **kw), out,
+                               rtol=0, atol=0)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    (q, k, v, table, pos), kw = _torch_inputs(CASES["gqa"]())
+    launches = kernel.paged_attention.launches
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        kernel.paged_attention(q, k, v, table, pos, **kw)
+    assert kernel.paged_attention.launches == launches

@@ -201,6 +201,19 @@ def test_entry_points_raise_without_a_card(linreg_heap, monkeypatch):
             next(out)  # train_units is a generator: its body runs on next()
     with pytest.raises(ValueError, match="unknown mode"):
         solver.train(g, part, heap, mode="fpga", device=CPU)
+    # the serving slice's entry points
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.serving import BatchedServer
+
+    cfg = get_reduced_config("mistral-nemo-12b")
+    params, _ = model_zoo.init_params(cfg, device=CPU)
+    for call in (lambda: model_zoo.init_params(cfg),
+                 lambda: BatchedServer(cfg, params, batch_slots=1, max_seq=8),
+                 lambda: serve_cli.main(["--arch", "mistral-nemo-12b", "--reduced"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 _ISOLATION_SCRIPT = textwrap.dedent(
@@ -210,10 +223,17 @@ _ISOLATION_SCRIPT = textwrap.dedent(
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
     for name in names:
         importlib.import_module(name)
+    from repro_torch.configs import ARCH_IDS, get_config
+    for arch in ARCH_IDS:  # the configs package imports its modules lazily
+        get_config(arch)
     for name in ("core.solver", "kernels.engine.kernel", "core.isa", "core.striders",
                  "core.scheduler", "core.hwgen", "db.catalog", "db.query", "db.scoring",
                  "db.executor", "db.session", "serve.scheduler", "launch.common",
-                 "launch.score"):
+                 "launch.score", "configs", "configs.mistral_nemo_12b", "models.config",
+                 "models.params", "models.layers", "models.attention", "models.transformer",
+                 "models.model_zoo", "dist.meshes", "kernels.paged_attn.ref",
+                 "kernels.paged_attn.kernel", "kernels.paged_attn.ops", "serve.kv_pool",
+                 "serve.metrics", "serve.faults", "serve.serving", "launch.serve"):
         assert "repro_torch." + name in sys.modules, name
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "jax"
     bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
