@@ -4,8 +4,9 @@ The GLM generators reproduce the published dataset geometries (model topology,
 tuple counts) at full size and at a --scale for CPU-runnable benchmarks.
 Shaded rows (S/N, S/E) are the paper's synthetic nominal/extensive sets.
 
-Copy of ``repro.data.synthetic`` (``Workload``, ``WORKLOADS``, ``generate``), which
-it is held against; the port imports nothing of ``repro``.
+Copy of ``repro.data.synthetic`` (``Workload``, ``WORKLOADS``, ``generate``,
+``lm_token_batch``), which it is held against; the port imports nothing of
+``repro``.
 """
 from __future__ import annotations
 
@@ -73,3 +74,24 @@ def generate(w: Workload, scale: float = 1.0, seed: int = 0):
         raise ValueError(w.algorithm)
     return x, y.astype(np.float32)
 
+
+
+def lm_token_batch(step: int, batch: int, seq: int, vocab: int, shard: int = 0):
+    """Deterministic-in-(step, shard) synthetic token stream with local
+    structure (Zipf unigrams + repetition) so small LMs show loss descent.
+    Determinism is the replay/straggler-recovery contract of the train loop.
+    The seed is the reference's, ``hash((step, shard))`` (a tuple of ints
+    hashes the same in every process), so both packages draw the same
+    tokens."""
+    rng = np.random.default_rng(hash((step, shard)) % (2**32))
+    base = rng.zipf(1.5, size=(batch, seq + 1)).astype(np.int64)
+    tokens = np.minimum(base, vocab - 1)
+    # inject copy structure: second half repeats the first half for some rows
+    rep = rng.uniform(size=batch) < 0.5
+    half = (seq + 1) // 2
+    tokens[rep, half : 2 * half] = tokens[rep, :half]
+    return {
+        "tokens": tokens[:, :-1].astype(np.int32),
+        "targets": tokens[:, 1:].astype(np.int32),
+        "loss_mask": np.ones((batch, seq), np.float32),
+    }

@@ -6,13 +6,16 @@ embeddings compute in f32 and return the input's type, the embedding and
 the unembedding run in bf16 whatever the configuration says (the reference's
 ``embed`` casts the table to bf16, so every activation after it is bf16),
 and the projections cast their weights to the activation type (a no-op for
-weights stored already cast, see ``params``). The cross-entropy losses wait
-for the training slice (ROADMAP A18).
+weights stored already cast, see ``params``). The cross-entropy losses
+(lines 89-145 of the reference) read the target's logit with a ``gather``
+where the reference multiplies by ``one_hot(targets)``: the same value,
+without a (B, S, V) f32 tensor.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Maker
@@ -84,3 +87,47 @@ def apply_mlp(p, x):
     h = x @ p["wi"].to(dt)
     g = x @ p["wg"].to(dt)
     return (F.silu(g) * h) @ p["wo"].to(dt)
+
+
+# -- losses -------------------------------------------------------------------------
+def _token_nll(logits, targets, true_vocab: int):
+    """Per-token negative log-likelihood in f32; padded vocab entries are
+    masked to -1e9 in the logits' type first, as the reference masks them."""
+    v = logits.shape[-1]
+    if true_vocab < v:
+        pad = torch.arange(v, device=logits.device) >= true_vocab
+        logits = logits.masked_fill(pad, -1e9)
+    logits = logits.to(torch.float32)
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+    tgt = logits.gather(-1, targets[..., None].long())[..., 0]
+    return lse - tgt
+
+
+def softmax_xent(logits, targets, mask, true_vocab: int):
+    """Mean cross-entropy over the tokens where ``mask`` is set."""
+    nll = _token_nll(logits, targets, true_vocab) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def chunked_xent(p_embed, h, targets, mask, cfg: ModelConfig, chunk: int):
+    """Cross-entropy over sequence chunks, each under
+    ``torch.utils.checkpoint``: the (B, S, V) logits never exist at once,
+    only one (B, chunk, V) tile (recomputed in the backward)."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+
+    def chunk_loss(hx, tx, mx):
+        nll = _token_nll(unembed(p_embed, hx, cfg), tx, cfg.vocab_size)
+        return (nll * mx).sum()
+
+    total = h.new_zeros((), dtype=torch.float32)
+    for c in range(0, h.shape[1], chunk):
+        total = total + checkpoint(chunk_loss, h[:, c:c + chunk], targets[:, c:c + chunk],
+                                   mask[:, c:c + chunk], use_reentrant=False)
+    return total / torch.clamp(mask.sum(), min=1.0)

@@ -1,14 +1,17 @@
-"""Uniform model API for serving (counterpart of ``repro.models.model_zoo``,
-lines 53-168, which it is held against).
+"""Uniform model API (counterpart of ``repro.models.model_zoo``, lines
+53-168 and 214-234, which it is held against).
 
   init_params(cfg, seed, device, dtype) -> (params, logical-axis specs)
+  loss_fn(cfg, remat)                   -> f(params, batch) -> scalar loss
+  prefill_fn(cfg, remat)                -> f(params, batch) -> last-pos logits
   decode_fn(cfg)                        -> f(params, tokens, cache, pos)
                                            (pos: scalar or (B,) per-slot vector)
   make_cache(cfg, batch, seq, device)   -> dense decode cache
   make_paged_cache(cfg, num_blocks, block_size, device) -> block-pool cache
+  demo_batch(cfg, batch, seq, rng, device) -> a random training batch
 
-``loss_fn``, ``prefill_fn``, the shape cells and the dry-run input specs
-wait for the training and tooling slices (ROADMAP A18, A21).
+The shape cells and the dry-run input specs wait for the tooling slice
+(ROADMAP A21).
 """
 from __future__ import annotations
 
@@ -16,18 +19,43 @@ from functools import partial
 
 import torch
 
+import numpy as np
+
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_norm, embed, unembed
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=torch.bfloat16):
     """Random weights drawn on ``device`` (``None``: the card) from a
     ``torch.Generator`` seeded with ``seed``, layer by layer, matrices stored
-    as ``dtype`` and norm scales as f32. Returns (params, specs)."""
+    as ``dtype`` and norm scales as f32. Serving stores bf16 (cast once);
+    training passes ``getattr(torch, cfg.param_dtype)``, the f32 masters.
+    Returns (params, specs)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     return transformer.init_lm(cfg, gen, device, dtype)
+
+
+def loss_fn(cfg: ModelConfig, remat: str = "full", wkv_impl: str = "kernel"):
+    """f(params, batch) -> the mean next-token loss (``transformer.lm_loss``)."""
+    transformer.check_supported(cfg)
+    return partial(transformer.lm_loss, cfg=cfg, remat=remat, wkv_impl=wkv_impl)
+
+
+def prefill_fn(cfg: ModelConfig, remat: str = "none", wkv_impl: str = "kernel"):
+    """Full-sequence forward -> logits (B, padded_vocab) at the last position
+    (inference prefill; no loss)."""
+    transformer.check_supported(cfg)
+
+    def run(params, batch):
+        x = embed(params["embed"], batch["tokens"], cfg)
+        x = transformer._run_segments(params["segments"], x, cfg, remat, wkv_impl)
+        h = apply_norm(params["final_norm"], x, cfg.norm_eps)
+        return unembed(params["embed"], h[:, -1:], cfg)[:, 0]
+
+    return run
 
 
 def decode_fn(cfg: ModelConfig):
@@ -49,3 +77,16 @@ def make_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device=
     (serve/kv_pool.py allocates the first ``num_blocks``)."""
     return transformer.init_paged_cache(cfg, num_blocks, block_size,
                                         resolve_device(device))
+
+
+def demo_batch(cfg: ModelConfig, batch: int, seq: int, rng=None, device=None) -> dict:
+    """A random training batch from ``rng`` (numpy; default seed 0), the same
+    numbers as ``repro``'s ``demo_batch`` with the same generator state."""
+    rng = rng or np.random.default_rng(0)
+    device = resolve_device(device)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq + 1)))
+    return {
+        "tokens": tokens[:, :-1].to(device, torch.int32),
+        "targets": tokens[:, 1:].to(device, torch.int32),
+        "loss_mask": torch.ones((batch, seq), dtype=torch.float32, device=device),
+    }

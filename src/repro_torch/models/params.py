@@ -10,10 +10,12 @@ they are not ``jax.random``'s numbers. ``params_from_numpy`` carries a
 same weights.
 
 Storage type. ``repro`` keeps f32 masters and casts each matrix to the
-compute type (bf16) at every use. The port may store the matrices already
-cast, once at load (``dtype=torch.bfloat16``): every use then reads the same
-bits the reference's cast would give, at half the bytes. Norm scales, which
-the reference applies in f32, stay f32.
+compute type (bf16) at every use. Training does the same: its leaves are the
+f32 masters (``cfg.param_dtype``), and each projection casts them at its use.
+Serving may store the matrices already cast, once at load
+(``dtype=torch.bfloat16``): every use then reads the same bits the
+reference's cast would give, at half the bytes. Norm scales, which the
+reference applies in f32, stay f32.
 """
 from __future__ import annotations
 
@@ -94,6 +96,16 @@ def leaves(tree):
             yield from leaves(v)
     else:
         yield tree
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts/lists, with the matching leaves
+    of ``rest`` (trees of the same structure) as further arguments."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def count_params(params) -> int:

@@ -1,33 +1,51 @@
-"""Decoder-only LM assembly for serving (counterpart of
-``repro.models.transformer``, lines 45-130 and 240-434, which it is held
-against).
+"""Decoder-only LM assembly (counterpart of ``repro.models.transformer``,
+lines 45-217 and 240-434, which it is held against).
 
 The layer stack is a list of homogeneous *segments*; each segment's
 parameters are stacked on a leading layer axis. ``repro`` runs a segment with
-``lax.scan``; here a Python loop walks the stacked tensors (each layer's
-parameters and caches are views, so nothing is copied).
+``lax.scan``; here a Python loop walks the stacked tensors. Each layer reads
+views of them (``torch.unbind`` once per forward), so the stacked tensors stay
+the autograd leaves and nothing is copied.
 
-``segments_for`` covers every family. The port serves the families whose
+``segments_for`` covers every family. The port runs the families whose
 segments are all ``attn_mlp`` with GQA attention (dense and VLM backbones:
-internlm2, mistral-nemo, deepseek-67b, internvl2). The others raise
-``NotImplementedError`` naming the ROADMAP item that ports them. The training
-loss and the prefill forward wait for the training slice (ROADMAP A18).
+internlm2, mistral-nemo, deepseek-67b, internvl2) for serving, and the
+``rwkv`` family (rwkv6-3b) for training, prefill and ``lm_decode_step``.
+The others raise ``NotImplementedError`` naming the ROADMAP item that ports
+them: ``check_supported`` for the model stack, ``check_servable`` for the
+server, which does not hold RWKV's per-slot state yet. The attention
+families' training forward waits for ROADMAP queue item 3.
+
+``remat`` follows the reference: ``"none"`` keeps every activation,
+``"full"`` keeps each layer's input only (``torch.utils.checkpoint``, one
+layer at a time), ``"dots"`` keeps the matrix products' outputs and
+recomputes the rest (a selective checkpoint, like
+``jax.checkpoint_policies.checkpoint_dots``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
+    chunked_xent,
     embed,
     make_embedding,
     make_mlp,
     make_norm,
+    softmax_xent,
     unembed,
 )
 from repro_torch.models.params import Maker, split_tree, stack_layers
@@ -70,14 +88,12 @@ def segments_for(cfg: ModelConfig) -> list[Segment]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port cannot serve yet,
-    naming the ROADMAP item that ports it."""
+    """Raise ``NotImplementedError`` for a family the port's model stack
+    cannot run yet, naming the ROADMAP item that ports it."""
     if cfg.family == "encdec":
         why = "encoder-decoder models wait for ROADMAP A15 (encdec)"
     elif cfg.attn_kind == "mla":
         why = "MLA attention waits for ROADMAP A13 (MLA decode, B5 at its shapes)"
-    elif cfg.family == "ssm":
-        why = "RWKV6 layers wait for ROADMAP A14 (ssm.py, kernel B6)"
     elif cfg.family == "hybrid":
         why = "Mamba and sliding-window layers wait for ROADMAP A14 (ssm.py, SWA rings)"
     elif cfg.is_moe:
@@ -89,10 +105,27 @@ def check_supported(cfg: ModelConfig) -> None:
     raise NotImplementedError(f"{cfg.name}: {why}")
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """``check_supported``, and the server's own limit: RWKV's per-slot
+    recurrent state is not held by the server or the paged cache yet."""
+    check_supported(cfg)
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: serving RWKV6 waits for ROADMAP A14 (per-slot recurrent "
+            "state in the server, queue item 3)")
+
+
 # --------------------------------------------------------------------------
 # parameters
 # --------------------------------------------------------------------------
-def _make_layer(m: Maker, cfg: ModelConfig):
+def _make_layer(m: Maker, cfg: ModelConfig, kind: str):
+    if kind == "rwkv":
+        return {
+            "ln_t": make_norm(m, cfg.d_model),
+            "ln_c": make_norm(m, cfg.d_model),
+            "tmix": ssm.make_rwkv_tmix(m, cfg),
+            "cmix": ssm.make_rwkv_cmix(m, cfg),
+        }
     return {
         "ln1": make_norm(m, cfg.d_model),
         "ln2": make_norm(m, cfg.d_model),
@@ -110,7 +143,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device,
     tree = {
         "embed": make_embedding(m, cfg),
         "final_norm": make_norm(m, cfg.d_model),
-        "segments": [stack_layers(lambda i: _make_layer(m, cfg), s.n_layers)
+        "segments": [stack_layers(lambda i, k=s.kind: _make_layer(m, cfg, k), s.n_layers)
                      for s in segments_for(cfg)],
     }
     if cfg.vis_tokens:
@@ -119,14 +152,95 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device,
 
 
 # --------------------------------------------------------------------------
+# training / prefill forward
+# --------------------------------------------------------------------------
+def _layer_train(p, x, cfg: ModelConfig, kind: str, wkv_impl: str = "kernel"):
+    if kind != "rwkv":
+        raise NotImplementedError(
+            f"{cfg.name}: the training forward of {kind} layers waits for ROADMAP "
+            "queue item 3 (A13-A15: attention, MoE and hybrid training)")
+    h, _ = ssm.rwkv_tmix(p["tmix"], apply_norm(p["ln_t"], x, cfg.norm_eps), cfg,
+                         wkv_impl=wkv_impl)
+    x = x + h
+    h, _ = ssm.rwkv_cmix(p["cmix"], apply_norm(p["ln_c"], x, cfg.norm_eps), cfg)
+    return x + h
+
+
+# the outputs a "dots" rematerialisation keeps: matrix products
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _unbind_layers(tree, n_layers):
+    """Per-layer views of a stacked parameter tree: each leaf is unbound
+    once, so its gradient is one stack of the layers' gradients."""
+    if isinstance(tree, dict):
+        per = {k: _unbind_layers(v, n_layers) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n_layers)]
+    return list(torch.unbind(tree, 0))
+
+
+def _run_segments(seg_params, x, cfg: ModelConfig, remat: str, wkv_impl: str = "kernel"):
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be none|full|dots, got {remat!r}")
+    for seg, sp in zip(segments_for(cfg), seg_params):
+        body = functools.partial(_layer_train, cfg=cfg, kind=seg.kind, wkv_impl=wkv_impl)
+        for lp in _unbind_layers(sp, seg.n_layers):
+            if remat == "none":
+                x = body(lp, x)
+            elif remat == "full":
+                x = checkpoint(body, lp, x, use_reentrant=False)
+            else:
+                x = checkpoint(body, lp, x, use_reentrant=False,
+                               context_fn=functools.partial(
+                                   create_selective_checkpoint_contexts, _save_dots))
+    return x
+
+
+def lm_loss(params, batch, cfg: ModelConfig, remat: str = "full",
+            wkv_impl: str = "kernel"):
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``targets``
+    (B, S) int, ``loss_mask`` (B, S) f32). ``wkv_impl`` as in
+    ``ssm.rwkv_tmix``."""
+    check_supported(cfg)
+    x = embed(params["embed"], batch["tokens"], cfg)
+    x = _run_segments(params["segments"], x, cfg, remat, wkv_impl)
+    h = apply_norm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.loss_chunk:
+        return chunked_xent(params["embed"], h, batch["targets"], batch["loss_mask"], cfg,
+                            cfg.loss_chunk)
+    logits = unembed(params["embed"], h, cfg)
+    return softmax_xent(logits, batch["targets"], batch["loss_mask"], cfg.vocab_size)
+
+
+# --------------------------------------------------------------------------
 # decode (one token, batched, cached)
 # --------------------------------------------------------------------------
+def _rwkv_cache(cfg: ModelConfig, batch: int, device):
+    h, hs = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+    return {
+        "wkv": torch.zeros((batch, h, hs, hs), dtype=torch.float32, device=device),
+        "shift_t": torch.zeros((batch, 1, cfg.d_model), dtype=torch.bfloat16, device=device),
+        "shift_c": torch.zeros((batch, 1, cfg.d_model), dtype=torch.bfloat16, device=device),
+    }
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device):
-    """Dense caches, one dict per segment of layer-stacked
-    (L, batch + 1, seq, KVH, D) tensors (see attention: the spare row)."""
+    """Dense caches, one dict per segment of layer-stacked tensors: GQA
+    (L, batch + 1, seq, KVH, D) (see attention: the spare row); RWKV the
+    per-row state, ``wkv`` (L, batch, H, hs, hs) f32 and the token shifts
+    ``shift_t``/``shift_c`` (L, batch, 1, d_model) bf16."""
     check_supported(cfg)
-    layer = attn.init_gqa_cache(cfg, batch, seq, device=device)
-    return [_stacked(layer, s.n_layers) for s in segments_for(cfg)]
+    caches = []
+    for s in segments_for(cfg):
+        layer = (_rwkv_cache(cfg, batch, device) if s.kind == "rwkv"
+                 else attn.init_gqa_cache(cfg, batch, seq, device=device))
+        caches.append(_stacked(layer, s.n_layers))
+    return caches
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device):
@@ -134,7 +248,7 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device)
     shared by all slots (see attention: the spare block). The reference's
     per-slot recurrent state and SWA ring pools belong to families the port
     does not serve yet."""
-    check_supported(cfg)
+    check_servable(cfg)
     layer = attn.init_gqa_cache_paged(cfg, num_blocks, block_size, device=device)
     return [_stacked(layer, s.n_layers) for s in segments_for(cfg)]
 
@@ -147,8 +261,27 @@ def _layer(tree, i):
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
-def _layer_decode(p, x, cache, pos, cfg: ModelConfig, paged=None, slot=None,
-                  write_ok=None):
+def _layer_decode_rwkv(p, x, cache, cfg: ModelConfig):
+    h = apply_norm(p["ln_t"], x, cfg.norm_eps)
+    h, (wkv_s, shift_t) = ssm.rwkv_tmix(
+        p["tmix"], h, cfg, state=cache["wkv"],
+        shift_prev=cache["shift_t"].to(h.dtype), use_chunked=False)
+    x = x + h
+    h = apply_norm(p["ln_c"], x, cfg.norm_eps)
+    h, shift_c = ssm.rwkv_cmix(p["cmix"], h, cfg, shift_prev=cache["shift_c"].to(h.dtype))
+    cache["wkv"].copy_(wkv_s)
+    cache["shift_t"].copy_(shift_t)
+    cache["shift_c"].copy_(shift_c)
+    return x + h
+
+
+def _layer_decode(p, x, cache, pos, cfg: ModelConfig, kind: str = "attn_mlp", paged=None,
+                  slot=None, write_ok=None):
+    if kind == "rwkv":
+        if paged is not None or slot is not None:
+            raise ValueError("RWKV layers carry per-row recurrent state: no paged "
+                             "cache and no token-batched slot mapping")
+        return _layer_decode_rwkv(p, x, cache, cfg)
     h = apply_norm(p["ln1"], x, cfg.norm_eps)
     if paged is None:
         a, _ = attn.gqa_decode(p["attn"], h, cache, pos, cfg, slot=slot,
@@ -167,7 +300,8 @@ def _layer_decode(p, x, cache, pos, cfg: ModelConfig, paged=None, slot=None,
 def lm_decode_step(params, tokens, caches, pos, cfg: ModelConfig, paged=None,
                    slot=None, write_ok=None):
     """tokens (B,) int; caches from init_cache; pos: current position, a
-    scalar or a (B,) vector of per-slot positions (continuous batching).
+    scalar or a (B,) vector of per-slot positions (continuous batching;
+    RWKV's recurrent caches are position-free).
     ``paged`` switches the attention caches to the block-pool layout
     (init_paged_cache): a dict with ``table`` ((B, nb) int32, or per-token
     (T, nb) when ``slot`` is given), ``write_ok`` (B,) bool (or None),
@@ -175,13 +309,14 @@ def lm_decode_step(params, tokens, caches, pos, cfg: ModelConfig, paged=None,
     ``"kernel"`` paged-attention read path). ``slot``/``write_ok`` enable
     token-level batching over dense caches: tokens is a flattened (T,) mix of
     prefill chunks and decode tokens, ``slot`` (T,) maps each token to its
-    cache row, and ``write_ok`` (T,) masks padding rows out of cache writes.
+    cache row, and ``write_ok`` (T,) masks padding rows out of cache writes
+    (attention-only segments).
     The caches are updated in place. Returns (logits (B, padded_vocab),
     caches)."""
     x = embed(params["embed"], tokens[:, None], cfg)
     for seg, sp, sc in zip(segments_for(cfg), params["segments"], caches):
         for i in range(seg.n_layers):
-            x = _layer_decode(_layer(sp, i), x, _layer(sc, i), pos, cfg,
+            x = _layer_decode(_layer(sp, i), x, _layer(sc, i), pos, cfg, seg.kind,
                               paged=paged, slot=slot, write_ok=write_ok)
     h = apply_norm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], h, cfg)[:, 0], caches

@@ -102,7 +102,7 @@ from repro_torch.dist import meshes
 from repro_torch.models import model_zoo
 from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import check_supported
+from repro_torch.models.transformer import check_servable
 from repro_torch.serve import scheduler as sched
 from repro_torch.serve.kv_pool import PagedKV, PoolExhausted, prefix_keys
 from repro_torch.serve.metrics import ServeMetrics
@@ -211,7 +211,7 @@ class BatchedServer:
                 "BatchedServer serves decoder-only families; enc-dec decode "
                 "needs per-request encoder output"
             )
-        check_supported(cfg)
+        check_servable(cfg)
         if admission not in ("continuous", "drain"):
             raise ValueError(f"admission must be continuous|drain, got {admission!r}")
         if kv not in ("dense", "paged"):

@@ -26,8 +26,14 @@ from repro_torch.kernels.strider import ops as strider_ops
 from repro_torch.kernels.strider import ref as strider_ref
 from repro_torch.kernels.paged_attn import kernel as pa_kernel
 from repro_torch.kernels.paged_attn import ref as pa_ref
+from repro_torch.kernels.wkv import kernel as wkv_kernel
+from repro_torch.kernels.wkv import ops as wkv_ops
+from repro_torch.kernels.wkv import ref as wkv_ref
 from test_torch_paged_attn_cases import CASES as PA_CASES
 from test_torch_paged_attn_cases import make as pa_case
+from test_torch_wkv_cases import CASES as WKV_CASES
+from test_torch_wkv_cases import FULL as WKV_FULL
+from test_torch_wkv_cases import make as wkv_case
 
 pytestmark = pytest.mark.cuda
 
@@ -297,3 +303,80 @@ def test_server_kernel_path_matches_gather_on_card(card):
     launches = pa_kernel.paged_attention.launches
     assert serve("kernel") == serve("gather")
     assert pa_kernel.paged_attention.launches > launches
+
+
+# ------------------------------- WKV6 (B6, B6-bwd) ----------------------------
+WKV_TOL = dict(rtol=2e-4, atol=2e-4)
+# bf16 outputs: the kernel's and the plain version's f32 results round to bf16
+# one step apart at most (a step is 2^-7 of the value)
+WKV_BF16_TOL = dict(rtol=8e-3, atol=2e-4)
+WKV_NAMES = sorted(WKV_CASES) + ["full"]
+
+
+def _wkv_on(card, name, dtype=torch.float32, seed=7):
+    """A case's inputs on the card, r/k/v in ``dtype``, and cotangents for
+    y and the final state."""
+    *arrs, chunk = wkv_case(WKV_FULL if name == "full" else name)
+    r, k, v, lw, u, s0 = (torch.from_numpy(a).to(card) for a in arrs)
+    r, k, v = (x.to(dtype) for x in (r, k, v))
+    rng = np.random.default_rng(seed)
+    dy = torch.from_numpy(rng.normal(0, 1, (*r.shape[:3], v.shape[-1])).astype(np.float32))
+    ds = torch.from_numpy(rng.normal(0, 1, s0.shape).astype(np.float32))
+    return (r, k, v, lw, u, s0), chunk, dy.to(card, dtype), ds.to(card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", WKV_NAMES)
+def test_wkv_kernel_matches_plain(card, name, dtype):
+    ins, chunk, _, _ = _wkv_on(card, name, dtype)
+    launches = wkv_kernel.wkv_forward.launches
+    y, s, states = wkv_kernel.wkv_forward(*ins, chunk, save_states=True)
+    assert wkv_kernel.wkv_forward.launches == launches + 1
+    y_ref, s_ref = wkv_ref.wkv_chunked_ref(*ins, chunk)
+    assert y.dtype == dtype and s.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(),
+                               **(WKV_TOL if dtype == torch.float32 else WKV_BF16_TOL))
+    torch.testing.assert_close(s, s_ref, **WKV_TOL)
+    # the saved chunk states: the first is the initial state, the second the
+    # state after one chunk
+    r, k, v, lw, u, s0 = ins
+    b, _, h, kd = r.shape
+    assert torch.equal(states[:, 0], s0.reshape(b * h, kd, -1))
+    _, s1 = wkv_ref.wkv_chunked_ref(*(x[:, :chunk] for x in (r, k, v, lw)), u, s0, chunk)
+    torch.testing.assert_close(states[:, 1].reshape(s1.shape), s1, **WKV_TOL)
+    y2, s2, _ = wkv_kernel.wkv_forward(*ins, chunk)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", WKV_NAMES)
+def test_wkv_bwd_kernel_matches_plain(card, name, dtype):
+    ins, chunk, dy, ds = _wkv_on(card, name, dtype)
+    _, s, states = wkv_kernel.wkv_forward(*ins, chunk, save_states=True)
+    launches = wkv_kernel.wkv_backward.launches
+    got = wkv_kernel.wkv_backward(*ins, states, s, dy, ds, chunk)
+    assert wkv_kernel.wkv_backward.launches == launches + 1
+    want = wkv_ref.wkv_bwd_ref(*ins, chunk, dy, ds)
+    for name_, g, w, x in zip(("dr", "dk", "dv", "dlw", "du", "ds0"), got, want, ins):
+        assert g.dtype == x.dtype, name_
+        tol = WKV_BF16_TOL if g.dtype == torch.bfloat16 else WKV_TOL
+        torch.testing.assert_close(g.float(), w.float(), **tol, msg=lambda m: f"{name_}: {m}")
+    again = wkv_kernel.wkv_backward(*ins, states, s, dy, ds, chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # a missing state cotangent is a zero one
+    none = wkv_kernel.wkv_backward(*ins, states, s, dy, None, chunk)
+    zero = wkv_kernel.wkv_backward(*ins, states, s, dy, torch.zeros_like(ds), chunk)
+    assert all(torch.equal(a, b) for a, b in zip(none, zero))
+
+
+def test_wkv_ops_differentiates_through_both_kernels(card):
+    ins, chunk, dy, ds = _wkv_on(card, "chunk8")
+    leaves = [x.clone().requires_grad_(True) for x in ins]
+    fwd, bwd = wkv_kernel.wkv_forward.launches, wkv_kernel.wkv_backward.launches
+    y, s = wkv_ops.wkv(*leaves, chunk)
+    torch.autograd.backward([y, s], [dy, ds])
+    assert (wkv_kernel.wkv_forward.launches, wkv_kernel.wkv_backward.launches) == \
+        (fwd + 1, bwd + 1)
+    want = wkv_ref.wkv_bwd_ref(*ins, chunk, dy, ds)
+    for leaf, w in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad, w, **WKV_TOL)

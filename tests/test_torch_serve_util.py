@@ -1,5 +1,6 @@
 """Helpers of the port's serving tests (``test_torch_serv*.py``,
-``test_torch_models.py``, ``test_torch_launch_serve.py``): the port's own
+``test_torch_models.py``, ``test_torch_launch_serve.py``; the training tests
+import the one-thread fixture too): the port's own
 reduced models on the CPU, a stream runner, the one-thread fixture, and the
 greedy comparison against ``repro`` that allows near-ties (tested below)."""
 import functools

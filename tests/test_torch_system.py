@@ -214,6 +214,18 @@ def test_entry_points_raise_without_a_card(linreg_heap, monkeypatch):
                  lambda: serve_cli.main(["--arch", "mistral-nemo-12b", "--reduced"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    # the training slice's entry points
+    from repro_torch.data.pipeline import PageTokenDataset, synthetic_data_fn
+    from repro_torch.launch import train as train_cli
+
+    rwkv = get_reduced_config("rwkv6-3b")
+    for call in (lambda: model_zoo.init_params(rwkv),
+                 lambda: model_zoo.demo_batch(rwkv, 1, 8),
+                 lambda: synthetic_data_fn(rwkv, 1, 8),
+                 lambda: PageTokenDataset(str(heap.path) + ".tok", 4, 8, rwkv.vocab_size),
+                 lambda: train_cli.main(["--arch", "rwkv6-3b", "--reduced"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 _ISOLATION_SCRIPT = textwrap.dedent(
@@ -233,7 +245,10 @@ _ISOLATION_SCRIPT = textwrap.dedent(
                  "models.params", "models.layers", "models.attention", "models.transformer",
                  "models.model_zoo", "dist.meshes", "kernels.paged_attn.ref",
                  "kernels.paged_attn.kernel", "kernels.paged_attn.ops", "serve.kv_pool",
-                 "serve.metrics", "serve.faults", "serve.serving", "launch.serve"):
+                 "serve.metrics", "serve.faults", "serve.serving", "launch.serve",
+                 "kernels.wkv.ref", "kernels.wkv.kernel", "kernels.wkv.ops", "models.ssm",
+                 "train.optimizer", "train.grad_compress", "train.checkpoint",
+                 "train.train_loop", "data.pipeline", "launch.train"):
         assert "repro_torch." + name in sys.modules, name
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "jax"
     bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]

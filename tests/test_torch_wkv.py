@@ -1,0 +1,175 @@
+"""The port's WKV6 (``repro_torch.kernels.wkv`` and the core of
+``repro_torch.models.ssm``) against ``repro``'s on the same numpy inputs:
+the sequential oracle and the chunked form against ``repro.models.ssm``'s
+``wkv_scan`` and ``wkv_chunked`` and the Pallas kernel in interpret mode, at
+the reference's own tolerance (rtol=atol=2e-4, ``tests/test_moe_ssm.py``),
+and ``ops.wkv``'s gradients against ``jax.grad`` of ``wkv_chunked``."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from repro.kernels.wkv.wkv import wkv_pallas
+from repro.models import ssm as jssm
+from repro_torch.kernels.wkv import kernel, ops, ref
+from repro_torch.models import ssm
+from test_torch_serve_util import one_cpu_thread  # noqa: F401
+from test_torch_wkv_cases import make
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _both(case):
+    *arrs, chunk = make(case)
+    return [jnp.asarray(a) for a in arrs], [torch.from_numpy(a) for a in arrs], chunk
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("case", ["chunk8", "chunk16", "chunk32", "k_ne_v"])
+def test_wkv_chunked_and_oracle_match_repro(case):
+    jin, tin, chunk = _both(case)
+    j_scan = jssm.wkv_scan(*jin)
+    t_scan = ref.wkv_ref(*tin)
+    t_chunk = ref.wkv_chunked_ref(*tin, chunk)
+    for got in (t_scan, t_chunk):
+        for g, w in zip(got, j_scan):
+            _close(g, w)
+    if case != "k_ne_v":  # the reference's chunked form assumes K == V
+        for g, w in zip(t_chunk, jssm.wkv_chunked(*jin, chunk)):
+            _close(g, w)
+    assert ssm.wkv_scan is ref.wkv_ref and ssm.wkv_chunked is ref.wkv_chunked_ref
+
+
+def test_wkv_matches_repro_pallas_kernel():
+    jin, tin, chunk = _both("pallas_small")
+    want = wkv_pallas(*jin, chunk=chunk, interpret=True)
+    for got in (ref.wkv_chunked_ref(*tin, chunk), ops.wkv(*tin, chunk)):
+        for g, w in zip(got, want):
+            _close(g, w)
+
+
+@settings(max_examples=8, deadline=None)
+@given(t=st.sampled_from([16, 32, 64]), chunk=st.sampled_from([4, 8, 16]),
+       seed=st.integers(0, 100))
+def test_wkv_property_matches_repro_pallas(t, chunk, seed):
+    jin, tin, _ = _both((1, t, 2, 8, 8, chunk, seed, "random"))
+    want = wkv_pallas(*jin, chunk=chunk, interpret=True)
+    for g, w in zip(ops.wkv(*tin, chunk), want):
+        _close(g, w, dict(rtol=5e-4, atol=5e-4))  # the reference's property tolerance
+
+
+def test_wkv_state_carries_across_calls():
+    """Splitting a sequence across two calls == one call (streaming decode)."""
+    _, (r, k, v, lw, u, s0), chunk = _both("chunk16")
+    y_full, s_full = ref.wkv_ref(r, k, v, lw, u, s0)
+    y1, s_mid = ops.wkv(r[:, :32], k[:, :32], v[:, :32], lw[:, :32], u, s0, chunk)
+    y2, s_end = ref.wkv_ref(r[:, 32:], k[:, 32:], v[:, 32:], lw[:, 32:], u, s_mid)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(s_end, s_full, rtol=1e-4, atol=1e-5)
+
+
+def test_wkv_chunked_stays_finite_at_the_clip_bounds():
+    """At log-decays of -8 the reference's chunked form overflows
+    exp(q_ex_t - cum_s) for s > t and multiplies inf by 0: NaN. The port's
+    gives the sequential oracle's values (see kernels/wkv/ref.py)."""
+    jin, tin, chunk = _both("clip_low")
+    j_y, _ = jssm.wkv_chunked(*jin, chunk)
+    assert np.isnan(np.asarray(j_y)).any()
+    for case in ("clip_low", "clip_high", "clip_mixed"):
+        jin, tin, chunk = _both(case)
+        for g, w in zip(ref.wkv_chunked_ref(*tin, chunk), jssm.wkv_scan(*jin)):
+            _close(g, w)
+
+
+@pytest.mark.parametrize("case", ["chunk8", "chunk32", "pallas_small", "clip_high"])
+def test_wkv_gradients_match_jax_grad(case):
+    jin, tin, chunk = _both(case)
+    rng = np.random.default_rng(9)
+    dy = rng.normal(0, 1, np.shape(jin[2])).astype(np.float32)
+    ds = rng.normal(0, 1, np.shape(jin[5])).astype(np.float32)
+
+    def jloss(*xs):
+        y, s = jssm.wkv_chunked(*xs, chunk)
+        return jnp.sum(y * dy) + jnp.sum(s * ds)
+
+    want = jax.grad(jloss, argnums=tuple(range(6)))(*jin)
+    leaves = [x.clone().requires_grad_(True) for x in tin]
+    y, s = ops.wkv(*leaves, chunk)
+    torch.autograd.backward([y, s], [torch.from_numpy(dy), torch.from_numpy(ds)])
+    for leaf, w in zip(leaves, want):
+        _close(leaf.grad, w)
+    # the backward's plain version is the same function
+    for g, leaf in zip(ref.wkv_bwd_ref(*tin, chunk, torch.from_numpy(dy),
+                                       torch.from_numpy(ds)), leaves):
+        torch.testing.assert_close(g, leaf.grad)
+
+
+@pytest.mark.parametrize("case", ["chunk8", "clip_mixed"])
+def test_wkv_plain_versions_compute_in_f64_when_given_f64(case):
+    """f64 inputs keep f64 through the plain versions (the witness the card
+    checks hold the kernels against); the f32 run is within 2e-4 of it."""
+    _, tin, chunk = _both(case)
+    t64 = [x.double() for x in tin]
+    y64, s64 = ref.wkv_chunked_ref(*t64, chunk)
+    assert y64.dtype == s64.dtype == torch.float64
+    y_seq, s_seq = ref.wkv_ref(*t64)
+    torch.testing.assert_close(y64, y_seq, rtol=1e-10, atol=1e-10)
+    torch.testing.assert_close(s64, s_seq, rtol=1e-10, atol=1e-10)
+    for g, w in zip(ref.wkv_chunked_ref(*tin, chunk), (y64, s64)):
+        torch.testing.assert_close(g.double(), w, **TOL)
+    rng = np.random.default_rng(9)
+    dy = torch.from_numpy(rng.normal(0, 1, tuple(y64.shape)))
+    ds = torch.from_numpy(rng.normal(0, 1, tuple(s64.shape)))
+    grads = ref.wkv_bwd_ref(*t64, chunk, dy, ds)
+    assert all(g.dtype == torch.float64 for g in grads)
+    for g, w in zip(ref.wkv_bwd_ref(*tin, chunk, dy.float(), ds.float()), grads):
+        torch.testing.assert_close(g.double(), w, **TOL)
+
+
+def test_wkv_gradient_without_a_state_cotangent():
+    _, tin, chunk = _both("chunk8")
+    leaves = [x.clone().requires_grad_(True) for x in tin]
+    y, _ = ops.wkv(*leaves, chunk)
+    y.square().sum().backward()
+    want = ref.wkv_bwd_ref(*tin, chunk, 2 * y.detach(), None)
+    for leaf, w in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad, w)
+
+
+def test_jax_grad_cannot_enter_the_pallas_kernel():
+    """The reference trains through wkv_chunked because jax.grad of its
+    Pallas kernel fails; the port's backward is a kernel of its own."""
+    jin, _, chunk = _both("pallas_small")
+
+    def loss(r):
+        return jnp.sum(wkv_pallas(r, *jin[1:], chunk=chunk, interpret=True)[0])
+
+    with pytest.raises(Exception):
+        jax.grad(loss)(jin[0])
+
+
+def test_wkv_output_is_v_wide_where_the_reference_docstring_says_k():
+    """wkv_pallas's docstring says y is (B,T,H,K); its out_shape is V wide
+    (the state's last dim), as the port's y is. The Pallas kernel itself
+    needs K == V, so the V-wide case runs against the sequential oracle."""
+    assert "y (B,T,H,K)" in wkv_pallas.__doc__
+    jin, tin, chunk = _both("k_ne_v")
+    y, s = ops.wkv(*tin, chunk)
+    assert y.shape == (*tin[0].shape[:3], tin[2].shape[-1]) != tin[0].shape
+    assert s.dtype == torch.float32
+    for g, w in zip((y, s), jssm.wkv_scan(*jin)):
+        _close(g, w)
+
+
+def test_cuda_wrappers_reject_cpu_tensors():
+    _, tin, chunk = _both("chunk8")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.wkv_forward(*tin, chunk)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.wkv_backward(*tin, None, None, None, None, chunk)
