@@ -12,8 +12,8 @@ Phases, one JSON line each:
            tensors: the full and the projected strider decode bit for bit,
            the GLM gradient at rtol=2e-5, atol=2e-4, GLM scoring at
            atol=2e-6, svm exactly, and paged attention at rtol=atol=2e-5
-           over the CPU tests' cases and the MLA shapes (the reference's own
-           tolerances), the WKV forward and backward at rtol=atol=2e-4 over
+           over the CPU tests' cases, with and without their runs, and the
+           MLA shapes (the reference's own tolerances), the WKV forward and backward at rtol=atol=2e-4 over
            the CPU tests' cases and the training shape (bf16 outputs within
            one bf16 step), each deterministic
   e2e      remote_sensing_lr from the paper's Table 3 (logistic regression,
@@ -40,7 +40,9 @@ Phases, one JSON line each:
            stay within DEVIATION_LIMIT; a kernel that drops each token's own
            row must break that limit), one host read per fused step under
            the sync debug mode, and 5 profiled steps (busy time from the
-           device's own events)
+           device's own events); B5's first calls at step 100 (a mixed
+           step) and at the decode-only step with the most context are
+           captured for the kernels line
   launch   launch/serve.py's main() at the same full configuration
   train    rwkv6-3b (32 layers, full width, f32 masters from seed 0 on the
            card) trained by train_loop.run for 6 steps of 8 x 512 tokens from
@@ -54,7 +56,9 @@ Phases, one JSON line each:
            against token-by-token decode on 64 tokens
   launch-train  launch/train.py's main() at full width for 2 steps
   kernels  each kernel's launches on the main path, error, time, bound,
-           plain version's time and library yardstick
+           plain version's time and library yardstick; B5 at both captured
+           calls, with their runs and without, beside its bounds on each
+           distinct K/V row, on each run's context and token by token
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, exits
 non-zero and prints no such line. Without a CUDA card the script exits 1.
@@ -970,20 +974,23 @@ def phase_parity_paged_attn():
                                                num_blocks=64, seed=g, bf16=True,
                                                scale=1 / np.sqrt(dk))
     worst = 0.0
-    for name, (q, k, v, table, pos, kw, bf16) in cases.items():
+    for name, (q, k, v, table, pos, kw, bf16, runs) in cases.items():
         dt = torch.bfloat16 if bf16 else torch.float32
         q, k, v = (torch.from_numpy(a).cuda().to(dt) for a in (q, k, v))
         table, pos = torch.from_numpy(table).cuda(), torch.from_numpy(pos).cuda()
-        got = kernel.paged_attention(q, k, v, table, pos, **kw)
-        again = kernel.paged_attention(q, k, v, table, pos, **kw)
         plain = ref.paged_attn_ref(q, k, v, table, pos, **kw)
-        torch.testing.assert_close(got, plain, rtol=2e-5, atol=2e-5, msg=name)
-        if not torch.equal(got, again):
-            raise AssertionError(f"paged_attn is not deterministic: {name}")
-        worst = max(worst, float((got - plain).abs().max()))
+        # without runs (every row its own run), then with the case's runs
+        for hint in (None, torch.from_numpy(runs).cuda()):
+            got = kernel.paged_attention(q, k, v, table, pos, runs=hint, **kw)
+            again = kernel.paged_attention(q, k, v, table, pos, runs=hint, **kw)
+            what = f"{name}, {'no runs' if hint is None else 'runs'}"
+            torch.testing.assert_close(got, plain, rtol=2e-5, atol=2e-5, msg=what)
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged_attn is not deterministic: {what}")
+            worst = max(worst, float((got - plain).abs().max()))
     emit({"phase": "parity", "kernel": "paged_attn", "cases": len(cases),
-          "names": sorted(cases), "rtol": 2e-5, "atol": 2e-5, "max_abs_err": worst,
-          "deterministic": True})
+          "names": sorted(cases), "with_and_without_runs": True, "rtol": 2e-5, "atol": 2e-5,
+          "max_abs_err": worst, "deterministic": True})
 
 
 def _serve_stream(vocab: int):
@@ -1198,12 +1205,24 @@ def phase_serve():
         raise AssertionError("the server did not take the kernel path with token stepping")
     forwards = _count_forwards(main)
     real = pa_kernel.paged_attention
-    captured = {}
+    captured, decode = {}, {"ctx": -1, "seen": -1}
+
+    def keep(into, q, k_pool, v_pool, table, pos, kw):
+        into.update(q=q.clone(), k_pool=k_pool.clone(), v_pool=v_pool.clone(),
+                    table=table.clone(), pos=pos.clone(), runs=kw["runs"].clone(),
+                    kw={k: v for k, v in kw.items() if k != "runs"}, step=main.step_no)
 
     def capture(q, k_pool, v_pool, table, pos, **kw):
         if not captured and main.step_no >= 100:
-            captured.update(q=q.clone(), k_pool=k_pool.clone(), v_pool=v_pool.clone(),
-                            table=table.clone(), pos=pos.clone(), kw=kw, step=main.step_no)
+            keep(captured, q, k_pool, v_pool, table, pos, kw)
+        # the decode-only step (every row a run of one) with the most context,
+        # judged on the host at its first call, so the run makes no host read
+        if kw["runs"].shape[0] == q.shape[0] and decode["seen"] != main.step_no:
+            decode["seen"] = main.step_no
+            ctx = sum(int(main._positions[i]) for i, r in enumerate(main.active) if r is not None)
+            if ctx > decode["ctx"]:
+                keep(decode, q, k_pool, v_pool, table, pos, kw)
+                decode["ctx"] = ctx
         return real(q, k_pool, v_pool, table, pos, **kw)
 
     zero_launches()
@@ -1231,8 +1250,9 @@ def phase_serve():
     if m.prefix_hits == 0 or m.cow_splits == 0:
         raise AssertionError(f"prefix hits {m.prefix_hits}, copy-on-write splits "
                              f"{m.cow_splits}: sharing did not run")
-    if not captured:
-        raise AssertionError("no decode call of the kernel was captured")
+    if not captured or decode["ctx"] < 0:
+        raise AssertionError("no mixed or no decode-only call of the kernel was captured")
+    captured["decode_only"] = decode
     outs = {rid: r.out for rid, r in done.items()}
     for out in outs.values():
         if not all(0 <= t < cfg.vocab_size for t in out):
@@ -1307,13 +1327,15 @@ def phase_serve():
           "chunked_subset": {"rids": sorted(cdone), "near_ties": len(chunked_ties),
                              "divergences": chunked_ties, "probe": chunked_probe},
           "syncs": {"steps": 24, "synchronizing_calls": reads, "where": where},
+          "captures": {"mixed_step": captured["step"], "decode_only_step": decode["step"],
+                       "decode_only_context": decode["ctx"]},
           "profile": {"steps": 5, "traced_s": traced_s, "untraced_s": untraced_s,
                       "device_busy_s": busy_s if busy_s else None,
                       "device_idle_share": 1.0 - busy_s / untraced_s if busy_s else None,
                       "paged_attn_share_of_busy": (top["device_ms_of"]["paged_attn"] / 1e3
                                                    / busy_s if busy_s else None),
                       **top, "units": "ms totals over the 5 steps"}})
-    return cfg, captured, launches
+    return captured, launches
 
 
 def phase_launch_serve():
@@ -1343,24 +1365,30 @@ def phase_launch_serve():
           "lines": lines[:8], "launches": launches})
 
 
-def kernel_row_paged_attn(cfg, captured, launches):
-    """B5's row of the kernels line, at the decode call captured from the
-    serve phase."""
+def _paged_attn_call(cap):
+    """Kernel, plain and library times of one captured B5 call, with the
+    call's runs and without (every row its own run), and its bounds: each
+    distinct K/V row once (the bound), each run's context once (what the
+    kernel reads with runs) and each token's rows (without)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attn import kernel, ref
 
-    q, table, pos, kw = captured["q"], captured["table"], captured["pos"], captured["kw"]
-    pools = [(captured["k_pool"], captured["v_pool"])]
+    q, table, pos, runs, kw = cap["q"], cap["table"], cap["pos"], cap["runs"], cap["kw"]
+    pools = [(cap["k_pool"], cap["v_pool"])]
     # three more copies of the layer's pools, so each call in turn finds the
     # pools out of the 50 MB L2, as the next layer's call does
     pools += [(k.clone(), v.clone()) for k, v in pools * 3]
-    got = kernel.paged_attention(q, *pools[0], table, pos, **kw)
     plain = ref.paged_attn_ref(q, *pools[0], table, pos, **kw)
-    err = float((got - plain).abs().max())
-    if err > 2e-5 + 2e-5 * float(plain.abs().max()):
-        raise AssertionError(f"paged_attn differs by {err} at the serve phase's call")
+    err, kernels = 0.0, {}
+    for name, hint in (("runs", runs), ("no_runs", None)):
+        got = kernel.paged_attention(q, *pools[0], table, pos, runs=hint, **kw)
+        kernels[name] = kernel.paged_attention.kernels
+        e = float((got - plain).abs().max())
+        if e > 2e-5 + 2e-5 * float(plain.abs().max()):
+            raise AssertionError(f"paged_attn ({name}) differs by {e} at the captured call")
+        err = max(err, e)
     t, kvh, g, dk = q.shape
     dv = pools[0][1].shape[-1]
     bs = kw["block_size"]
@@ -1368,20 +1396,20 @@ def kernel_row_paged_attn(cfg, captured, launches):
     rows = int((last + 1).sum())
     per_row = kvh * (dk + dv) * pools[0][0].element_size()
     io_bytes = (q.numel() * q.element_size() + t * kvh * g * dv * 4
-                + (table.numel() + pos.numel()) * 4)
+                + (table.numel() + pos.numel() + runs.numel()) * 4)
     # the bound counts each K/V row once: the tokens of one slot, and the
-    # slots that share the template, read the same rows (a token-by-token
-    # count, the rows each token reads, is kept beside it)
+    # slots that share the template, read the same rows
     tab, lst = table.tolist(), last.tolist()
     unique = {(tab[i][n // bs], n % bs) for i in range(t) for n in range(lst[i] + 1)}
+    grouped = sum(max(lst[f:f + n]) + 1 for f, n in runs.tolist())
     unique_bytes = len(unique) * per_row + io_bytes
-    per_token_bytes = rows * per_row + io_bytes
     flops = 2 * rows * kvh * g * (dk + dv)
-    calls = [lambda k=k, v=v: kernel.paged_attention(q, k, v, table, pos, **kw)
-             for k, v in pools] * 5
-    plain_calls = [lambda k=k, v=v: ref.paged_attn_ref(q, k, v, table, pos, **kw)
-                   for k, v in pools] * 5
-    groups = (kvh * g) // kvh
+    bound_bytes_ms = 1e3 * unique_bytes / HBM_BYTES_PER_S
+    bound_ops_ms = 1e3 * flops / F32_FLOPS
+
+    def timed(fn):
+        return device_ms([lambda k=k, v=v: fn(k, v) for k, v in pools] * 5)
+
     mask = (torch.arange(table.shape[1] * bs, device=q.device)[None, :] <= last[:, None])
 
     def library(k, v):
@@ -1389,29 +1417,50 @@ def kernel_row_paged_attn(cfg, captured, launches):
         gv = v[table.long()].reshape(t, -1, kvh, dv).transpose(1, 2)
         return F.scaled_dot_product_attention(
             q.reshape(t, kvh * g, 1, dk), gk, gv, attn_mask=mask[:, None, None, :],
-            scale=kw["scale"], enable_gqa=groups > 1)
+            scale=kw["scale"], enable_gqa=g > 1)
 
-    lib_calls = [lambda k=k, v=v: library(k, v) for k, v in pools] * 5
-    torch.testing.assert_close(library(*pools[0]).float().reshape(got.shape), got,
+    torch.testing.assert_close(library(*pools[0]).float().reshape(plain.shape), plain,
                                rtol=2e-2, atol=2e-2)
-    bound_bytes_ms = 1e3 * unique_bytes / HBM_BYTES_PER_S
-    bound_ops_ms = 1e3 * flops / F32_FLOPS
+    def with_runs(k, v):
+        return kernel.paged_attention(q, k, v, table, pos, runs=runs, **kw)
+
     return {
-        "name": "paged_attn", "route": "cuda", "source": "src/repro_torch/csrc/paged_attn.cu",
-        "replaces": "src/repro/kernels/paged_attn/kernel.py:32",
-        "launches": launches["paged_attn"], "max_abs_err": err,
         "shape": (f"q ({t}, {kvh}, {g}, {dk}) bf16, pools {tuple(pools[0][0].shape)} bf16, "
                   f"table {tuple(table.shape)}, positions {int(pos.min())}-{int(pos.max())}, "
-                  f"captured at step {captured['step']}"),
-        "ms": device_ms(calls), "host_ms": eager_ms(calls), "plain_ms": device_ms(plain_calls),
+                  f"{runs.shape[0]} runs of {min(runs[:, 1].tolist())}-"
+                  f"{max(runs[:, 1].tolist())} rows, captured at step {cap['step']}"),
+        "max_abs_err": err,
+        "ms": timed(with_runs),
+        "no_runs_ms": timed(lambda k, v: kernel.paged_attention(q, k, v, table, pos, **kw)),
+        "host_ms": eager_ms([lambda k=k, v=v: with_runs(k, v) for k, v in pools] * 5),
+        "plain_ms": timed(lambda k, v: ref.paged_attn_ref(q, k, v, table, pos, **kw)),
+        "library_ms": timed(library),
+        "kernels_per_call": kernels,
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "bound_bytes": unique_bytes, "unique_rows": len(unique), "flops": flops,
-        "per_token_bytes": per_token_bytes, "valid_rows": rows,
-        "per_token_bound_ms": max(1e3 * per_token_bytes / HBM_BYTES_PER_S, bound_ops_ms),
-        "library_ms": device_ms(lib_calls),
+        "bytes_read_grouped": grouped * per_row + io_bytes, "grouped_rows": grouped,
+        "grouped_bound_ms": max(1e3 * (grouped * per_row + io_bytes) / HBM_BYTES_PER_S,
+                                bound_ops_ms),
+        "per_token_bytes": rows * per_row + io_bytes, "valid_rows": rows,
+        "per_token_bound_ms": max(1e3 * (rows * per_row + io_bytes) / HBM_BYTES_PER_S,
+                                  bound_ops_ms),
+    }
+
+
+def kernel_row_paged_attn(captured, launches):
+    """B5's row of the kernels line: the serve phase's step-100 call (prefill
+    runs beside decode rows), and beside it its decode-only call with the
+    most context (every row a run of one)."""
+    mixed = _paged_attn_call(captured)
+    decode = _paged_attn_call(captured["decode_only"])
+    return {
+        "name": "paged_attn", "route": "cuda", "source": "src/repro_torch/csrc/paged_attn.cu",
+        "replaces": "src/repro/kernels/paged_attn/kernel.py:32",
+        "launches": launches["paged_attn"], **mixed,
         "library": ("composite, no single call: gather k_pool[table], v_pool[table] + "
                     "F.scaled_dot_product_attention(attn_mask=valid rows, enable_gqa)"),
+        "decode_only": decode,
     }
 
 
@@ -1998,9 +2047,9 @@ def main() -> int:
         db, predict_launches = phase_predict(heap, res)
         rows = phase_kernels(heap, engine, res, launches, db, predict_launches)
         del heap, engine, res, db
-        cfg, captured, serve_launches = phase_serve()
+        captured, serve_launches = phase_serve()
         phase_launch_serve()
-        rows.append(kernel_row_paged_attn(cfg, captured, serve_launches))
+        rows.append(kernel_row_paged_attn(captured, serve_launches))
         del captured
         wkv_calls, train_launches = phase_train()
         phase_train_parity()

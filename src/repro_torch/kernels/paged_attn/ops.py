@@ -15,7 +15,8 @@ from repro_torch.kernels.paged_attn import kernel, ref
 
 
 def paged_attention(q, k_pool, v_pool, table, pos, *, block_size: int,
-                    ring_width: int = 0, max_rows: int, scale: float) -> torch.Tensor:
+                    ring_width: int = 0, max_rows: int, scale: float,
+                    runs=None) -> torch.Tensor:
     """Block-table paged decode attention.
 
     q (T, KVH, G, Dk) queries (G query heads per kv head; an MLA absorbed
@@ -25,12 +26,24 @@ def paged_attention(q, k_pool, v_pool, table, pos, *, block_size: int,
     are masked); pos (T,) positions. ``ring_width`` > 0 selects SWA ring
     validity (logical rows are ``pos % ring_width``). Returns
     (T, KVH, G, Dv) float32 on q's device.
+
+    ``runs`` is a hint that does not change the result: None (every row its
+    own run) or (R, 2) int32 on q's device, rows (first row, row count) that
+    cover the rows 0..T-1 in order, once each, where the rows of one run
+    share one table row (one slot's tokens in a serving step; each keeps its
+    own position, so its own causal limit). The kernel then reads each run's
+    context once for all its rows. The caller guarantees this precondition:
+    neither this function nor the kernel reads the tensor back to check it,
+    and a run whose rows map different blocks reads the first row's. The
+    plain version ignores it.
     """
     table = table.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     kw = dict(block_size=int(block_size), ring_width=int(ring_width),
               max_rows=int(max_rows), scale=float(scale))
     if q.device.type == "cpu":
-        return ref.paged_attn_ref(q, k_pool, v_pool, table, pos, **kw)
+        return ref.paged_attn_ref(q, k_pool, v_pool, table, pos, runs=runs, **kw)
+    if runs is not None:
+        runs = runs.to(torch.int32).contiguous()
     return kernel.paged_attention(q.contiguous(), k_pool.contiguous(),
-                                  v_pool.contiguous(), table, pos, **kw)
+                                  v_pool.contiguous(), table, pos, runs=runs, **kw)

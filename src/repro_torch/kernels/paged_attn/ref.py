@@ -27,11 +27,12 @@ def paged_valid(pos, s_pad, ring_width: int, max_rows: int):
 
 
 def paged_attn_ref(q, k_pool, v_pool, table, pos, *, block_size: int,
-                   ring_width: int = 0, max_rows: int, scale: float):
+                   ring_width: int = 0, max_rows: int, scale: float, runs=None):
     """q (T, KVH, G, Dk); k_pool (NB, bs, KVH, Dk); v_pool (NB, bs, KVH, Dv);
     table (T, nb_slot) int32 physical block ids; pos (T,) int32 positions.
-    Returns (T, KVH, G, Dv) float32."""
-    del block_size  # the pools carry it
+    ``runs`` (the kernel's hint) does not change the function and is
+    ignored. Returns (T, KVH, G, Dv) float32."""
+    del block_size, runs  # the pools carry the block size
     t, kvh, _, dk = q.shape
     dv = v_pool.shape[-1]
     table = table.long()

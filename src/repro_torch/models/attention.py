@@ -173,13 +173,15 @@ def _paged_valid(pos_b, s_pad, ring_width, max_rows):
 
 def gqa_decode_paged(p, x, cache, pos, cfg: ModelConfig, table, block_size,
                      ring_width=0, max_seq=None, write_ok=None,
-                     impl="gather"):
+                     impl="gather", runs=None):
     """Paged variant of ``gqa_decode``: cache {k,v}: (NB+1, bs, KVH, D) block
     pools, block NB the landing block; ``table`` (B, nb_slot) int32.
     ``ring_width`` > 0 selects SWA ring semantics (the table then maps ring
     rows). ``impl`` picks the attention read path: ``"gather"`` (padded-view
     reference) or ``"kernel"`` (the block-walking kernel B5 in
-    kernels/paged_attn). Returns (out, cache)."""
+    kernels/paged_attn). ``runs`` ((R, 2) int32, the rows that share one
+    table row; see ``kernels.paged_attn.ops``) reaches the kernel only; the
+    gather path ignores it. Returns (out, cache)."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"impl must be one of {ATTN_IMPLS}, got {impl!r}")
     b = x.shape[0]
@@ -201,7 +203,7 @@ def gqa_decode_paged(p, x, cache, pos, cfg: ModelConfig, table, block_size,
         out = paged_attn_ops.paged_attention(
             q.reshape(b, kvh, g, hd), ck, cv, table, pos_b,
             block_size=block_size, ring_width=ring_width,
-            max_rows=max_rows, scale=scale,
+            max_rows=max_rows, scale=scale, runs=runs,
         )
     else:
         tl = table.long()

@@ -291,6 +291,7 @@ def _layer_decode(p, x, cache, pos, cfg: ModelConfig, kind: str = "attn_mlp", pa
             p["attn"], h, cache, pos, cfg, table=paged["table"],
             block_size=paged["block_size"], max_seq=paged["max_seq"],
             write_ok=paged["write_ok"], impl=paged.get("impl", "gather"),
+            runs=paged.get("runs"),
         )
     x = x + a
     h = apply_norm(p["ln2"], x, cfg.norm_eps)
@@ -306,7 +307,9 @@ def lm_decode_step(params, tokens, caches, pos, cfg: ModelConfig, paged=None,
     (init_paged_cache): a dict with ``table`` ((B, nb) int32, or per-token
     (T, nb) when ``slot`` is given), ``write_ok`` (B,) bool (or None),
     ``block_size``/``max_seq``, and optional ``impl`` (``"gather"`` |
-    ``"kernel"`` paged-attention read path). ``slot``/``write_ok`` enable
+    ``"kernel"`` paged-attention read path) and ``runs`` ((R, 2) int32 rows
+    that share one table row, a hint for the kernel path; see
+    ``kernels.paged_attn.ops``). ``slot``/``write_ok`` enable
     token-level batching over dense caches: tokens is a flattened (T,) mix of
     prefill chunks and decode tokens, ``slot`` (T,) maps each token to its
     cache row, and ``write_ok`` (T,) masks padding rows out of cache writes

@@ -77,6 +77,11 @@ Where the port differs from ``repro``:
     tokens) into one int32 tensor read back with one copy. Nothing inside a
     step calls ``.item()``, ``nonzero`` or boolean indexing, and the host
     state goes up through pinned memory without synchronising.
+  * **Runs.** A token step also uploads, in its one upload, the runs of its
+    batch: (first row, row count) for the rows of each scheduled slot and
+    one per padding row. On the kernel path they reach the paged-attention
+    kernel, which then reads each slot's context once for all its rows
+    (``token_runs``; ``repro`` walks each row's context on its own).
   * **Gated-off writes** land in a spare cache row or block (see
     models/attention.py); chunked dense steps gate the rows that do not run
     the same way, where ``repro`` reverts them with a select afterwards.
@@ -151,6 +156,37 @@ def _cache_row_bytes(cache) -> int:
     so one row is ``L * prod(tail)`` elements per leaf."""
     return sum(int(c.shape[0]) * int(np.prod(c.shape[3:], dtype=np.int64)) * c.element_size()
                for seg in cache for c in seg.values())
+
+
+def token_runs(counts, t_pad: int) -> np.ndarray:
+    """The runs of a token batch, (R, 2) int32 (first row, row count): one
+    per scheduled slot, ``counts`` rows each in batch order, then one per
+    padding row up to ``t_pad``."""
+    counts = np.asarray(counts, np.int64)
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    live = int(counts.sum())
+    pad = np.arange(live, t_pad)
+    return np.concatenate([np.stack([first, counts], 1),
+                           np.stack([pad, np.ones_like(pad)], 1)]).astype(np.int32)
+
+
+def check_runs(runs: np.ndarray, slot_ids: np.ndarray) -> None:
+    """The paged-attention kernel's precondition on ``runs``, held on the
+    host before they cross to the device: (first row, count) pairs, counts
+    >= 1, that cover the rows of the batch in order, once each, with one
+    slot (so one table row) per run."""
+    t = len(slot_ids)
+    if runs.ndim != 2 or runs.shape[1] != 2 or runs.dtype != np.int32 or len(runs) == 0:
+        raise ValueError(f"runs must be (R, 2) int32, got {runs.shape} {runs.dtype}")
+    first, count = runs[:, 0].astype(np.int64), runs[:, 1].astype(np.int64)
+    ends = np.cumsum(count)
+    if count.min() < 1 or ends[-1] != t or np.any(first != ends - count):
+        raise ValueError(f"runs do not cover the {t} rows in order, once each: "
+                         f"{runs.tolist()}")
+    run_slot = np.repeat(slot_ids[first], count)
+    if np.any(run_slot != slot_ids):
+        raise ValueError(f"a run spans rows of different slots: {runs.tolist()}, "
+                         f"slots {slot_ids.tolist()}")
 
 
 class BatchedServer:
@@ -593,13 +629,15 @@ class BatchedServer:
             self._prompt_buf_dev = self._upload(self._prompt_buf)
 
     # -- the fused device step -------------------------------------------------
-    def _forward(self, tok, pos, write_ok, table=None, slot=None):
+    def _forward(self, tok, pos, write_ok, table=None, slot=None, runs=None):
         """One decode over the caches, gated by ``write_ok``, then sampling
-        over the true vocab: (T,) int32 next tokens on the device."""
+        over the true vocab: (T,) int32 next tokens on the device. ``runs``
+        reaches the paged-attention kernel (the kernel path only)."""
         if self._paged is not None:
             ctx = {"table": table, "write_ok": write_ok,
                    "block_size": self._paged.block_size, "max_seq": self.max_seq,
-                   "impl": self.attn_impl}
+                   "impl": self.attn_impl,
+                   "runs": runs if self.attn_impl == "kernel" else None}
             logits, _ = self._decode(self.params, tok, self.cache, pos, paged=ctx)
         else:
             logits, _ = self._decode(self.params, tok, self.cache, pos, slot=slot,
@@ -641,16 +679,22 @@ class BatchedServer:
                             last_tok[None]])
         return packed.cpu().numpy()  # the step's one host read
 
-    def _token_program(self, tokens, slot_ids, pos, live) -> np.ndarray:
+    def _token_program(self, tokens, slot_ids, pos, live, runs) -> np.ndarray:
         """One decode over a flattened (T,) token batch: ``slot_ids`` maps
         each row onto its cache slot, ``live`` gates padding rows out of the
-        cache writes. Returns the (T,) host array of per-row samples."""
-        batch = self._upload(np.stack([tokens, slot_ids, pos, live.astype(np.int32)]))
+        cache writes, ``runs`` (R, 2) groups the rows of each slot. One
+        upload carries all of them. Returns the (T,) host array of per-row
+        samples."""
+        t = len(tokens)
+        flat = self._upload(np.concatenate([
+            np.stack([tokens, slot_ids, pos, live.astype(np.int32)]).ravel(), runs.ravel()]))
+        batch = flat[:4 * t].view(4, t)
         live_d = batch[3].bool()
         tok = torch.where(live_d, batch[0], 0)
         slot = batch[1]
         table = self._table_dev[slot] if self._paged is not None else None
-        nxt = self._forward(tok, batch[2], live_d, table=table, slot=slot)
+        nxt = self._forward(tok, batch[2], live_d, table=table, slot=slot,
+                            runs=flat[4 * t:].view(-1, 2))
         return nxt.cpu().numpy()  # the step's one host read
 
     # -- stepping ---------------------------------------------------------------
@@ -858,6 +902,7 @@ class BatchedServer:
         pos = np.zeros(t_pad, np.int32)
         live = np.zeros(t_pad, bool)
         last_row: dict[int, int] = {}
+        runs = token_runs([n for _, _, n in work], t_pad)
         k = 0
         for i, p, n in work:
             plen = int(self._prompt_len[i])
@@ -874,7 +919,8 @@ class BatchedServer:
             self.metrics.kv_blocks_peak = max(
                 self.metrics.kv_blocks_peak, self._paged.pool.blocks_in_use
             )
-        nxt = self._token_program(tokens, slot_ids, pos, live)
+        check_runs(runs, slot_ids)
+        nxt = self._token_program(tokens, slot_ids, pos, live, runs)
         now = self._clock()
 
         n_active = 0

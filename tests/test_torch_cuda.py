@@ -256,22 +256,30 @@ def test_executor_on_card_interleaved_matches_serial(card, tmp_path):
     assert all(r.device_syncs == 1 for r in serial[1:] + inter[1:])
 
 
-def _paged_attn_on_card(card, case):
-    q, k, v, table, pos, kw, bf16 = case
+def _paged_attn_on_card(card, case, with_runs=False):
+    q, k, v, table, pos, kw, bf16, runs = case
     dt = torch.bfloat16 if bf16 else torch.float32
     q, k, v = (torch.from_numpy(a).to(card, dt) for a in (q, k, v))
     table, pos = torch.from_numpy(table).to(card), torch.from_numpy(pos).to(card)
+    runs = torch.from_numpy(runs).to(card) if with_runs else None
     launches = pa_kernel.paged_attention.launches
-    got = pa_kernel.paged_attention(q, k, v, table, pos, **kw)
+    got = pa_kernel.paged_attention(q, k, v, table, pos, runs=runs, **kw)
     assert pa_kernel.paged_attention.launches == launches + 1
     torch.testing.assert_close(got, pa_ref.paged_attn_ref(q, k, v, table, pos, **kw),
                                rtol=2e-5, atol=2e-5)
-    assert torch.equal(got, pa_kernel.paged_attention(q, k, v, table, pos, **kw))
+    assert torch.equal(got, pa_kernel.paged_attention(q, k, v, table, pos, runs=runs, **kw))
 
 
 @pytest.mark.parametrize("name", sorted(PA_CASES))
 def test_paged_attn_kernel_matches_plain(card, name):
     _paged_attn_on_card(card, PA_CASES[name]())
+
+
+@pytest.mark.parametrize("name", sorted(PA_CASES))
+def test_paged_attn_kernel_with_runs_matches_plain(card, name):
+    """Each case's runs given to the kernel (one row each where the case has
+    none): the same function, at the same tolerance, the same bits twice."""
+    _paged_attn_on_card(card, PA_CASES[name](), with_runs=True)
 
 
 @pytest.mark.parametrize("g,dk,dv", [(40, 288, 256), (128, 576, 512)])

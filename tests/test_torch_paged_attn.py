@@ -4,13 +4,16 @@
 inputs, at the reference's tolerance (rtol=atol=2e-5,
 ``tests/test_paged_attn_kernel.py``). The cases are in
 ``test_torch_paged_attn_cases.py``; ``test_torch_cuda.py`` holds the kernel
-against this plain version on the card."""
+against this plain version on the card, with and without each case's runs."""
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from test_torch_paged_attn_cases import CASES
+from test_torch_paged_attn_cases import CASES, SPLIT_ROWS
 from repro.kernels.paged_attn import ref as jref
 from repro.kernels.paged_attn.kernel import paged_attn_pallas
 from repro_torch.kernels.paged_attn import kernel, ops, ref
@@ -18,15 +21,18 @@ from repro_torch.kernels.paged_attn import kernel, ops, ref
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 
+RUN_CASES = sorted(n for n, fn in CASES.items() if len(fn()[7]) < fn()[0].shape[0])
+
+
 def _torch_inputs(case):
-    q, k, v, table, pos, kw, bf16 = case
+    q, k, v, table, pos, kw, bf16, _ = case
     dt = torch.bfloat16 if bf16 else torch.float32
     return ([torch.from_numpy(a).to(dt) for a in (q, k, v)]
             + [torch.from_numpy(table), torch.from_numpy(pos)], kw)
 
 
 def _jax_inputs(case):
-    q, k, v, table, pos, kw, bf16 = case
+    q, k, v, table, pos, kw, bf16, _ = case
     dt = jnp.bfloat16 if bf16 else jnp.float32
     return [jnp.asarray(a, dt) for a in (q, k, v)] + [jnp.asarray(table), jnp.asarray(pos)], kw
 
@@ -42,13 +48,37 @@ def test_plain_matches_repro_ref(name):
 
 
 @pytest.mark.parametrize("name", ["gqa", "mqa_dk_ne_dv", "g5_dk_ne_dv", "bs5", "ring6",
-                                  "max_rows", "bf16", "unmapped_clamped"])
+                                  "max_rows", "bf16", "unmapped_clamped", "runs_ring6",
+                                  "runs_ring4", "shared_blocks_run", "runs_max_rows"])
 def test_plain_matches_repro_kernel_interpret(name):
     case = CASES[name]()
     (q, k, v, table, pos), kw = _torch_inputs(case)
     got = ref.paged_attn_ref(q, k, v, table, pos, **kw)
     want = paged_attn_pallas(*_jax_inputs(case)[0], interpret=True, **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("name", RUN_CASES)
+def test_plain_ignores_runs(name):
+    """The runs are a hint to the kernel: the plain version gives the same
+    bits with and without them, and both match ``repro``'s ref."""
+    case = CASES[name]()
+    (q, k, v, table, pos), kw = _torch_inputs(case)
+    runs = torch.from_numpy(case[7])
+    got = ops.paged_attention(q, k, v, table, pos, runs=runs, **kw)
+    assert torch.equal(got, ops.paged_attention(q, k, v, table, pos, **kw))
+    want = jref.paged_attn_ref(*_jax_inputs(case)[0], **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_split_cases_sit_on_the_kernels_boundary():
+    """The split cases are placed on the kernel's split size: the constant
+    they use is the one the CUDA source compiles."""
+    src = (Path(__file__).resolve().parents[1] / "src/repro_torch/csrc/paged_attn.cu").read_text()
+    assert int(re.search(r"constexpr int kSplitRows = (\d+);", src).group(1)) == SPLIT_ROWS
+    assert kernel.n_splits(68, 16, 0, 1088, SPLIT_ROWS) == 9
+    assert kernel.n_splits(40, 8, 0, SPLIT_ROWS, SPLIT_ROWS) == 1
+    assert kernel.n_splits(3, 2, 6, 6, SPLIT_ROWS) == 1
 
 
 def test_stale_rows_never_read():

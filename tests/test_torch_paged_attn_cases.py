@@ -1,27 +1,38 @@
 """Inputs of the paged-attention parity cases, shared by
 ``test_torch_paged_attn.py`` (the plain version against ``repro`` on the CPU),
 ``test_torch_cuda.py`` and ``chip_smoke.py`` (the kernel B5 against the plain
-version on the card); numpy only, so the card's machine can import it. They port the cases of ``tests/test_paged_attn_kernel.py``: head
-layouts, block geometries, SWA rings cold and warm, ``max_rows`` clipping,
-bf16 pools and shared blocks, plus unmapped table entries clamped to 0, G of
-1, 4 and 5 and block sizes of 1, 4 and 16, and the shapes that pick each of
-the kernel's bodies and tilings (head dims that fill 1, 2, 4 or 8 elements
-per lane or leave lanes idle, 4 and 8 heads per CTA with idle heads, head
-dims past 256, a serving shape at a context of 1,088 rows). Every pool holds
-random rows everywhere, so each unread row stands for a recycled block's
-stale content.
+version on the card); numpy only, so the card's machine can import it. They
+port the cases of ``tests/test_paged_attn_kernel.py``: head layouts, block
+geometries, SWA rings cold and warm, ``max_rows`` clipping, bf16 pools and
+shared blocks, plus unmapped table entries clamped to 0, G of 1, 4 and 5 and
+block sizes of 1, 4 and 16, and the shapes that pick each of the kernel's
+bodies and layouts (Dv in 1 to 4 groups of 64 columns or leaving columns
+idle, rows of 8 query heads or fewer and of 12, f32 and tensor-core scores,
+head dims of 256 and past it, a serving shape at a context of 1,088 rows),
+and runs: rows that share one table row, given to the kernel as (first row,
+count) pairs so that it reads their context once (prefill runs of 16 beside
+decode rows, mixed run lengths, runs across and up to the kernel's split
+boundary of ``SPLIT_ROWS`` context rows, ``max_rows`` clipping and SWA
+rings within a run, runs of 8 query rows or fewer and of more than 64).
+Every pool holds random rows everywhere, so each unread row stands for a
+recycled block's stale content.
 """
 import numpy as np
+
+# context rows per CTA of the kernel's split body (kSplitRows in
+# src/repro_torch/csrc/paged_attn.cu): the split cases sit on its boundary
+SPLIT_ROWS = 128
 
 
 def make(t=5, kvh=2, g=3, dk=8, dv=8, nb_slot=4, bs=4, num_blocks=32,
          ring_width=0, seed=0, pos=None, table=None, max_rows=None,
-         bf16=False, scale=0.37):
+         bf16=False, scale=0.37, runs=None):
     """q, k_pool, v_pool (f32 numpy; ``bf16`` says to cast them), table,
-    pos and the keyword arguments of ``paged_attention``. By default the
-    table's rows are distinct permuted physical blocks (nothing is block-id
-    ordered) and the positions span empty, mid-block, block-boundary and
-    full coverage."""
+    pos, the keyword arguments of ``paged_attention``, the bf16 flag and the
+    runs ((R, 2) int32 (first row, count); by default one row each). By
+    default the table's rows are distinct permuted physical blocks (nothing
+    is block-id ordered) and the positions span empty, mid-block,
+    block-boundary and full coverage."""
     rng = np.random.default_rng(seed)
     q = rng.normal(0, 1, (t, kvh, g, dk)).astype(np.float32)
     k = rng.normal(0, 1, (num_blocks, bs, kvh, dk)).astype(np.float32)
@@ -35,7 +46,34 @@ def make(t=5, kvh=2, g=3, dk=8, dv=8, nb_slot=4, bs=4, num_blocks=32,
     if max_rows is None:
         max_rows = nb_slot * bs
     kw = dict(block_size=bs, ring_width=ring_width, max_rows=max_rows, scale=scale)
-    return (q, k, v, np.asarray(table, np.int32), np.asarray(pos, np.int32), kw, bf16)
+    if runs is None:
+        runs = [(i, 1) for i in range(t)]
+    return (q, k, v, np.asarray(table, np.int32), np.asarray(pos, np.int32), kw, bf16,
+            np.asarray(runs, np.int32).reshape(-1, 2))
+
+
+def _runs_case(lengths, positions, t_extra_pos=(), nb_slot=8, bs=4, num_blocks=None,
+               seed=0, **kw):
+    """Runs of ``lengths`` rows (run j at the consecutive positions from
+    ``positions[j]``, all its rows on one table row), then one-row runs at
+    ``t_extra_pos``, each on a table row of its own; the table rows are
+    distinct permuted blocks."""
+    n_rows = len(lengths) + len(t_extra_pos)
+    if num_blocks is None:
+        num_blocks = n_rows * nb_slot + 8
+    blocks = np.random.default_rng(seed + 100).permutation(num_blocks)
+    own = blocks[: n_rows * nb_slot].reshape(n_rows, nb_slot)
+    table, pos, runs = [], [], []
+    for j, n in enumerate(lengths):
+        runs.append((len(pos), n))
+        table += [own[j]] * n
+        pos += list(range(positions[j], positions[j] + n))
+    for j, p in enumerate(t_extra_pos):
+        runs.append((len(pos), 1))
+        table.append(own[len(lengths) + j])
+        pos.append(p)
+    return make(t=len(pos), nb_slot=nb_slot, bs=bs, num_blocks=num_blocks, seed=seed,
+                table=np.array(table), pos=np.array(pos), runs=runs, **kw)
 
 
 def _unmapped():
@@ -79,8 +117,8 @@ CASES = {
     "long_context": lambda: make(t=3, kvh=2, g=4, dk=128, dv=128, bs=16, nb_slot=70,
                                  num_blocks=256, seed=15, bf16=True, scale=128 ** -0.5,
                                  pos=np.array([1087, 600, 33])),
-    # idle lanes (Dk 96, Dv 160), 8 heads per CTA, idle heads (G 12 in tiles
-    # of 8), and head dims of 256 with G 8, which take the tiled body
+    # idle columns (Dk 96, Dv 160), rows of 8 heads (one warp each) and of 12
+    # (the wide layout, tensor-core scores in bf16), head dims of 256
     "g3_dk96_dv160": lambda: make(t=5, kvh=2, g=3, dk=96, dv=160, bs=16, nb_slot=3,
                                   num_blocks=24, seed=11),
     "g8_dk64": lambda: make(t=5, kvh=1, g=8, dk=64, dv=64, bs=8, nb_slot=4, num_blocks=24,
@@ -89,6 +127,48 @@ CASES = {
                               num_blocks=12, seed=13, bf16=True),
     "g8_dk256": lambda: make(t=3, kvh=1, g=8, dk=256, dv=256, bs=16, nb_slot=2, num_blocks=8,
                              seed=16),
+    # runs: a slot's 16 prefill rows over a 70-block context beside decode
+    # rows (the last row of the table, mid-context, one block)
+    "run16_prefill": lambda: _runs_case([16], [1000], (1119, 500, 7), nb_slot=70, bs=16,
+                                        kvh=2, g=4, dk=128, dv=128, seed=20,
+                                        scale=128 ** -0.5),
+    # run lengths 1, 3, 5 and 16 in one call, contexts on both sides of a split
+    "runs_mixed": lambda: _runs_case([1, 3, 5, 16], [70, 10, 120, 140], nb_slot=40,
+                                     kvh=2, g=3, dk=32, dv=32, seed=21),
+    # a run across the split boundary (its first 8 rows end inside split 0),
+    # runs that end exactly on it (rows 0..127) and on the next (0..255), and
+    # single rows whose context is 128 and 129 rows
+    "runs_split_edges": lambda: _runs_case(
+        [16, 16, 16], [120, SPLIT_ROWS - 16, 2 * SPLIT_ROWS - 16],
+        (SPLIT_ROWS - 1, SPLIT_ROWS), nb_slot=40, bs=8, kvh=1, g=4, dk=16, dv=16,
+        seed=22),
+    # max_rows clips a run's later rows to one last row (129), past the split
+    "runs_max_rows": lambda: _runs_case([16, 4], [120, 126], (140,), nb_slot=10, bs=16,
+                                        max_rows=SPLIT_ROWS + 2, kvh=2, g=2, dk=24, dv=16,
+                                        seed=23),
+    # SWA rings: a run that warms up within the call (ring6) and one that
+    # wraps (ring4), beside cold and warm single rows
+    "runs_ring6": lambda: _runs_case([6], [3], (0, 13), nb_slot=3, bs=2, ring_width=6,
+                                     seed=24),
+    "runs_ring4": lambda: _runs_case([4, 2], [2, 9], (1,), nb_slot=2, bs=2, ring_width=4,
+                                     seed=25),
+    # bf16 at mistral-nemo's heads: a 16-row prefill run past two splits, a
+    # 5-row tail, decode rows, and 3 padding rows (position 0, one row each)
+    "runs_gqa_dk128_bf16": lambda: _runs_case(
+        [16, 5], [600, 300], (1087, 130, 127, 0, 0, 0, 0), nb_slot=68, bs=16, kvh=8, g=4,
+        dk=128, dv=128, seed=26, bf16=True, scale=128 ** -0.5),
+    # the kernel's two layouts of a run's query rows: 2 tokens x G 4 (8 rows,
+    # a warp each), 3 tokens (12), and 20 tokens (80 rows: two passes of 64)
+    "runs_layouts": lambda: _runs_case([2, 3, 20], [40, 7, 100], (5,), nb_slot=20, bs=8,
+                                       kvh=1, g=4, dk=32, dv=32, seed=27),
+    # bf16 runs of 2 and 4 tokens x G 4 (8 query rows: a warp each; 16 and
+    # 20 rows: the tensor cores) beside a decode row
+    "runs_small_bf16": lambda: _runs_case([2, 4, 5], [300, 17, 129], (200,), nb_slot=20,
+                                          bs=16, kvh=2, g=4, dk=128, dv=128, seed=28,
+                                          bf16=True, scale=128 ** -0.5),
+    # the shared_blocks case with its six rows declared one run
+    "shared_blocks_run": lambda: make(t=6, seed=6, table=np.tile([[7, 3, 11, 0]], (6, 1)),
+                                      pos=np.array([0, 3, 4, 7, 12, 15]), runs=[(0, 6)]),
 }
 
 
@@ -96,9 +176,16 @@ def test_cases_are_well_formed():
     """Every case's table names blocks of its pools and its shapes agree, so
     a failure of a parity test is the kernel's, not the case's."""
     for name, fn in CASES.items():
-        q, k, v, table, pos, kw, _ = fn()
+        q, k, v, table, pos, kw, _, runs = fn()
         t, kvh, g, dk = q.shape
         assert k.shape[1:] == (kw["block_size"], kvh, dk) and v.shape[:3] == k.shape[:3], name
         assert table.shape[0] == t == pos.shape[0] and table.dtype == pos.dtype == np.int32, name
         assert 0 <= table.min() and table.max() < k.shape[0] and pos.min() >= 0, name
         assert 1 <= kw["max_rows"] <= table.shape[1] * kw["block_size"], name
+        # the runs cover the rows in order, once each, and the rows of a run
+        # share one table row
+        assert runs.dtype == np.int32 and runs.shape[1] == 2 and runs[:, 1].min() >= 1, name
+        assert runs[0, 0] == 0 and runs[-1].sum() == t, name
+        assert np.array_equal(runs[1:, 0], runs[:-1].sum(1)), name
+        for first, n in runs:
+            assert (table[first:first + n] == table[first]).all(), name

@@ -4,15 +4,19 @@ cases of ``tests/test_serving_tokbatch.py``. Within the port every contract
 is exact: the flattened token batch gives the chunked engine's tokens per
 cache layout (dense, paged, paged + the kernel's plain version) and per chunk
 width C in {1, 4, 7}. Plus the padding rows of a token batch: they share a
-live row's (slot, position) and must never land on it."""
+live row's (slot, position) and must never land on it; and the runs of a
+token batch (each slot's rows, for the kernel to read their context once):
+built per step, checked on the host, carried by the step's one upload and
+passed only on the kernel path."""
 import numpy as np
 import pytest
 import torch
 
 from test_torch_serve_util import CPU, one_cpu_thread, params, serve  # noqa: F401
+from repro_torch.kernels.paged_attn import ref as pa_ref
 from repro_torch.models import attention
 from repro_torch.serve.metrics import ServeMetrics
-from repro_torch.serve.serving import BatchedServer, Request
+from repro_torch.serve.serving import BatchedServer, Request, check_runs, token_runs
 
 ARCHS = ["internlm2-20b", "mistral-nemo-12b"]
 
@@ -162,3 +166,119 @@ def test_one_host_read_per_fused_step(monkeypatch):
         assert len(reads) == srv.metrics.steps, mode
     assert reads and all(len(s) == 1 for s in reads)  # tokens mode: (T,) samples
     assert np.all([s[0] % 8 == 0 for s in reads])
+
+
+# ------------------- runs: one slot's rows grouped for B5 --------------------
+def _record_paged_calls(monkeypatch):
+    """Every ``gqa_decode_paged`` call's impl and runs, and every runs tensor
+    that reaches the paged-attention kernel's plain version."""
+    calls, reached = [], []
+    real_layer, real_ref = attention.gqa_decode_paged, pa_ref.paged_attn_ref
+
+    def layer(*a, **kw):
+        calls.append((kw["impl"], kw.get("runs")))
+        return real_layer(*a, **kw)
+
+    def plain(*a, runs=None, **kw):
+        reached.append(runs)
+        return real_ref(*a, runs=runs, **kw)
+
+    monkeypatch.setattr(attention, "gqa_decode_paged", layer)
+    monkeypatch.setattr(pa_ref, "paged_attn_ref", plain)
+    return calls, reached
+
+
+def test_token_step_runs_group_each_slot_in_the_one_upload(monkeypatch):
+    """At every token step of a reduced GQA model on paged KV, the runs the
+    kernel path receives cover the batch's rows in order, once each; a run
+    holds consecutive positions of one slot; and the runs are a view of the
+    step's one upload, beside the tokens, slots, positions and live flags.
+    The step still reads the device back once."""
+    cfg, p = params("mistral-nemo-12b")
+    calls, _ = _record_paged_calls(monkeypatch)
+    srv = BatchedServer(cfg, p, batch_slots=3, max_seq=24, kv="paged", block_size=4,
+                        step_mode="tokens", prefill_chunk=4, attn_impl="kernel", device=CPU)
+    for i, (prompt, n) in enumerate([([5, 6, 7, 8, 9, 1], 5), ([1, 2], 3), ([9, 3, 9], 4),
+                                     ([2, 7, 1, 1, 4], 3)]):
+        srv.submit(Request(i, prompt, n))
+    uploads, reads = [], []
+    real_upload, real_cpu = srv._upload, torch.Tensor.cpu
+
+    def upload(arr):
+        out = real_upload(arr)
+        uploads.append(out)
+        return out
+
+    def cpu(self, *a, **kw):
+        reads.append(tuple(self.shape))
+        return real_cpu(self, *a, **kw)
+
+    srv._upload = upload
+    monkeypatch.setattr(torch.Tensor, "cpu", cpu)
+    steps = grouped = 0
+    while srv.queue or any(r is not None for r in srv.active):
+        calls.clear()
+        uploads.clear()
+        srv.step()
+        steps += 1
+        if not calls:
+            continue
+        assert len(calls) == cfg.n_layers
+        runs = calls[0][1]
+        assert all(impl == "kernel" and r is runs for impl, r in calls)
+        flat = uploads[-1]  # the step's batch: tokens, slots, positions, live, runs
+        t = (flat.numel() - runs.numel()) // 4
+        assert runs.untyped_storage().data_ptr() == flat.untyped_storage().data_ptr()
+        slots, pos = flat[t:2 * t], flat[2 * t:3 * t]
+        first, count = runs[:, 0].tolist(), runs[:, 1].tolist()
+        assert first[0] == 0 and sum(count) == t
+        assert all(f + n == g for f, n, g in zip(first, count, first[1:]))
+        for f, n in zip(first, count):
+            assert (slots[f:f + n] == slots[f]).all()
+            assert pos[f:f + n].tolist() == list(range(int(pos[f]), int(pos[f]) + n))
+        grouped += max(count) > 1
+    assert grouped > 0 and len(reads) == steps
+
+
+def test_chunked_step_and_gather_path_pass_no_runs(monkeypatch):
+    """Runs reach only the kernel path of token stepping: chunked stepping
+    (each row a different slot) passes none, and the gather path, which
+    does not read them, gets none."""
+    cfg, p = params("mistral-nemo-12b")
+    calls, reached = _record_paged_calls(monkeypatch)
+    serve(cfg, p, prefill_chunk=4, kv="paged", block_size=4, attn_impl="kernel")
+    assert calls and all(impl == "kernel" and runs is None for impl, runs in calls)
+    assert reached and all(runs is None for runs in reached)
+    calls.clear()
+    reached.clear()
+    serve(cfg, p, prefill_chunk=4, step_mode="tokens", kv="paged", block_size=4,
+          attn_impl="gather")
+    assert calls and all(impl == "gather" and runs is None for impl, runs in calls)
+    assert not reached
+
+
+def test_kernel_path_with_runs_equals_gather_path(monkeypatch):
+    """The kernel path, given runs of up to 4 rows, serves the gather path's
+    tokens (on the CPU through the plain version, which ignores runs: this
+    pins the plumbing)."""
+    cfg, p = params("mistral-nemo-12b")
+    _, reached = _record_paged_calls(monkeypatch)
+    want, _ = serve(cfg, p, prefill_chunk=4, step_mode="tokens", kv="paged", block_size=4,
+                    attn_impl="gather")
+    got, _ = serve(cfg, p, prefill_chunk=4, step_mode="tokens", kv="paged", block_size=4,
+                   attn_impl="kernel")
+    assert got == want
+    assert reached and all(r is not None for r in reached)
+    assert max(int(r[:, 1].max()) for r in reached) == 4
+
+
+def test_runs_of_a_token_batch_are_checked_before_upload():
+    slots = np.array([2, 2, 2, 0, 1, 1, 0, 0], np.int32)
+    runs = token_runs([3, 1, 2], 8)
+    assert runs.tolist() == [[0, 3], [3, 1], [4, 2], [6, 1], [7, 1]]
+    check_runs(runs, slots)
+    for bad in ([[0, 3], [3, 1], [4, 2], [6, 1], [7, 2]],  # past the batch
+                [[0, 3], [4, 1], [4, 2], [6, 1], [7, 1]],  # a gap and an overlap
+                [[0, 4], [4, 2], [6, 1], [7, 1]]):  # a run over two slots
+        with pytest.raises(ValueError):
+            check_runs(np.array(bad, np.int32), slots)
