@@ -15,7 +15,9 @@ Phases, one JSON line each:
            over the CPU tests' cases, with and without their runs, and the
            MLA shapes (the reference's own tolerances), the WKV forward and backward at rtol=atol=2e-4 over
            the CPU tests' cases and the training shape (bf16 outputs within
-           one bf16 step), each deterministic
+           one bf16 step), each deterministic, with the forward's chunk
+           states against their plain version, and the forward alone on
+           the shapes that take its general paths
   e2e      remote_sensing_lr from the paper's Table 3 (logistic regression,
            54 features, 581,102 tuples in 4,211 pages of 32 KB, warm pool)
            trained for 3 epochs by solver.train(mode="dana") on the card;
@@ -58,7 +60,9 @@ Phases, one JSON line each:
   kernels  each kernel's launches on the main path, error, time, bound,
            plain version's time and library yardstick; B5 at both captured
            calls, with their runs and without, beside its bounds on each
-           distinct K/V row, on each run's context and token by token
+           distinct K/V row, on each run's context and token by token; B6's
+           two kernels a call, each one's time, registers and CTAs per SM,
+           beside the bytes its design moves
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, exits
 non-zero and prints no such line. Without a CUDA card the script exits 1.
@@ -183,17 +187,33 @@ def eager_ms(calls, reps=5):
 
 
 def phase_build():
-    from repro_torch.kernels import build
+    import torch
 
+    from repro_torch.kernels import build
+    from repro_torch.kernels.wkv import kernel as wkv_kernel
+
+    head, chunk = TRAIN_WIDTH[4:]
     t0 = time.perf_counter()
     report = build.build(*KERNEL_SOURCES)
-    ptxas = {
-        name: [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
-        for name, (_, log) in report.items()
-    }
+    ptxas = {name: _ptxas_lines(log) for name, (_, log) in report.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": {k: v[0] for k, v in report.items()},
-          "build_dir": os.path.relpath(build.BUILD_DIR, ROOT), "ptxas": ptxas})
+          "build_dir": os.path.relpath(build.BUILD_DIR, ROOT), "ptxas": ptxas,
+          "wkv_forward_at_training_shape": {
+              str(dt)[6:]: wkv_kernel.wkv_forward_info(head, head, chunk, dt)
+              for dt in (torch.bfloat16, torch.float32)}})
+
+
+def _ptxas_lines(log):
+    """ptxas's register, shared-memory and spill lines, each after the name
+    of the kernel it reports on."""
+    out, entry = [], ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "Used" in ln or "spill" in ln:
+            out.append(f"{entry}: {ln.replace('ptxas info    :', '').strip()}")
+    return out
 
 
 def phase_parity_strider():
@@ -482,6 +502,8 @@ def _device_profile(run, kernels=()):
     if kernels:
         top["device_ms_of"] = {k: sum(ms for name, (ms, _) in by_name.items() if k in name)
                                for k in kernels}
+        top["launches_of"] = {k: sum(n for name, (_, n) in by_name.items() if k in name)
+                              for k in kernels}
     return traced_s, busy_s, top
 
 
@@ -1485,6 +1507,12 @@ WKV_BF16_TOL = dict(rtol=8e-3, atol=2e-4)
 LONG_MEMORY_CASES = ("full_clip_mixed",)
 WKV_LONG_MEMORY_TOL = {"wkv": dict(rtol=8e-4, atol=8e-4),
                        "wkv_bwd": dict(rtol=1.5e-3, atol=1.5e-3)}
+# in the long-memory case B6 may be no further from f64 than this many times
+# the f32 plain version (both 1.98e-3 to 1.99e-3 on an H100)
+WITNESS_SLACK = 1.1
+# the substring of B6's two kernel names (wkv_fwd_state_kernel,
+# wkv_fwd_output_kernel) in a profile, in neither of B6-bwd's
+WKV_FWD_KERNELS = "wkv_fwd_"
 # ||got - want|| / ||want|| of each WKV output on the training path's own
 # tensors: two bf16 roundings of nearly equal values are one step (at most
 # 2^-8 of the value in the root mean square) apart; f32 outputs at WKV_TOL
@@ -1538,8 +1566,12 @@ def phase_parity_wkv():
     the CPU tests' cases, the training shape, and the training shape with
     log-decays at the clip bounds, at rtol=atol=2e-4 in f32 (the long-memory
     case against the plain version in f64); the training shape in bf16 at
-    one bf16 step; the same bits on a second call. Every f32 case also
-    reads the kernels' and the f32 plain version's distance to f64."""
+    one bf16 step; B6's chunk states against their plain version in every
+    case; the same bits on a second call. Every f32 case also reads the
+    kernels' and the f32 plain version's distance to f64. Then B6 alone on
+    the shapes that take its general paths (odd chunks, widths off the
+    16-byte grid, inputs off 16-byte alignment). Returns B6's two kernels
+    as profiled at the training shape (bf16)."""
     import torch
 
     from test_torch_wkv_cases import CASES, FULL
@@ -1547,7 +1579,8 @@ def phase_parity_wkv():
 
     cases = dict(CASES, full=FULL, full_clip_mixed=FULL[:-1] + ("mixed",),
                  full_clip_low=FULL[:-1] + ("low",))
-    outs = ("y", "state", "dr", "dk", "dv", "dlw", "du", "dstate")
+    outs = ("y", "state", "states", "dr", "dk", "dv", "dlw", "du", "dstate")
+    n_fwd = 3  # outputs of B6; the rest are B6-bwd's
     groups = ("f32", "long_memory", "bf16")
     worst = {(kname, g): 0.0 for kname in ("wkv", "wkv_bwd") for g in groups}
     # (kernel, group) -> max |x - f64| and the tolerance ratio at WKV_TOL of
@@ -1558,26 +1591,36 @@ def phase_parity_wkv():
     failures, nondeterministic = [], []
     runs = [(name, case, torch.float32) for name, case in cases.items()]
     runs.append(("full_bf16", FULL, torch.bfloat16))
+
+    def plain_of(ins, chunk, dy, ds):
+        return (*ref.wkv_chunked_ref(*ins, chunk),
+                ref.wkv_chunk_states_ref(*ins[1:4], ins[5], chunk)[0],
+                *ref.wkv_bwd_ref(*ins, chunk, dy, ds))
+
     for name, case, dtype in runs:
         ins, chunk, dy, ds = _wkv_case_on_card(case, dtype)
         group = "bf16" if dtype == torch.bfloat16 else \
             "long_memory" if name in LONG_MEMORY_CASES else "f32"
         y, s, states = kernel.wkv_forward(*ins, chunk, save_states=True)
-        got = (y, s, *kernel.wkv_backward(*ins, states, s, dy, ds, chunk))
-        plain = (*ref.wkv_chunked_ref(*ins, chunk), *ref.wkv_bwd_ref(*ins, chunk, dy, ds))
+        got = (y, s, states, *kernel.wkv_backward(*ins, states, s, dy, ds, chunk))
+        plain = plain_of(ins, chunk, dy, ds)
         y2, s2, states2 = kernel.wkv_forward(*ins, chunk, save_states=True)
         again = kernel.wkv_backward(*ins, states2, s2, dy, ds, chunk)
         if not (torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(states, states2)):
             nondeterministic.append(f"wkv {name}")
-        if not all(torch.equal(x, x2) for x, x2 in zip(got[2:], again)):
+        if not all(torch.equal(x, x2) for x, x2 in zip(got[n_fwd:], again)):
             nondeterministic.append(f"wkv_bwd {name}")
+        b, _, h, kd = ins[0].shape
+        if not torch.equal(states[:, 0], ins[5].reshape(b * h, kd, -1)):
+            failures.append(f"{name} states[:, 0] is not s0 bit for bit")
+        if name == "full_bf16":
+            b6_kernels = _wkv_fwd_kernel_times(ins, chunk)
         want = plain
         if group != "bf16":
             ins64 = [x.double() for x in ins]
-            exact = (*ref.wkv_chunked_ref(*ins64, chunk),
-                     *ref.wkv_bwd_ref(*ins64, chunk, dy.double(), ds.double()))
+            exact = plain_of(ins64, chunk, dy.double(), ds.double())
             for i, (g, p, e) in enumerate(zip(got, plain, exact)):
-                w = witness["wkv" if i < 2 else "wkv_bwd", group]
+                w = witness["wkv" if i < n_fwd else "wkv_bwd", group]
                 w["kernel"] = max(w["kernel"], float((g.double() - e).abs().max()))
                 w["plain_f32"] = max(w["plain_f32"], float((p.double() - e).abs().max()))
                 w["kernel_tol_ratio"] = max(w["kernel_tol_ratio"], _tol_ratio(g, e, WKV_TOL))
@@ -1587,28 +1630,106 @@ def phase_parity_wkv():
                 want = exact
             del exact
         for i, (oname, g, w) in enumerate(zip(outs, got, want)):
-            kname = "wkv" if i < 2 else "wkv_bwd"
+            kname = "wkv" if i < n_fwd else "wkv_bwd"
             worst[kname, group] = max(worst[kname, group],
                                       float((g.double() - w.double()).abs().max()))
             tol = WKV_BF16_TOL if g.dtype == torch.bfloat16 else \
                 WKV_LONG_MEMORY_TOL[kname] if group == "long_memory" else WKV_TOL
             if _tol_ratio(g, w, tol) > 1.0:
                 failures.append(f"{name} {oname}: {_tol_ratio(g, w, tol)} of {tol}")
+        del got, plain, want, again, states, states2
+    # B6's distance to f64 where f32 itself is the limit: no further than
+    # WITNESS_SLACK times the f32 plain version's
+    lm = witness["wkv", "long_memory"]
+    if lm["kernel"] > WITNESS_SLACK * lm["plain_f32"]:
+        failures.append(f"long memory: B6 {lm['kernel']} from f64, the f32 plain version "
+                        f"{lm['plain_f32']}")
+    general = _wkv_general_shapes(failures, nondeterministic)
     names = [name for name, _, _ in runs]
     for kname in ("wkv", "wkv_bwd"):
-        emit({"phase": "parity", "kernel": kname, "cases": len(runs), "names": names,
-              "rtol": 2e-4, "atol": 2e-4, "bf16_outputs": WKV_BF16_TOL,
-              "max_abs_err": worst[kname, "f32"],
-              "max_abs_err_bf16": worst[kname, "bf16"],
-              "long_memory": {"cases": list(LONG_MEMORY_CASES),
-                              "held_against": "the plain version in f64",
-                              "tolerance": WKV_LONG_MEMORY_TOL[kname],
-                              "max_abs_err": worst[kname, "long_memory"],
-                              "f64_witness": witness[kname, "long_memory"]},
-              "f64_witness_other_f32_cases": witness[kname, "f32"],
-              "deterministic": not any(n.startswith(kname + " ") for n in nondeterministic)})
+        line = {"phase": "parity", "kernel": kname, "cases": len(runs), "names": names,
+                "outputs": list(outs[:n_fwd] if kname == "wkv" else outs[n_fwd:]),
+                "rtol": 2e-4, "atol": 2e-4, "bf16_outputs": WKV_BF16_TOL,
+                "max_abs_err": worst[kname, "f32"],
+                "max_abs_err_bf16": worst[kname, "bf16"],
+                "long_memory": {"cases": list(LONG_MEMORY_CASES),
+                                "held_against": "the plain version in f64",
+                                "tolerance": WKV_LONG_MEMORY_TOL[kname],
+                                "max_abs_err": worst[kname, "long_memory"],
+                                "f64_witness": witness[kname, "long_memory"]},
+                "f64_witness_other_f32_cases": witness[kname, "f32"],
+                "deterministic": not any(n.startswith(kname + " ") for n in nondeterministic)}
+        if kname == "wkv":
+            line["long_memory"]["witness_slack"] = WITNESS_SLACK
+            line["general_paths"] = general
+        emit(line)
     if failures or nondeterministic:
         raise AssertionError(f"WKV parity: {failures}; not deterministic: {nondeterministic}")
+    return b6_kernels
+
+
+def _wkv_fwd_kernel_times(ins, chunk, calls=8):
+    """B6's two kernels in one profiled run of ``calls`` calls: kernels a
+    call and each kernel's device ms a launch. The profiler may miss the
+    first launch of a session, so the counts are read as a mean."""
+    import torch
+
+    from repro_torch.kernels.wkv import kernel
+
+    def run():
+        for _ in range(calls):
+            kernel.wkv_forward(*ins, chunk, save_states=True)
+        torch.cuda.synchronize()  # the device's events end inside the trace
+
+    run()
+    _, _, prof = _device_profile(run, kernels=("wkv_fwd_state_kernel", "wkv_fwd_output_kernel"))
+    n = prof["launches_of"]
+    out = {"kernels_per_call": round(sum(n.values()) / calls),
+           "kernel_ms": {k: ms / n[k] if n[k] else None
+                         for k, ms in prof["device_ms_of"].items()},
+           "profiled_launches": n, "calls": calls}
+    if out["kernels_per_call"] != 2 or min(n.values()) < calls - 1:
+        raise AssertionError(f"B6 launched {n} in {calls} calls, not 2 kernels a call")
+    return out
+
+
+def _wkv_general_shapes(failures, nondeterministic):
+    """B6 on test_torch_wkv_cases.GENERAL (chunk and width off the training
+    shape's grid), in f32 and bf16, and on the chunk8 case with every input
+    one element off its 16-byte alignment: y, the final state and the chunk
+    states against their plain versions, twice. Returns the worst errors."""
+    import torch
+
+    from test_torch_wkv_cases import GENERAL
+    from repro_torch.kernels.wkv import kernel, ref
+
+    def misaligned(x):  # the same values, contiguous, 4 or 2 bytes off
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        out = buf[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    runs = [(f"{n}_{str(dt)[6:]}", c, dt, False) for n, c in GENERAL.items()
+            for dt in (torch.float32, torch.bfloat16)]
+    runs += [(f"chunk8_misaligned_{str(dt)[6:]}", "chunk8", dt, True)
+             for dt in (torch.float32, torch.bfloat16)]
+    worst = 0.0
+    for name, case, dtype, shift in runs:
+        ins, chunk, _, _ = _wkv_case_on_card(case, dtype)
+        if shift:
+            ins = [misaligned(x) for x in ins]
+        got = kernel.wkv_forward(*ins, chunk, save_states=True)
+        again = kernel.wkv_forward(*ins, chunk, save_states=True)
+        want = (*ref.wkv_chunked_ref(*ins, chunk),
+                ref.wkv_chunk_states_ref(*ins[1:4], ins[5], chunk)[0])
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            nondeterministic.append(f"wkv {name}")
+        for oname, g, w in zip(("y", "state", "states"), got, want):
+            tol = WKV_BF16_TOL if g.dtype == torch.bfloat16 else WKV_TOL
+            worst = max(worst, float((g.double() - w.double()).abs().max()))
+            if _tol_ratio(g, w, tol) > 1.0:
+                failures.append(f"{name} {oname}: {_tol_ratio(g, w, tol)} of {tol}")
+    return {"cases": [name for name, *_ in runs], "max_abs_err": worst}
 
 
 def _sync_lines(module, needles):
@@ -1718,7 +1839,7 @@ def phase_train():
     batch = ds.batch(TRAIN_STEPS + 1, TRAIN_BATCH)
     traced_s, busy_s, top = _device_profile(
         lambda: float(step_fn(p, o, batch)[2]["loss"]),
-        kernels=("wkv_fwd_kernel", "wkv_bwd_kernel", "wkv_du_reduce", "strider_decode"))
+        kernels=(WKV_FWD_KERNELS, "wkv_bwd_kernel", "wkv_du_reduce", "strider_decode"))
     del p, o, m, batch, step_fn, out, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1770,7 +1891,7 @@ def phase_train():
           "profile": {"steps": 1, "traced_s": traced_s, "untraced_s": untraced_s,
                       "device_busy_s": busy_s if busy_s else None,
                       "device_idle_share": 1.0 - busy_s / untraced_s if busy_s else None,
-                      "wkv_share_of_busy": (b6["wkv_fwd_kernel"] / 1e3 / busy_s
+                      "wkv_share_of_busy": (b6[WKV_FWD_KERNELS] / 1e3 / busy_s
                                             if busy_s else None),
                       "wkv_bwd_share_of_busy": ((b6["wkv_bwd_kernel"] + b6["wkv_du_reduce"])
                                                 / 1e3 / busy_s if busy_s else None),
@@ -1938,9 +2059,10 @@ def _wkv_work(b, t, h, kd, vd, c, bwd):
     return b * h * nc * per_chunk, b * h * nc * exps
 
 
-def kernel_rows_wkv(captured, launches):
+def kernel_rows_wkv(captured, launches, b6_kernels):
     """B6's and B6-bwd's rows of the kernels line, at the first calls the
-    train phase made (the training shape, bf16 r/k/v)."""
+    train phase made (the training shape, bf16 r/k/v), with B6's kernels as
+    the parity phase profiled them."""
     import torch
 
     from repro_torch.kernels.wkv import kernel, ref
@@ -2013,6 +2135,20 @@ def kernel_rows_wkv(captured, launches):
             "library_ms": None, "library": "none: no single PyTorch call computes WKV6",
         })
     rows[0]["max_rel_err_y"] = f_rel  # y is bf16: one rounding step is 2^-8 to 2^-7
+    # B6 is two kernels a call: their device times from one profiled run of
+    # 8 calls at the training shape (the parity phase's full_bf16 case; the
+    # kernels' work does not depend on the values), the bytes this design
+    # moves (the state pass reads k, v, lw and s0 and writes the chunk
+    # states and s_out; the output pass reads r, k, v, lw, u and the chunk
+    # states and writes y), and the build's registers and CTAs per SM
+    design = nbytes(k, v, lw, state, states, s) + nbytes(r, k, v, lw, u, states, y)
+    rows[0].update({
+        **b6_kernels,
+        "kernel_ms_shape": "the parity phase's full_bf16 case (the training shape)",
+        "design_bytes": design,
+        "design_bytes_ms": 1e3 * design / HBM_BYTES_PER_S,
+        "build": kernel.wkv_forward_info(kd, vd, chunk, r.dtype),
+    })
     rows[1]["replaces_note"] = ("no TPU kernel: jax.grad cannot enter wkv_pallas, so the "
                                 "reference trains through the jnp wkv_chunked")
     return rows
@@ -2042,7 +2178,7 @@ def main() -> int:
         phase_parity_projected()
         phase_parity_predict()
         phase_parity_paged_attn()
-        phase_parity_wkv()
+        b6_kernels = phase_parity_wkv()
         heap, engine, res, launches = phase_e2e()
         db, predict_launches = phase_predict(heap, res)
         rows = phase_kernels(heap, engine, res, launches, db, predict_launches)
@@ -2054,7 +2190,7 @@ def main() -> int:
         wkv_calls, train_launches = phase_train()
         phase_train_parity()
         phase_launch_train()
-        rows.extend(kernel_rows_wkv(wkv_calls, train_launches))
+        rows.extend(kernel_rows_wkv(wkv_calls, train_launches, b6_kernels))
         emit({"kernels": rows})
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)

@@ -5,10 +5,11 @@ The forward replaces ``repro.kernels.wkv.wkv.wkv_pallas`` (the Pallas
 ``_wkv_kernel``); the backward has no TPU counterpart (the reference cannot
 differentiate ``wkv_pallas``). Each library is built at first use; a wrapper
 checks its inputs, allocates its outputs and scratch with ``torch.empty``,
-launches on the current stream and never synchronises. ``wkv_forward.launches``
-counts the forward's launches; the backward's two CUDA launches (the
-gradients, then du's fixed-order sum over the batch) count as one in
-``wkv_backward.launches``.
+launches on the current stream and never synchronises. The forward is two CUDA
+launches (a serial state pass that writes each chunk's starting state, then a
+chunk-parallel output pass that reads them), counted as one in
+``wkv_forward.launches``; the backward's two (the gradients, then du's
+fixed-order sum over the batch) count as one in ``wkv_backward.launches``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,9 @@ def _fwd_entry():
     fn = lib.wkv_fwd
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    info = lib.wkv_fwd_info
+    info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    info.restype = ctypes.c_int
     return lib, fn
 
 
@@ -72,28 +76,39 @@ def wkv_forward(r, k, v, lw, u, state, chunk: int, save_states: bool = False):
     u (H,K) f32, state (B,H,K,V) f32, all contiguous on one card ->
     (y (B,T,H,V) in r's dtype, state_out (B,H,K,V) f32, the chunks' starting
     states (B*H, T/chunk, K, V) f32 for the backward, or None unless
-    ``save_states``)."""
+    ``save_states``). The output pass reads the chunk states either way:
+    without ``save_states`` they are scratch, freed after the call."""
     b, t, h, kd, vd = _check("wkv_forward", chunk, r, k, v, lw, u, state)
     y = torch.empty((b, t, h, vd), dtype=r.dtype, device=r.device)
     s_out = torch.empty((b, h, kd, vd), dtype=torch.float32, device=r.device)
-    states = (torch.empty((b * h, t // chunk, kd, vd), dtype=torch.float32, device=r.device)
-              if save_states else None)
+    states = torch.empty((b * h, t // chunk, kd, vd), dtype=torch.float32, device=r.device)
     if b * h == 0 or t == 0:
         s_out.copy_(state)
-        return y, s_out, states
+        return y, s_out, states if save_states else None
     lib, fn = _fwd_entry()
     with torch.cuda.device(r.device):
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(),
-                 state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-                 states.data_ptr() if states is not None else None,
+                 state.data_ptr(), y.data_ptr(), s_out.data_ptr(), states.data_ptr(),
                  b, t, h, kd, vd, chunk, int(r.dtype == torch.bfloat16),
                  torch.cuda.current_stream(r.device).cuda_stream)
     build.check(lib, err, "wkv_forward launch")
     wkv_forward.launches += 1
-    return y, s_out, states
+    return y, s_out, states if save_states else None
 
 
 wkv_forward.launches = 0
+
+
+def wkv_forward_info(kd: int, vd: int, chunk: int, dtype) -> dict:
+    """The build's registers a thread, CTAs an SM and shared bytes a CTA of
+    the forward's two kernels (state pass, output pass) at these sizes, as
+    the card's runtime reports them."""
+    lib, _ = _fwd_entry()
+    out = (ctypes.c_int * 6)()
+    build.check(lib, lib.wkv_fwd_info(kd, vd, chunk, int(dtype == torch.bfloat16), out),
+                "wkv_forward_info")
+    return {name: {"registers": out[i], "ctas_per_sm": out[2 + i], "smem_bytes": out[4 + i]}
+            for i, name in enumerate(("state_pass", "output_pass"))}
 
 
 def wkv_backward(r, k, v, lw, u, state, states, s_out, dy, dstate, chunk: int):

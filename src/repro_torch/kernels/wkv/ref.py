@@ -7,6 +7,8 @@ core of ``repro.models.ssm``, which they are held against):
                    kernel B6's plain version
   wkv_bwd_ref      autograd through ``wkv_chunked_ref``, the kernel
                    B6-bwd's plain version
+  wkv_chunk_states_ref  each chunk's starting state, the plain version of
+                   the chunk states B6 writes for B6-bwd
 
     y_t = r_t . S_{t-1}  +  (r_t * u * k_t) . v_t
     S_t = diag(exp(lw_t)) S_{t-1} + k_t v_t^T
@@ -44,6 +46,21 @@ def wkv_ref(r, k, v, lw, u, state):
     return y.to(r.dtype), s
 
 
+def _by_chunk(x, chunk, cdt):
+    """(B, T, H, d) -> (T/chunk, B, H, chunk, d) in ``cdt``."""
+    b, t, h, d = x.shape
+    return x.to(cdt).reshape(b, t // chunk, chunk, h, d).permute(1, 0, 3, 2, 4)
+
+
+def _next_state(s, kk, vv, cum):
+    """The state after a chunk: S' = e^{cum_last} S + sum_s (k_s
+    e^{cum_last - cum_s}) v_s^T, with cum the chunk's inclusive cumsum of
+    the log-decays; kk, cum (B,H,C,K), vv (B,H,C,V), s (B,H,K,V)."""
+    last = cum[:, :, -1:, :]
+    return torch.exp(last[:, :, 0, :, None]) * s + torch.einsum(
+        "bhsk,bhsv->bhkv", kk * torch.exp(last - cum), vv)
+
+
 def wkv_chunked_ref(r, k, v, lw, u, state, chunk: int):
     """Chunkwise-parallel WKV6 with T % chunk == 0. Returns (y (B,T,H,V),
     state_out)."""
@@ -54,10 +71,7 @@ def wkv_chunked_ref(r, k, v, lw, u, state, chunk: int):
     nc = t // chunk
     cdt = torch.promote_types(r.dtype, torch.float32)
 
-    def resh(x, d):  # (B, T, H, d) -> (nc, B, H, C, d) in cdt
-        return x.to(cdt).reshape(b, nc, chunk, h, d).permute(1, 0, 3, 2, 4)
-
-    rc, kc, vc, lwc = resh(r, kd), resh(k, kd), resh(v, vd), resh(lw, kd)
+    rc, kc, vc, lwc = (_by_chunk(x, chunk, cdt) for x in (r, k, v, lw))
     uu = u.to(cdt)
     ids = torch.arange(chunk, device=r.device)
     lower = (ids[None, :] < ids[:, None])[None, None, :, :, None]  # s < t
@@ -73,12 +87,33 @@ def wkv_chunked_ref(r, k, v, lw, u, state, chunk: int):
         a = torch.einsum("bhtk,bhsk,bhtsk->bhts", rr, kk, dmat)
         diag = torch.einsum("bhtk,hk,bhtk->bht", rr, uu, kk)
         y = y + torch.einsum("bhts,bhsv->bhtv", a, vv) + diag[..., None] * vv
-        last = cum[:, :, -1:, :]
-        s = torch.exp(last[:, :, 0, :, None]) * s + torch.einsum(
-            "bhsk,bhsv->bhkv", kk * torch.exp(last - cum), vv)
+        s = _next_state(s, kk, vv, cum)
         ys.append(y)
     y = torch.stack(ys, dim=0).permute(1, 0, 3, 2, 4).reshape(b, t, h, vd)
     return y.to(r.dtype), s
+
+
+def wkv_chunk_states_ref(k, v, lw, state, chunk: int):
+    """Each chunk's starting state and the final state, by the state update
+    of ``wkv_chunked_ref`` (the same operations, so the same final state).
+    Returns (states (B*H, T/chunk, K, V), state_out (B,H,K,V)) in f32, or
+    f64 for f64 inputs; states[:, 0] is ``state``."""
+    b, t, h, kd = k.shape
+    vd = v.shape[-1]
+    if t % chunk:
+        raise ValueError(f"T={t} is not a multiple of the chunk {chunk}")
+    nc = t // chunk
+    cdt = torch.promote_types(k.dtype, torch.float32)
+
+    kc, vc, lwc = (_by_chunk(x, chunk, cdt) for x in (k, v, lw))
+    s = state.to(cdt)
+    starts = []
+    for c in range(nc):
+        starts.append(s)
+        s = _next_state(s, kc[c], vc[c], torch.cumsum(lwc[c], dim=-2))
+    states = (torch.stack(starts, dim=2) if starts
+              else s.new_zeros((b, h, 0, kd, vd))).reshape(b * h, nc, kd, vd)
+    return states, s
 
 
 def wkv_bwd_ref(r, k, v, lw, u, state, chunk: int, dy, dstate):

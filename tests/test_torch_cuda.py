@@ -33,6 +33,7 @@ from test_torch_paged_attn_cases import CASES as PA_CASES
 from test_torch_paged_attn_cases import make as pa_case
 from test_torch_wkv_cases import CASES as WKV_CASES
 from test_torch_wkv_cases import FULL as WKV_FULL
+from test_torch_wkv_cases import GENERAL as WKV_GENERAL
 from test_torch_wkv_cases import make as wkv_case
 
 pytestmark = pytest.mark.cuda
@@ -345,15 +346,53 @@ def test_wkv_kernel_matches_plain(card, name, dtype):
     torch.testing.assert_close(y.float(), y_ref.float(),
                                **(WKV_TOL if dtype == torch.float32 else WKV_BF16_TOL))
     torch.testing.assert_close(s, s_ref, **WKV_TOL)
-    # the saved chunk states: the first is the initial state, the second the
-    # state after one chunk
+    # the saved chunk states: the first is the initial state bit for bit,
+    # every one is the plain version's
     r, k, v, lw, u, s0 = ins
     b, _, h, kd = r.shape
     assert torch.equal(states[:, 0], s0.reshape(b * h, kd, -1))
-    _, s1 = wkv_ref.wkv_chunked_ref(*(x[:, :chunk] for x in (r, k, v, lw)), u, s0, chunk)
-    torch.testing.assert_close(states[:, 1].reshape(s1.shape), s1, **WKV_TOL)
+    states_ref, _ = wkv_ref.wkv_chunk_states_ref(k, v, lw, s0, chunk)
+    torch.testing.assert_close(states, states_ref, **WKV_TOL)
     y2, s2, _ = wkv_kernel.wkv_forward(*ins, chunk)
     assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", WKV_NAMES)
+def test_wkv_kernel_without_saved_states_gives_the_same_bits(card, name, dtype):
+    """The output pass reads the chunk states either way: without
+    save_states they are scratch, and y and the final state keep their bits."""
+    ins, chunk, _, _ = _wkv_on(card, name, dtype)
+    y, s, states = wkv_kernel.wkv_forward(*ins, chunk, save_states=True)
+    y2, s2, none = wkv_kernel.wkv_forward(*ins, chunk, save_states=False)
+    assert none is None and states is not None
+    assert _same_bits(y.float(), y2.float()) and _same_bits(s, s2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(WKV_GENERAL) + ["misaligned"])
+def test_wkv_kernel_general_paths(card, name, dtype):
+    """Shapes off the training shape's grid, and inputs one element off their
+    16-byte alignment (the same values), through the forward's general paths."""
+    case = "chunk8" if name == "misaligned" else WKV_GENERAL[name]
+    *arrs, chunk = wkv_case(case)
+    ins = []
+    for a in arrs:
+        x = torch.from_numpy(a).to(card)
+        x = x.to(dtype) if len(ins) < 3 else x
+        if name == "misaligned":
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=card)
+            x = buf[1:].view(x.shape).copy_(x)
+        ins.append(x)
+    y, s, states = wkv_kernel.wkv_forward(*ins, chunk, save_states=True)
+    y_ref, s_ref = wkv_ref.wkv_chunked_ref(*ins, chunk)
+    states_ref, _ = wkv_ref.wkv_chunk_states_ref(*ins[1:4], ins[5], chunk)
+    torch.testing.assert_close(y.float(), y_ref.float(),
+                               **(WKV_TOL if dtype == torch.float32 else WKV_BF16_TOL))
+    torch.testing.assert_close(s, s_ref, **WKV_TOL)
+    torch.testing.assert_close(states, states_ref, **WKV_TOL)
+    assert all(torch.equal(a, b) for a, b in
+               zip((y, s, states), wkv_kernel.wkv_forward(*ins, chunk, save_states=True)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -87,6 +87,24 @@ def test_wkv_chunked_stays_finite_at_the_clip_bounds():
             _close(g, w)
 
 
+@pytest.mark.parametrize("case", ["chunk8", "chunk32", "k_ne_v", "clip_mixed"])
+def test_wkv_chunk_states_match_repro_scan_on_each_prefix(case):
+    """The chunk states B6 writes for B6-bwd, in their plain version: chunk
+    c's starting state is the reference's sequential state after the first
+    c chunks, and the final state is wkv_chunked_ref's."""
+    jin, tin, chunk = _both(case)
+    r, k, v, lw, u, s0 = tin
+    b, t, h, kd = r.shape
+    vd = v.shape[-1]
+    states, s_out = ref.wkv_chunk_states_ref(k, v, lw, s0, chunk)
+    assert states.shape == (b * h, t // chunk, kd, vd) and states.dtype == torch.float32
+    assert torch.equal(states[:, 0], s0.reshape(b * h, kd, vd))
+    for c in range(1, t // chunk):
+        _, want = jssm.wkv_scan(*(x[:, :c * chunk] for x in jin[:4]), *jin[4:])
+        _close(states[:, c], np.asarray(want).reshape(b * h, kd, vd))
+    assert torch.equal(s_out, ref.wkv_chunked_ref(*tin, chunk)[1])
+
+
 @pytest.mark.parametrize("case", ["chunk8", "chunk32", "pallas_small", "clip_high"])
 def test_wkv_gradients_match_jax_grad(case):
     jin, tin, chunk = _both(case)

@@ -20,6 +20,16 @@ CASES = {
 }
 # the training step's shape on rwkv6-3b: batch 8 x seq 512, 40 heads of 64
 FULL = (8, 512, 40, 64, 64, 32, 0, "random")
+# shapes that take the forward kernel's general paths: odd chunks, chunks of
+# 64, widths off its 32-wide state blocks and off the 16-byte grid, and
+# prefill at the training width (two chunks)
+GENERAL = {
+    "odd_chunk": (1, 15, 2, 12, 20, 5, 13, "random"),
+    "narrow": (2, 12, 3, 6, 10, 3, 17, "mixed"),
+    "chunk64": (1, 128, 2, 16, 8, 64, 19, "random"),
+    "k40_v72": (1, 64, 2, 40, 72, 16, 23, "random"),
+    "prefill": (1, 64, 4, 64, 64, 32, 29, "random"),
+}
 LW_MIN, LW_MAX = -8.0, -1e-4  # the clip of repro.models.ssm._rwkv_inputs
 
 
@@ -43,7 +53,7 @@ def make(case):
 
 
 def test_cases_are_valid():
-    for case in (*CASES, FULL):
+    for case in (*CASES, FULL, *GENERAL.values()):
         r, k, v, lw, u, s0, chunk = make(case)
         assert r.shape[1] % chunk == 0 and v.shape[:3] == r.shape[:3]
         assert lw.min() >= LW_MIN and lw.max() <= LW_MAX
