@@ -16,8 +16,9 @@ Phases, one JSON line each:
            MLA shapes (the reference's own tolerances), the WKV forward and backward at rtol=atol=2e-4 over
            the CPU tests' cases and the training shape (bf16 outputs within
            one bf16 step), each deterministic, with the forward's chunk
-           states against their plain version, and the forward alone on
-           the shapes that take its general paths
+           states and the backward's state gradients against their plain
+           versions, both on the shapes that take their general paths, and
+           each one's kernels timed at the training shape
   e2e      remote_sensing_lr from the paper's Table 3 (logistic regression,
            54 features, 581,102 tuples in 4,211 pages of 32 KB, warm pool)
            trained for 3 epochs by solver.train(mode="dana") on the card;
@@ -61,8 +62,8 @@ Phases, one JSON line each:
            plain version's time and library yardstick; B5 at both captured
            calls, with their runs and without, beside its bounds on each
            distinct K/V row, on each run's context and token by token; B6's
-           two kernels a call, each one's time, registers and CTAs per SM,
-           beside the bytes its design moves
+           two kernels and B6-bwd's three a call, each one's time,
+           registers and CTAs per SM, beside the bytes its design moves
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, exits
 non-zero and prints no such line. Without a CUDA card the script exits 1.
@@ -201,6 +202,9 @@ def phase_build():
           "build_dir": os.path.relpath(build.BUILD_DIR, ROOT), "ptxas": ptxas,
           "wkv_forward_at_training_shape": {
               str(dt)[6:]: wkv_kernel.wkv_forward_info(head, head, chunk, dt)
+              for dt in (torch.bfloat16, torch.float32)},
+          "wkv_backward_at_training_shape": {
+              str(dt)[6:]: wkv_kernel.wkv_backward_info(head, head, chunk, dt)
               for dt in (torch.bfloat16, torch.float32)}})
 
 
@@ -1507,12 +1511,17 @@ WKV_BF16_TOL = dict(rtol=8e-3, atol=2e-4)
 LONG_MEMORY_CASES = ("full_clip_mixed",)
 WKV_LONG_MEMORY_TOL = {"wkv": dict(rtol=8e-4, atol=8e-4),
                        "wkv_bwd": dict(rtol=1.5e-3, atol=1.5e-3)}
-# in the long-memory case B6 may be no further from f64 than this many times
-# the f32 plain version (both 1.98e-3 to 1.99e-3 on an H100)
+# in the long-memory case B6 and B6-bwd may be no further from f64 than this
+# many times the f32 plain version (B6 and its plain version both 1.98e-3 to
+# 1.99e-3 on an H100)
 WITNESS_SLACK = 1.1
 # the substring of B6's two kernel names (wkv_fwd_state_kernel,
-# wkv_fwd_output_kernel) in a profile, in neither of B6-bwd's
+# wkv_fwd_output_kernel) in a profile, in none of B6-bwd's
 WKV_FWD_KERNELS = "wkv_fwd_"
+# B6-bwd's three kernels, and the prefix they share in a profile
+WKV_BWD_KERNEL_NAMES = ("wkv_bwd_dstate_kernel", "wkv_bwd_grad_kernel",
+                        "wkv_bwd_du_reduce_kernel")
+WKV_BWD_KERNELS = "wkv_bwd_"
 # ||got - want|| / ||want|| of each WKV output on the training path's own
 # tensors: two bf16 roundings of nearly equal values are one step (at most
 # 2^-8 of the value in the root mean square) apart; f32 outputs at WKV_TOL
@@ -1566,12 +1575,13 @@ def phase_parity_wkv():
     the CPU tests' cases, the training shape, and the training shape with
     log-decays at the clip bounds, at rtol=atol=2e-4 in f32 (the long-memory
     case against the plain version in f64); the training shape in bf16 at
-    one bf16 step; B6's chunk states against their plain version in every
-    case; the same bits on a second call. Every f32 case also reads the
-    kernels' and the f32 plain version's distance to f64. Then B6 alone on
-    the shapes that take its general paths (odd chunks, widths off the
-    16-byte grid, inputs off 16-byte alignment). Returns B6's two kernels
-    as profiled at the training shape (bf16)."""
+    one bf16 step; B6's chunk states and B6-bwd's state gradients against
+    their plain versions in every case; the same bits on a second call.
+    Every f32 case also reads the kernels' and the f32 plain version's
+    distance to f64. Then both on the shapes that take their general paths
+    (odd chunks, widths off the 16-byte grid, inputs off 16-byte alignment).
+    Returns B6's two kernels and B6-bwd's three as profiled at the training
+    shape (bf16)."""
     import torch
 
     from test_torch_wkv_cases import CASES, FULL
@@ -1579,7 +1589,7 @@ def phase_parity_wkv():
 
     cases = dict(CASES, full=FULL, full_clip_mixed=FULL[:-1] + ("mixed",),
                  full_clip_low=FULL[:-1] + ("low",))
-    outs = ("y", "state", "states", "dr", "dk", "dv", "dlw", "du", "dstate")
+    outs = ("y", "state", "states", "dr", "dk", "dv", "dlw", "du", "dstate", "dstates")
     n_fwd = 3  # outputs of B6; the rest are B6-bwd's
     groups = ("f32", "long_memory", "bf16")
     worst = {(kname, g): 0.0 for kname in ("wkv", "wkv_bwd") for g in groups}
@@ -1595,17 +1605,19 @@ def phase_parity_wkv():
     def plain_of(ins, chunk, dy, ds):
         return (*ref.wkv_chunked_ref(*ins, chunk),
                 ref.wkv_chunk_states_ref(*ins[1:4], ins[5], chunk)[0],
-                *ref.wkv_bwd_ref(*ins, chunk, dy, ds))
+                *ref.wkv_bwd_ref(*ins, chunk, dy, ds),
+                ref.wkv_chunk_dstates_ref(ins[0], ins[3], dy, ds, chunk)[0])
 
     for name, case, dtype in runs:
         ins, chunk, dy, ds = _wkv_case_on_card(case, dtype)
         group = "bf16" if dtype == torch.bfloat16 else \
             "long_memory" if name in LONG_MEMORY_CASES else "f32"
         y, s, states = kernel.wkv_forward(*ins, chunk, save_states=True)
-        got = (y, s, states, *kernel.wkv_backward(*ins, states, s, dy, ds, chunk))
+        got = (y, s, states,
+               *kernel.wkv_backward(*ins, states, s, dy, ds, chunk, save_dstates=True))
         plain = plain_of(ins, chunk, dy, ds)
         y2, s2, states2 = kernel.wkv_forward(*ins, chunk, save_states=True)
-        again = kernel.wkv_backward(*ins, states2, s2, dy, ds, chunk)
+        again = kernel.wkv_backward(*ins, states2, s2, dy, ds, chunk, save_dstates=True)
         if not (torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(states, states2)):
             nondeterministic.append(f"wkv {name}")
         if not all(torch.equal(x, x2) for x, x2 in zip(got[n_fwd:], again)):
@@ -1615,6 +1627,8 @@ def phase_parity_wkv():
             failures.append(f"{name} states[:, 0] is not s0 bit for bit")
         if name == "full_bf16":
             b6_kernels = _wkv_fwd_kernel_times(ins, chunk)
+            # as the training path calls it: no state cotangent
+            b6_bwd_kernels = _wkv_bwd_kernel_times(ins, chunk, states, s, dy, None)
         want = plain
         if group != "bf16":
             ins64 = [x.double() for x in ins]
@@ -1638,12 +1652,13 @@ def phase_parity_wkv():
             if _tol_ratio(g, w, tol) > 1.0:
                 failures.append(f"{name} {oname}: {_tol_ratio(g, w, tol)} of {tol}")
         del got, plain, want, again, states, states2
-    # B6's distance to f64 where f32 itself is the limit: no further than
-    # WITNESS_SLACK times the f32 plain version's
-    lm = witness["wkv", "long_memory"]
-    if lm["kernel"] > WITNESS_SLACK * lm["plain_f32"]:
-        failures.append(f"long memory: B6 {lm['kernel']} from f64, the f32 plain version "
-                        f"{lm['plain_f32']}")
+    # each kernel's distance to f64 where f32 itself is the limit: no
+    # further than WITNESS_SLACK times the f32 plain version's
+    for kname, label in (("wkv", "B6"), ("wkv_bwd", "B6-bwd")):
+        lm = witness[kname, "long_memory"]
+        if lm["kernel"] > WITNESS_SLACK * lm["plain_f32"]:
+            failures.append(f"long memory: {label} {lm['kernel']} from f64, the f32 plain "
+                            f"version {lm['plain_f32']}")
     general = _wkv_general_shapes(failures, nondeterministic)
     names = [name for name, _, _ in runs]
     for kname in ("wkv", "wkv_bwd"):
@@ -1659,13 +1674,12 @@ def phase_parity_wkv():
                                 "f64_witness": witness[kname, "long_memory"]},
                 "f64_witness_other_f32_cases": witness[kname, "f32"],
                 "deterministic": not any(n.startswith(kname + " ") for n in nondeterministic)}
-        if kname == "wkv":
-            line["long_memory"]["witness_slack"] = WITNESS_SLACK
-            line["general_paths"] = general
+        line["long_memory"]["witness_slack"] = WITNESS_SLACK
+        line["general_paths"] = general[kname]
         emit(line)
     if failures or nondeterministic:
         raise AssertionError(f"WKV parity: {failures}; not deterministic: {nondeterministic}")
-    return b6_kernels
+    return b6_kernels, b6_bwd_kernels
 
 
 def _wkv_fwd_kernel_times(ins, chunk, calls=8):
@@ -1693,11 +1707,37 @@ def _wkv_fwd_kernel_times(ins, chunk, calls=8):
     return out
 
 
+def _wkv_bwd_kernel_times(ins, chunk, states, s_out, dy, dstate, calls=8):
+    """B6-bwd's three kernels in one profiled run of ``calls`` calls: kernels
+    a call and each kernel's device ms a launch, read as
+    ``_wkv_fwd_kernel_times`` reads B6's."""
+    import torch
+
+    from repro_torch.kernels.wkv import kernel
+
+    def run():
+        for _ in range(calls):
+            kernel.wkv_backward(*ins, states, s_out, dy, dstate, chunk)
+        torch.cuda.synchronize()
+
+    run()
+    _, _, prof = _device_profile(run, kernels=WKV_BWD_KERNEL_NAMES)
+    n = prof["launches_of"]
+    out = {"kernels_per_call": round(sum(n.values()) / calls),
+           "kernel_ms": {k: ms / n[k] if n[k] else None
+                         for k, ms in prof["device_ms_of"].items()},
+           "profiled_launches": n, "calls": calls}
+    if out["kernels_per_call"] != 3 or min(n.values()) < calls - 1:
+        raise AssertionError(f"B6-bwd launched {n} in {calls} calls, not 3 kernels a call")
+    return out
+
+
 def _wkv_general_shapes(failures, nondeterministic):
-    """B6 on test_torch_wkv_cases.GENERAL (chunk and width off the training
-    shape's grid), in f32 and bf16, and on the chunk8 case with every input
-    one element off its 16-byte alignment: y, the final state and the chunk
-    states against their plain versions, twice. Returns the worst errors."""
+    """B6 and B6-bwd on test_torch_wkv_cases.GENERAL (chunk and width off the
+    training shape's grid), in f32 and bf16, and on the chunk8 case with
+    every input one element off its 16-byte alignment: y, the final state,
+    the chunk states, the six gradients and the state gradients against
+    their plain versions, twice. Returns each kernel's worst errors."""
     import torch
 
     from test_torch_wkv_cases import GENERAL
@@ -1713,23 +1753,37 @@ def _wkv_general_shapes(failures, nondeterministic):
             for dt in (torch.float32, torch.bfloat16)]
     runs += [(f"chunk8_misaligned_{str(dt)[6:]}", "chunk8", dt, True)
              for dt in (torch.float32, torch.bfloat16)]
-    worst = 0.0
+    worst = {"wkv": 0.0, "wkv_bwd": 0.0}
     for name, case, dtype, shift in runs:
-        ins, chunk, _, _ = _wkv_case_on_card(case, dtype)
+        ins, chunk, dy, ds = _wkv_case_on_card(case, dtype)
         if shift:
-            ins = [misaligned(x) for x in ins]
-        got = kernel.wkv_forward(*ins, chunk, save_states=True)
+            ins, dy, ds = [misaligned(x) for x in ins], misaligned(dy), misaligned(ds)
+        fwd = kernel.wkv_forward(*ins, chunk, save_states=True)
         again = kernel.wkv_forward(*ins, chunk, save_states=True)
+        _, s, states = fwd
+        if shift:
+            states = misaligned(states)
+        bwd = kernel.wkv_backward(*ins, states, s, dy, ds, chunk, save_dstates=True)
+        bwd_again = kernel.wkv_backward(*ins, states, s, dy, ds, chunk, save_dstates=True)
         want = (*ref.wkv_chunked_ref(*ins, chunk),
                 ref.wkv_chunk_states_ref(*ins[1:4], ins[5], chunk)[0])
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        bwd_want = (*ref.wkv_bwd_ref(*ins, chunk, dy, ds),
+                    ref.wkv_chunk_dstates_ref(ins[0], ins[3], dy, ds, chunk)[0])
+        if not all(torch.equal(a, b) for a, b in zip(fwd, again)):
             nondeterministic.append(f"wkv {name}")
-        for oname, g, w in zip(("y", "state", "states"), got, want):
-            tol = WKV_BF16_TOL if g.dtype == torch.bfloat16 else WKV_TOL
-            worst = max(worst, float((g.double() - w.double()).abs().max()))
-            if _tol_ratio(g, w, tol) > 1.0:
-                failures.append(f"{name} {oname}: {_tol_ratio(g, w, tol)} of {tol}")
-    return {"cases": [name for name, *_ in runs], "max_abs_err": worst}
+        if not all(torch.equal(a, b) for a, b in zip(bwd, bwd_again)):
+            nondeterministic.append(f"wkv_bwd {name}")
+        for kname, onames, gots, wants in (
+                ("wkv", ("y", "state", "states"), fwd, want),
+                ("wkv_bwd", ("dr", "dk", "dv", "dlw", "du", "dstate", "dstates"), bwd,
+                 bwd_want)):
+            for oname, g, w in zip(onames, gots, wants):
+                tol = WKV_BF16_TOL if g.dtype == torch.bfloat16 else WKV_TOL
+                worst[kname] = max(worst[kname], float((g.double() - w.double()).abs().max()))
+                if _tol_ratio(g, w, tol) > 1.0:
+                    failures.append(f"{name} {kname} {oname}: {_tol_ratio(g, w, tol)} of {tol}")
+    cases = [name for name, *_ in runs]
+    return {kname: {"cases": cases, "max_abs_err": err} for kname, err in worst.items()}
 
 
 def _sync_lines(module, needles):
@@ -1839,7 +1893,7 @@ def phase_train():
     batch = ds.batch(TRAIN_STEPS + 1, TRAIN_BATCH)
     traced_s, busy_s, top = _device_profile(
         lambda: float(step_fn(p, o, batch)[2]["loss"]),
-        kernels=(WKV_FWD_KERNELS, "wkv_bwd_kernel", "wkv_du_reduce", "strider_decode"))
+        kernels=(WKV_FWD_KERNELS, WKV_BWD_KERNELS, "strider_decode"))
     del p, o, m, batch, step_fn, out, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1893,8 +1947,8 @@ def phase_train():
                       "device_idle_share": 1.0 - busy_s / untraced_s if busy_s else None,
                       "wkv_share_of_busy": (b6[WKV_FWD_KERNELS] / 1e3 / busy_s
                                             if busy_s else None),
-                      "wkv_bwd_share_of_busy": ((b6["wkv_bwd_kernel"] + b6["wkv_du_reduce"])
-                                                / 1e3 / busy_s if busy_s else None),
+                      "wkv_bwd_share_of_busy": (b6[WKV_BWD_KERNELS] / 1e3 / busy_s
+                                                if busy_s else None),
                       **top, "units": "ms totals over the step"}})
     if len(loss_values) != TRAIN_STEPS or not all(math.isfinite(x) for x in loss_values):
         raise AssertionError(f"training losses {loss_values}")
@@ -2059,9 +2113,9 @@ def _wkv_work(b, t, h, kd, vd, c, bwd):
     return b * h * nc * per_chunk, b * h * nc * exps
 
 
-def kernel_rows_wkv(captured, launches, b6_kernels):
+def kernel_rows_wkv(captured, launches, b6_kernels, b6_bwd_kernels):
     """B6's and B6-bwd's rows of the kernels line, at the first calls the
-    train phase made (the training shape, bf16 r/k/v), with B6's kernels as
+    train phase made (the training shape, bf16 r/k/v), with their kernels as
     the parity phase profiled them."""
     import torch
 
@@ -2149,8 +2203,30 @@ def kernel_rows_wkv(captured, launches, b6_kernels):
         "design_bytes_ms": 1e3 * design / HBM_BYTES_PER_S,
         "build": kernel.wkv_forward_info(kd, vd, chunk, r.dtype),
     })
-    rows[1]["replaces_note"] = ("no TPU kernel: jax.grad cannot enter wkv_pallas, so the "
-                                "reference trains through the jnp wkv_chunked")
+    # B6-bwd is three kernels a call, timed and counted as B6's; the bytes
+    # its design moves: the state-gradient pass reads r and lw once and dy
+    # once per 32 rows of K, the state cotangent, and writes the state
+    # gradients (the chunk states' size) and ds0; the gradient pass reads r,
+    # k, v, lw, dy, u, the chunk states twice (each chunk's start, and its
+    # end for g_last: the next chunk's start or the final state) and the
+    # state gradients, and writes dr, dk, dv, dlw and du's partials (one f32
+    # a chunk and column of K), which du's sum reads once to write du
+    ds0 = got[5]
+    partials = 4 * b * h * (t // chunk) * kd
+    k_blocks = -(-kd // 32)
+    design = (nbytes(br, blw, dstate, ds0) + states_bytes + k_blocks * nbytes(dy)
+              + nbytes(br, bk, bv, blw, dy, bu, *got[:4]) + 3 * states_bytes
+              + 2 * partials + nbytes(got[4]))
+    rows[1].update({
+        **b6_bwd_kernels,
+        "kernel_ms_shape": "the parity phase's full_bf16 case (the training shape), "
+                           "no state cotangent",
+        "design_bytes": design,
+        "design_bytes_ms": 1e3 * design / HBM_BYTES_PER_S,
+        "build": kernel.wkv_backward_info(kd, vd, chunk, r.dtype),
+        "replaces_note": ("no TPU kernel: jax.grad cannot enter wkv_pallas, so the "
+                          "reference trains through the jnp wkv_chunked"),
+    })
     return rows
 
 
@@ -2178,7 +2254,7 @@ def main() -> int:
         phase_parity_projected()
         phase_parity_predict()
         phase_parity_paged_attn()
-        b6_kernels = phase_parity_wkv()
+        wkv_kernels = phase_parity_wkv()
         heap, engine, res, launches = phase_e2e()
         db, predict_launches = phase_predict(heap, res)
         rows = phase_kernels(heap, engine, res, launches, db, predict_launches)
@@ -2190,7 +2266,7 @@ def main() -> int:
         wkv_calls, train_launches = phase_train()
         phase_train_parity()
         phase_launch_train()
-        rows.extend(kernel_rows_wkv(wkv_calls, train_launches, b6_kernels))
+        rows.extend(kernel_rows_wkv(wkv_calls, train_launches, *wkv_kernels))
         emit({"kernels": rows})
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)

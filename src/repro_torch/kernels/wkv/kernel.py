@@ -8,8 +8,10 @@ checks its inputs, allocates its outputs and scratch with ``torch.empty``,
 launches on the current stream and never synchronises. The forward is two CUDA
 launches (a serial state pass that writes each chunk's starting state, then a
 chunk-parallel output pass that reads them), counted as one in
-``wkv_forward.launches``; the backward's two (the gradients, then du's
-fixed-order sum over the batch) count as one in ``wkv_backward.launches``.
+``wkv_forward.launches``. The backward is three (a serial pass that writes the
+gradient of the state after each chunk, a chunk-parallel pass that computes
+every chunk's gradients from the chunk states and those, then du's
+fixed-order sum over the batch), counted as one in ``wkv_backward.launches``.
 """
 from __future__ import annotations
 
@@ -39,8 +41,11 @@ def _fwd_entry():
 def _bwd_entry():
     lib = build.load("wkv_bwd")
     fn = lib.wkv_bwd
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    info = lib.wkv_bwd_info
+    info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    info.restype = ctypes.c_int
     return lib, fn
 
 
@@ -111,11 +116,15 @@ def wkv_forward_info(kd: int, vd: int, chunk: int, dtype) -> dict:
             for i, name in enumerate(("state_pass", "output_pass"))}
 
 
-def wkv_backward(r, k, v, lw, u, state, states, s_out, dy, dstate, chunk: int):
+def wkv_backward(r, k, v, lw, u, state, states, s_out, dy, dstate, chunk: int,
+                 save_dstates: bool = False):
     """Gradients of ``wkv_forward``'s (y, state_out) under the cotangents
     ``dy`` (B,T,H,V) in r's dtype and ``dstate`` (B,H,K,V) f32 or None (zero),
     given the forward's inputs, its saved chunk states and its state_out.
-    Returns (dr, dk, dv in r's dtype, dlw f32, du (H,K) f32, dstate_in f32)."""
+    Returns (dr, dk, dv in r's dtype, dlw f32, du (H,K) f32, dstate_in f32),
+    and with ``save_dstates`` also the gradient of the state after each chunk
+    (B*H, T/chunk, K, V) f32, which the gradient pass reads either way
+    (scratch, freed after the call, without it)."""
     b, t, h, kd, vd = _check("wkv_backward", chunk, r, k, v, lw, u, state)
     nc = t // chunk
     for name, x, shape, dtype in (
@@ -133,23 +142,38 @@ def wkv_backward(r, k, v, lw, u, state, states, s_out, dy, dstate, chunk: int):
     dlw = torch.empty_like(lw)
     du = torch.empty_like(u)
     ds0 = torch.empty_like(state)
+    dstates = torch.empty((b * h, nc, kd, vd), dtype=torch.float32, device=r.device)
+    extra = (dstates,) if save_dstates else ()
     if b * h == 0 or t == 0:
         du.zero_()
         ds0.copy_(dstate if dstate is not None else torch.zeros_like(state))
-        return dr, dk, dv, dlw, du, ds0
-    du_part = torch.empty((b * h, kd), dtype=torch.float32, device=r.device)
+        return dr, dk, dv, dlw, du, ds0, *extra
+    du_part = torch.empty((b * h, nc, kd), dtype=torch.float32, device=r.device)
     lib, fn = _bwd_entry()
     with torch.cuda.device(r.device):
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(),
                  states.data_ptr(), s_out.data_ptr(), dy.data_ptr(),
                  dstate.data_ptr() if dstate is not None else None,
                  dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(),
-                 du_part.data_ptr(), du.data_ptr(), ds0.data_ptr(),
+                 dstates.data_ptr(), du_part.data_ptr(), du.data_ptr(), ds0.data_ptr(),
                  b, t, h, kd, vd, chunk, int(r.dtype == torch.bfloat16),
                  torch.cuda.current_stream(r.device).cuda_stream)
     build.check(lib, err, "wkv_backward launch")
     wkv_backward.launches += 1
-    return dr, dk, dv, dlw, du, ds0
+    return dr, dk, dv, dlw, du, ds0, *extra
 
 
 wkv_backward.launches = 0
+
+
+def wkv_backward_info(kd: int, vd: int, chunk: int, dtype) -> dict:
+    """The build's registers a thread, CTAs an SM, shared bytes and threads a
+    CTA of the backward's three kernels (state-gradient pass, gradient pass,
+    du's sum) at these sizes, as the card's runtime reports them."""
+    lib, _ = _bwd_entry()
+    out = (ctypes.c_int * 12)()
+    build.check(lib, lib.wkv_bwd_info(kd, vd, chunk, int(dtype == torch.bfloat16), out),
+                "wkv_backward_info")
+    return {name: {"registers": out[i], "ctas_per_sm": out[3 + i], "smem_bytes": out[6 + i],
+                   "threads": out[9 + i]}
+            for i, name in enumerate(("dstate_pass", "grad_pass", "du_reduce"))}

@@ -9,6 +9,11 @@ core of ``repro.models.ssm``, which they are held against):
                    B6-bwd's plain version
   wkv_chunk_states_ref  each chunk's starting state, the plain version of
                    the chunk states B6 writes for B6-bwd
+  wkv_chunk_dstates_ref  the gradient of the state after each chunk, the
+                   plain version of B6-bwd's serial state-gradient pass
+  wkv_bwd_chunked_ref  every chunk's gradients at once from the chunk
+                   states and their gradients, the plain version of B6-bwd's
+                   chunk-parallel gradient pass and du's sum
 
     y_t = r_t . S_{t-1}  +  (r_t * u * k_t) . v_t
     S_t = diag(exp(lw_t)) S_{t-1} + k_t v_t^T
@@ -128,3 +133,92 @@ def wkv_bwd_ref(r, k, v, lw, u, state, chunk: int, dy, dstate):
             outs.append(s)
             cots.append(dstate)
         return torch.autograd.grad(outs, ins, cots, allow_unused=True)
+
+
+def wkv_chunk_dstates_ref(r, lw, dy, ds_out, chunk: int):
+    """The gradient of the state after each chunk, walking the chunks
+    backwards from ``ds_out`` (B,H,K,V) or zero (None) by dS <- e^{cum_last}
+    dS + sum_t (r_t e^{q_ex_t}) dy_t^T. Returns (dstates (B*H, T/chunk, K, V),
+    ds0 (B,H,K,V)) in f32, or f64 for f64 inputs; dstates[:, -1] is
+    ``ds_out``."""
+    b, t, h, kd = r.shape
+    vd = dy.shape[-1]
+    if t % chunk:
+        raise ValueError(f"T={t} is not a multiple of the chunk {chunk}")
+    nc = t // chunk
+    cdt = torch.promote_types(r.dtype, torch.float32)
+
+    rc, lwc, dyc = (_by_chunk(x, chunk, cdt) for x in (r, lw, dy))
+    ds = r.new_zeros((b, h, kd, vd), dtype=cdt) if ds_out is None else ds_out.to(cdt)
+    ends = [None] * nc
+    for c in reversed(range(nc)):
+        ends[c] = ds
+        cum = torch.cumsum(lwc[c], dim=-2)
+        rq = rc[c] * torch.exp(cum - lwc[c])
+        ds = torch.exp(cum[:, :, -1, :, None]) * ds + torch.einsum(
+            "bhtk,bhtv->bhkv", rq, dyc[c])
+    dstates = (torch.stack(ends, dim=2) if ends
+               else ds.new_zeros((b, h, 0, kd, vd))).reshape(b * h, nc, kd, vd)
+    return dstates, ds
+
+
+def wkv_bwd_chunked_ref(r, k, v, lw, u, states, dstates, dy):
+    """The gradients of ``wkv_chunked_ref``'s (y, state_out) in r, k, v, lw
+    and u, every chunk at once by the closed form of ``csrc/wkv_bwd.cu``,
+    from each chunk's starting state ``states`` and the gradient of the
+    state after it ``dstates`` (both (B*H, T/chunk, K, V)) and ``dy``
+    (B,T,H,V). Returns (dr, dk, dv in r's dtype, dlw, du (H,K) in f32, or
+    f64 for f64 inputs); the gradient of the initial state is
+    ``wkv_chunk_dstates_ref``'s."""
+    b, t, h, kd = r.shape
+    vd = v.shape[-1]
+    nc = states.shape[1]
+    chunk = t // nc
+    cdt = torch.promote_types(r.dtype, torch.float32)
+
+    def chunks(x):  # (B, T, H, d) -> (T/C, B, H, C, d)
+        return _by_chunk(x, chunk, cdt)
+
+    def per_chunk(x):  # (B*H, T/C, K, V) -> (T/C, B, H, K, V)
+        return x.to(cdt).reshape(b, h, nc, kd, vd).permute(2, 0, 1, 3, 4)
+
+    rc, kc, vc, lwc, dyc = (chunks(x) for x in (r, k, v, lw, dy))
+    s0, ds = per_chunk(states), per_chunk(dstates)
+    uu = u.to(cdt)
+    cum = torch.cumsum(lwc, dim=-2)
+    q_ex = cum - lwc
+    last = cum[..., -1:, :]
+    ids = torch.arange(chunk, device=r.device)
+    lower = (ids[None, :] < ids[:, None])[:, :, None]  # s < t
+    expo = q_ex[..., :, None, :] - cum[..., None, :, :]  # (.., t, s, K)
+    dmat = torch.exp(torch.where(lower, expo, float("-inf")))
+    a = torch.einsum("nbhtk,nbhsk,nbhtsk->nbhts", rc, kc, dmat)
+    g = torch.einsum("nbhtv,nbhsv->nbhts", dyc, vc)
+    gdiag = torch.diagonal(g, dim1=-2, dim2=-1)  # (.., C)
+    diag = torch.einsum("nbhtk,hk,nbhtk->nbht", rc, uu, kc)
+    ukg = uu[:, None, :] * gdiag[..., None]  # u G[t, t], (.., C, K)
+    decay_out = torch.exp(last - cum)  # e^{cum_last - cum_s}
+    dv = (torch.einsum("nbhsk,nbhkv->nbhsv", kc * decay_out, ds)
+          + torch.einsum("nbhts,nbhtv->nbhsv", a, dyc) + diag[..., None] * dyc)
+    dr = (torch.exp(q_ex) * torch.einsum("nbhtv,nbhkv->nbhtk", dyc, s0)
+          + torch.einsum("nbhts,nbhsk,nbhtsk->nbhtk", g, kc, dmat) + kc * ukg)
+    dk = (decay_out * torch.einsum("nbhsv,nbhkv->nbhsk", vc, ds)
+          + torch.einsum("nbhts,nbhtk,nbhtsk->nbhsk", g, rc, dmat) + rc * ukg)
+    du = torch.einsum("nbhtk,nbhtk,nbht->hk", rc, kc, gdiag)
+    # dlw_j = g_last + sum_{t >= j} g_cum_t + sum_{t > j} g_qex_t
+    s_end = _next_state(s0.flatten(0, 1), kc.flatten(0, 1), vc.flatten(0, 1),
+                        cum.flatten(0, 1)).reshape(s0.shape)
+    g_last = (ds * s_end).sum(-1)[..., None, :]
+    g_qex = rc * (dr - kc * ukg)
+    g_cum = -kc * (dk - rc * ukg)
+
+    def rev_cumsum(x):
+        return torch.flip(torch.cumsum(torch.flip(x, (-2,)), -2), (-2,))
+
+    dlw = g_last + rev_cumsum(g_cum) + rev_cumsum(g_qex) - g_qex
+
+    def unchunk(x):  # (T/C, B, H, C, d) -> (B, T, H, d)
+        return x.permute(1, 0, 3, 2, 4).reshape(b, t, h, x.shape[-1])
+
+    return (unchunk(dr).to(r.dtype), unchunk(dk).to(r.dtype), unchunk(dv).to(r.dtype),
+            unchunk(dlw), du)

@@ -373,17 +373,22 @@ def test_wkv_kernel_without_saved_states_gives_the_same_bits(card, name, dtype):
 @pytest.mark.parametrize("name", sorted(WKV_GENERAL) + ["misaligned"])
 def test_wkv_kernel_general_paths(card, name, dtype):
     """Shapes off the training shape's grid, and inputs one element off their
-    16-byte alignment (the same values), through the forward's general paths."""
+    16-byte alignment (the same values), through the general paths of the
+    forward and the backward."""
     case = "chunk8" if name == "misaligned" else WKV_GENERAL[name]
     *arrs, chunk = wkv_case(case)
+    rng = np.random.default_rng(7)
+    arrs += [rng.normal(0, 1, (*arrs[0].shape[:3], arrs[2].shape[-1])).astype(np.float32),
+             rng.normal(0, 1, arrs[5].shape).astype(np.float32)]
     ins = []
-    for a in arrs:
+    for i, a in enumerate(arrs):  # r, k, v, lw, u, s0, dy, ds
         x = torch.from_numpy(a).to(card)
-        x = x.to(dtype) if len(ins) < 3 else x
+        x = x.to(dtype) if i < 3 or i == 6 else x
         if name == "misaligned":
             buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=card)
             x = buf[1:].view(x.shape).copy_(x)
         ins.append(x)
+    ins, dy, ds = ins[:6], ins[6], ins[7]
     y, s, states = wkv_kernel.wkv_forward(*ins, chunk, save_states=True)
     y_ref, s_ref = wkv_ref.wkv_chunked_ref(*ins, chunk)
     states_ref, _ = wkv_ref.wkv_chunk_states_ref(*ins[1:4], ins[5], chunk)
@@ -393,6 +398,18 @@ def test_wkv_kernel_general_paths(card, name, dtype):
     torch.testing.assert_close(states, states_ref, **WKV_TOL)
     assert all(torch.equal(a, b) for a, b in
                zip((y, s, states), wkv_kernel.wkv_forward(*ins, chunk, save_states=True)))
+    if name == "misaligned":  # the chunk states as the forward left them, off alignment
+        buf = torch.empty(states.numel() + 1, dtype=states.dtype, device=card)
+        states = buf[1:].view(states.shape).copy_(states)
+    got = wkv_kernel.wkv_backward(*ins, states, s, dy, ds, chunk, save_dstates=True)
+    want = wkv_ref.wkv_bwd_ref(*ins, chunk, dy, ds)
+    want_dstates, _ = wkv_ref.wkv_chunk_dstates_ref(ins[0], ins[3], dy, ds, chunk)
+    for name_, g, w in zip(("dr", "dk", "dv", "dlw", "du", "ds0", "dstates"), got,
+                           (*want, want_dstates)):
+        tol = WKV_BF16_TOL if g.dtype == torch.bfloat16 else WKV_TOL
+        torch.testing.assert_close(g.float(), w.float(), **tol, msg=lambda m: f"{name_}: {m}")
+    again = wkv_kernel.wkv_backward(*ins, states, s, dy, ds, chunk, save_dstates=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -401,19 +418,37 @@ def test_wkv_bwd_kernel_matches_plain(card, name, dtype):
     ins, chunk, dy, ds = _wkv_on(card, name, dtype)
     _, s, states = wkv_kernel.wkv_forward(*ins, chunk, save_states=True)
     launches = wkv_kernel.wkv_backward.launches
-    got = wkv_kernel.wkv_backward(*ins, states, s, dy, ds, chunk)
+    got = wkv_kernel.wkv_backward(*ins, states, s, dy, ds, chunk, save_dstates=True)
     assert wkv_kernel.wkv_backward.launches == launches + 1
     want = wkv_ref.wkv_bwd_ref(*ins, chunk, dy, ds)
     for name_, g, w, x in zip(("dr", "dk", "dv", "dlw", "du", "ds0"), got, want, ins):
         assert g.dtype == x.dtype, name_
         tol = WKV_BF16_TOL if g.dtype == torch.bfloat16 else WKV_TOL
         torch.testing.assert_close(g.float(), w.float(), **tol, msg=lambda m: f"{name_}: {m}")
+    # the state-gradient pass's output: the gradient of the state after each
+    # chunk, the last one the state cotangent bit for bit
+    dstates = got[6]
+    want_dstates, _ = wkv_ref.wkv_chunk_dstates_ref(ins[0], ins[3], dy, ds, chunk)
+    torch.testing.assert_close(dstates, want_dstates, **WKV_TOL)
+    assert torch.equal(dstates[:, -1], ds.reshape(dstates[:, -1].shape))
     again = wkv_kernel.wkv_backward(*ins, states, s, dy, ds, chunk)
+    assert len(again) == 6
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     # a missing state cotangent is a zero one
     none = wkv_kernel.wkv_backward(*ins, states, s, dy, None, chunk)
     zero = wkv_kernel.wkv_backward(*ins, states, s, dy, torch.zeros_like(ds), chunk)
     assert all(torch.equal(a, b) for a, b in zip(none, zero))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wkv_backward_info_at_training_shape(card, dtype):
+    """B6-bwd's three kernels as the runtime reports them: the gradient pass
+    holds at least three CTAs an SM at the training shape."""
+    info = wkv_kernel.wkv_backward_info(64, 64, 32, dtype)
+    assert set(info) == {"dstate_pass", "grad_pass", "du_reduce"}
+    assert info["grad_pass"]["ctas_per_sm"] >= 3
+    assert info["grad_pass"]["threads"] == 128 and info["dstate_pass"]["threads"] == 128
+    assert all(v["registers"] > 0 and v["ctas_per_sm"] >= 1 for v in info.values())
 
 
 def test_wkv_ops_differentiates_through_both_kernels(card):

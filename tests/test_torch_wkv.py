@@ -105,6 +105,68 @@ def test_wkv_chunk_states_match_repro_scan_on_each_prefix(case):
     assert torch.equal(s_out, ref.wkv_chunked_ref(*tin, chunk)[1])
 
 
+def _cotangents(jin):
+    rng = np.random.default_rng(9)
+    dy = rng.normal(0, 1, (*np.shape(jin[0])[:3], np.shape(jin[2])[-1])).astype(np.float32)
+    ds = rng.normal(0, 1, np.shape(jin[5])).astype(np.float32)
+    return dy, ds
+
+
+@pytest.mark.parametrize("case", ["chunk8", "chunk32", "k_ne_v", "clip_mixed"])
+def test_wkv_chunk_dstates_match_jax_vjp_on_each_suffix(case):
+    """The state gradients B6-bwd's serial pass writes, in their plain
+    version: the gradient of the state after chunk c is the reference's
+    cotangent of the starting state of the sequence's suffix from chunk
+    c + 1 (the same dy there, the same final-state cotangent); the last is
+    the final-state cotangent, and ds0 the whole sequence's."""
+    jin, tin, chunk = _both(case)
+    r, k, v, lw, u, s0 = tin
+    b, t, h, kd = r.shape
+    vd = v.shape[-1]
+    dy, ds = _cotangents(jin)
+    dstates, ds0 = ref.wkv_chunk_dstates_ref(r, lw, torch.from_numpy(dy),
+                                             torch.from_numpy(ds), chunk)
+    assert dstates.shape == (b * h, t // chunk, kd, vd) and dstates.dtype == torch.float32
+    assert torch.equal(dstates[:, -1], torch.from_numpy(ds).reshape(b * h, kd, vd))
+
+    def suffix_vjp(t0):  # jax.vjp of wkv_scan from token t0, in its starting state
+        xs = [x[:, t0:] for x in jin[:4]]
+        _, vjp = jax.vjp(lambda st: jssm.wkv_scan(*xs, jin[4], st), jin[5])
+        return np.asarray(vjp((jnp.asarray(dy[:, t0:]), jnp.asarray(ds)))[0])
+
+    for c in range(t // chunk - 1):
+        _close(dstates[:, c], suffix_vjp((c + 1) * chunk).reshape(b * h, kd, vd))
+    _close(ds0, suffix_vjp(0))
+
+
+@pytest.mark.parametrize("case", ["chunk8", "chunk32", "k_ne_v", "clip_mixed"])
+def test_wkv_bwd_chunked_matches_jax_grad(case):
+    """B6-bwd's chunk-parallel gradient pass and du's sum, in their plain
+    version, fed by the plain chunk states and state gradients: all six
+    gradients are jax.grad's of the reference's wkv_chunked (of wkv_scan
+    where wkv_chunked cannot run: K != V, or log-decays at -8, where it
+    overflows)."""
+    jin, tin, chunk = _both(case)
+    r, k, v, lw, u, s0 = tin
+    dy, ds = _cotangents(jin)
+    fn = (lambda *xs: jssm.wkv_chunked(*xs, chunk)) if case in ("chunk8", "chunk32") \
+        else jssm.wkv_scan
+
+    def jloss(*xs):
+        y, s = fn(*xs)
+        return jnp.sum(y * dy) + jnp.sum(s * ds)
+
+    want = jax.grad(jloss, argnums=tuple(range(6)))(*jin)
+    states, _ = ref.wkv_chunk_states_ref(k, v, lw, s0, chunk)
+    dstates, ds0 = ref.wkv_chunk_dstates_ref(r, lw, torch.from_numpy(dy),
+                                             torch.from_numpy(ds), chunk)
+    got = (*ref.wkv_bwd_chunked_ref(r, k, v, lw, u, states, dstates, torch.from_numpy(dy)),
+           ds0)
+    for g, w, x in zip(got, want, tin):
+        assert g.shape == x.shape and g.dtype == torch.float32
+        _close(g, w)
+
+
 @pytest.mark.parametrize("case", ["chunk8", "chunk32", "pallas_small", "clip_high"])
 def test_wkv_gradients_match_jax_grad(case):
     jin, tin, chunk = _both(case)
