@@ -10,7 +10,10 @@ Phases, one JSON line each:
   build    nvcc builds of src/repro_torch/csrc/*.cu, all started together
   parity   each kernel against its plain PyTorch version on the same CUDA
            tensors: the full and the projected strider decode bit for bit,
-           the GLM gradient at rtol=2e-5, atol=2e-4, GLM scoring at
+           the GLM gradient at rtol=2e-5, atol=2e-4, the SGD walk over a
+           chunk's merge batches (w and the norms) at rtol=atol=1e-4 over
+           every activation, widths 1-9,001 and batches of 1-256 rows with
+           a ragged tail, GLM scoring at
            atol=2e-6, svm exactly, and paged attention at rtol=atol=2e-5
            over the CPU tests' cases, with and without their runs, and the
            MLA shapes (the reference's own tolerances), the WKV forward and backward at rtol=atol=2e-4 over
@@ -22,10 +25,12 @@ Phases, one JSON line each:
   e2e      remote_sensing_lr from the paper's Table 3 (logistic regression,
            54 features, 581,102 tuples in 4,211 pages of 32 KB, warm pool)
            trained for 3 epochs by solver.train(mode="dana") on the card;
-           launch counts, one join per epoch, and the coefficients against
-           the same run on the CPU
+           launch counts (B1 and the SGD walk once a chunk, the per-batch
+           gradient never), the engine's affine update, one join per epoch,
+           and the coefficients against the same run on the CPU
   syncs    one more epoch under torch.cuda.set_sync_debug_mode("warn")
-  profile  one more epoch under torch.profiler: the card's busy and idle share
+  profile  one more epoch under torch.profiler: the card's busy and idle
+           share and the epoch's cudaLaunchKernel calls
   predict  the same table through the SQL surface on the card
            (Database(device="cuda").connect()): the TRAIN statement against
            e2e's coefficients byte for byte, three scans (rows, aggregates,
@@ -59,7 +64,8 @@ Phases, one JSON line each:
            against token-by-token decode on 64 tokens
   launch-train  launch/train.py's main() at full width for 2 steps
   kernels  each kernel's launches on the main path, error, time, bound,
-           plain version's time and library yardstick; B5 at both captured
+           plain version's time and library yardstick; the SGD walk per full
+           chunk, per tail chunk, per batch and at D = 2,000; B5 at both captured
            calls, with their runs and without, beside its bounds on each
            distinct K/V row, on each run's context and token by token; B6's
            two kernels and B6-bwd's three a call, each one's time,
@@ -94,7 +100,7 @@ MERGE_COEF = 256
 # Table 3's tuples and features; 138 tuples fit a 32 KB page, so 4,211 pages;
 # 9 chunks of at most 512 pages and 2,270 merge batches of 256 per epoch
 EXPECT = {"geometry": (581_102, 54, 138, 4211),
-          "launches": {"strider_decode": 27, "glm_grad": 6810}}
+          "launches": {"strider_decode": 27, "glm_sgd_chunk": 27, "glm_grad": 0}}
 # the serve phase: mistral-nemo-12b at full width and depth; the longest
 # prompt (1024 tokens) plus 64 new tokens fits max_seq
 SERVE_ARCH = "mistral-nemo-12b"
@@ -304,6 +310,52 @@ def phase_parity_glm():
           "rtol": 2e-5, "atol": 2e-4, "max_abs_err": worst, "deterministic": True})
 
 
+def phase_parity_sgd_chunk():
+    """The SGD walk over merge batches against its plain version: every
+    activation, widths from 1 to past the shared-memory limit, batches of
+    1-256 rows, a ragged last batch and garbage in the dead rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.engine import kernel, ref
+
+    rng = np.random.default_rng(4)
+    shapes = [(d, coef) for d in (1, 5, 54, 129, 520, 2000) for coef in (1, 7, 64, 256)]
+    shapes += [(8192, 7), (9001, 7)]  # the widest in shared memory, the first past it
+    worst = {"w": 0.0, "gnorms": 0.0}
+    cases = 0
+    for act in ref.ACTS:
+        for d, coef in shapes:
+            n = 5 * coef + coef // 2 + 1
+            x = rng.normal(0, 1, (n, d)).astype(np.float32)
+            if act == "linear":
+                y = rng.normal(0, 1, n).astype(np.float32)
+            else:
+                y = np.sign(rng.normal(0, 1, n)).astype(np.float32)
+                if act == "logistic":
+                    y = (y > 0).astype(np.float32)
+            w = rng.normal(0, 0.3, d).astype(np.float32)
+            mask = (rng.uniform(size=n) > 0.2).astype(np.float32)
+            x[mask == 0] = 99.0  # dead rows must not contribute
+            a, b = 1.0 - 1e-3, 0.5 / (coef * d)  # a contractive step at every width
+            x, y, mask, w = (torch.from_numpy(v).cuda() for v in (x, y, mask, w))
+            got = kernel.glm_sgd_chunk(x, y, mask, w, coef, act, a, b)
+            again = kernel.glm_sgd_chunk(x, y, mask, w, coef, act, a, b)
+            plain = ref.glm_sgd_chunk_ref(x, y, mask, w, coef, act, a, b)
+            what = f"act={act} d={d} coef={coef} n={n}"
+            if got[1].shape != (-(-n // coef),):
+                raise AssertionError(f"glm_sgd_chunk norms shape {tuple(got[1].shape)}: {what}")
+            for name, g, p_ in zip(("w", "gnorms"), got, plain):
+                torch.testing.assert_close(g, p_, rtol=1e-4, atol=1e-4, msg=lambda m: f"{what}: {m}")
+                worst[name] = max(worst[name], float((g - p_).abs().max()))
+            if not all(torch.equal(g, h) for g, h in zip(got, again)):
+                raise AssertionError(f"glm_sgd_chunk is not deterministic: {what}")
+            cases += 1
+    emit({"phase": "parity", "kernel": "glm_sgd_chunk", "cases": cases,
+          "widths": sorted({d for d, _ in shapes}), "coefs": sorted({c for _, c in shapes}),
+          "rtol": 1e-4, "atol": 1e-4, "max_abs_err": worst, "deterministic": True})
+
+
 def phase_parity_projected():
     import numpy as np
     import torch
@@ -406,6 +458,7 @@ def _wrappers():
     from repro_torch.kernels.wkv import kernel as wkv_kernel
 
     return {"strider_decode": strider_kernel.strider_decode,
+            "glm_sgd_chunk": glm_kernel.glm_sgd_chunk,
             "glm_grad": glm_kernel.glm_grad,
             "strider_decode_projected": strider_kernel.strider_decode_projected,
             "glm_predict": glm_kernel.glm_predict,
@@ -443,7 +496,8 @@ def _hot_loop_lines():
 
     return _source_spans((
         engine.Engine.run_chunk, engine.Engine.run_epoch, engine.Engine.batch_step,
-        engine.PinnedStager.__call__, engine.batches_from_stream, glm_kernel, glm_ops,
+        engine.Engine._sgd_chunk, engine.PinnedStager.__call__, engine.batches_from_stream,
+        glm_kernel, glm_ops,
         strider_kernel, strider_ops))
 
 
@@ -503,6 +557,7 @@ def _device_profile(run, kernels=()):
            "top_host_self": [[e.key, e.self_cpu_time_total / 1e3, e.count]
                              for e in sorted(stats, key=lambda e: e.self_cpu_time_total,
                                              reverse=True)[:8]]}
+    top["launch_calls"] = sum(e.count for e in stats if "LaunchKernel" in e.key)
     if kernels:
         top["device_ms_of"] = {k: sum(ms for name, (ms, _) in by_name.items() if k in name)
                                for k in kernels}
@@ -533,6 +588,29 @@ def _synchronizing_calls(run, spans):
         where[key] = where.get(key, 0) + 1
         inside += any(path == f and a <= w.lineno < b for f, a, b in spans)
     return where, inside
+
+
+def _staging_epoch(run, engine):
+    """Run one epoch with the engine's pinned stager timed: the epoch's
+    seconds, its exposed I/O (waits for the pool's fetch) and the seconds
+    spent in the stager, whose host copy of each chunk's pages sets the
+    pace once the card's work is one launch a chunk."""
+    stage = engine._stage
+    spent = []
+
+    def timed(pages):
+        t0 = time.perf_counter()
+        out = stage(pages)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    engine._stage = timed
+    try:
+        res = run()
+    finally:
+        engine._stage = stage
+    return {"epoch_s": res.total_s, "exposed_io_s": res.exposed_io_s,
+            "stager_s": sum(spent), "stager_calls": len(spent)}
 
 
 def phase_e2e():
@@ -569,8 +647,11 @@ def phase_e2e():
     g, part = trace(lambda: logistic_regression(54, lr=0.1, merge_coef=MERGE_COEF,
                                                 epochs=EPOCHS))
     engine = make_engine(g, part, device="cuda")
-    if engine.glm_template != "logistic" or not engine.use_fused_kernel:
-        raise AssertionError("the engine did not take the fused GLM kernel")
+    if engine.glm_template != "logistic" or not engine.chunk_kernel:
+        raise AssertionError("the engine did not take the SGD walk over merge batches")
+    a, b = engine.fused_update
+    if a != 1.0 or not math.isclose(b, 0.1 / MERGE_COEF, rel_tol=1e-6):
+        raise AssertionError(f"affine update {engine.fused_update}, expected (1, 0.1/256)")
 
     sync_at = []
     real_sync = solver._device_sync
@@ -592,8 +673,8 @@ def phase_e2e():
         solver._device_sync = real_sync
     epoch_s = [b - a for a, b in zip([t_start] + sync_at[:-1], sync_at)]
 
-    want = {"strider_decode": EPOCHS * n_chunks, "glm_grad": EPOCHS * batches,
-            "strider_decode_projected": 0, "glm_predict": 0, "paged_attn": 0,
+    want = {"strider_decode": EPOCHS * n_chunks, "glm_sgd_chunk": EPOCHS * n_chunks,
+            "glm_grad": 0, "strider_decode_projected": 0, "glm_predict": 0, "paged_attn": 0,
             "wkv": 0, "wkv_bwd": 0}
     if launches != want or want != dict(EXPECT["launches"], strider_decode_projected=0,
                                         glm_predict=0, paged_attn=0, wkv=0, wkv_bwd=0):
@@ -618,7 +699,8 @@ def phase_e2e():
     emit({"phase": "e2e", "workload": WORKLOAD, "algorithm": "logistic",
           "n_tuples": heap.n_tuples, "n_features": 54, "pages": heap.n_pages,
           "page_bytes": heap.layout.page_bytes, "heap_bytes": heap.n_pages * wl.page_bytes,
-          "merge_coef": MERGE_COEF, "epochs": res.epochs_run, "chunks_per_epoch": n_chunks,
+          "merge_coef": MERGE_COEF, "fused_update": engine.fused_update,
+          "epochs": res.epochs_run, "chunks_per_epoch": n_chunks,
           "merge_batches_per_epoch": batches, "launches": launches,
           "device_syncs": res.device_syncs, "setup_s": setup_s,
           "total_s": t_end - t_start, "train_total_s": res.total_s, "epoch_s": epoch_s,
@@ -644,11 +726,17 @@ def phase_e2e():
         lambda: solver.train(g, part, heap, pool=pool, mode="dana", engine=engine,
                              max_epochs=1, seed=0))
     steady_s = statistics.median(epoch_s[1:])
+    # one more epoch untraced, with the host's page staging timed: the pinned
+    # stager's copy of each chunk (and its wait for the buffer's last send)
+    staging = _staging_epoch(lambda: solver.train(g, part, heap, pool=pool, mode="dana",
+                                                  engine=engine, max_epochs=1, seed=0),
+                             engine)
+    staging["chunk_bytes"] = solver.MAX_RESIDENT_PAGES * heap.layout.page_bytes
     emit({"phase": "profile", "epochs": 1, "traced_epoch_s": traced_s,
           "device_busy_s": busy_s if busy_s else None,
           "untraced_epoch_s": steady_s,
           "device_idle_share": 1.0 - busy_s / steady_s if busy_s else None,
-          **top, "units": "ms totals over the epoch"})
+          "staging": staging, **top, "units": "ms totals over the epoch"})
     return heap, engine, res, launches
 
 
@@ -722,6 +810,7 @@ def _predict_phase(heap, res, db, n_chunks, joins):
     if train.coefficients[0].tobytes() != res.models[0].tobytes():
         raise AssertionError("the SQL TRAIN's coefficients differ from solver.train's")
     want = {"strider_decode": EXPECT["launches"]["strider_decode"],
+            "glm_sgd_chunk": EXPECT["launches"]["glm_sgd_chunk"],
             "glm_grad": EXPECT["launches"]["glm_grad"],
             "strider_decode_projected": 3 * n_chunks, "glm_predict": 3 * n_chunks,
             "paged_attn": 0, "wkv": 0, "wkv_bwd": 0}
@@ -895,7 +984,7 @@ def phase_kernels(heap, engine, res, launches, db, predict_launches):
         "name": "glm_grad", "route": "cuda", "source": "src/repro_torch/csrc/glm_grad.cu",
         "replaces": "src/repro/kernels/engine/engine.py:26",
         "launches": launches["glm_grad"], "max_abs_err": b2_err,
-        "shape": f"x ({rows}, {d}) f32, logistic",
+        "shape": f"x ({rows}, {d}) f32, logistic, one merge batch (the convergence check's)",
         "ms": device_ms(b2_calls), "host_ms": eager_ms(b2_calls),
         "plain_ms": device_ms(b2_plain),
         "bound_ms": 1e3 * max(b2_bytes / HBM_BYTES_PER_S, b2_flops / F32_FLOPS),
@@ -905,6 +994,8 @@ def phase_kernels(heap, engine, res, launches, db, predict_launches):
         "library_ms": device_ms(b2_lib),
         "library": "composite: torch.matmul, sigmoid, sub, mul, torch.matmul",
     }
+    del X, Y, M, b2_calls, b2_plain, b2_lib
+    b2_chunk = kernel_row_sgd_chunk(chunks, layout, engine, w, launches)
 
     # B3 and B4 at the predict phase's 512-page chunks: statement 2's plan
     # (54 columns, no label) over the same four chunks as B1
@@ -982,7 +1073,109 @@ def phase_kernels(heap, engine, res, launches, db, predict_launches):
     }
     if b4_err > 2e-6:
         raise AssertionError(f"glm_predict differs by {b4_err} at the main path's chunks")
-    return [b1, b2, b3, b4]
+    return [b1, b2_chunk, b2, b3, b4]
+
+
+def _sgd_work(n, d, coef):
+    """(bytes, f32 operations) of one SGD walk: x, y and mask read once, w
+    read and written, a norm a batch; two multiply-adds an element of x."""
+    nb = -(-n // coef)
+    return 4 * (n * d + 2 * n + 2 * d + nb), 4 * n * d
+
+
+def _bound_ms(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_row_sgd_chunk(chunks, layout, engine, w, launches):
+    """B2 as the main path launches it: the SGD walk over a decoded chunk's
+    merge batches, per full chunk (276 batches) over four chunks in turn,
+    per tail chunk (62 batches), at D = 2,000, beside its plain version and
+    the per-batch composite of PyTorch calls captured in one CUDA graph."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.solver import MAX_RESIDENT_PAGES
+    from repro_torch.kernels.engine import kernel as glm_kernel
+    from repro_torch.kernels.engine import ref as glm_ref
+    from repro_torch.kernels.strider import kernel as strider_kernel
+
+    coef, (a, b) = engine.merge_coef, engine.fused_update
+    d = layout.n_features
+    flat = []
+    for c in chunks:
+        f, lab, m = strider_kernel.strider_decode(c, layout)
+        n = f.shape[0] * f.shape[1]
+        flat.append((f.reshape(n, d), lab.reshape(n), m.reshape(n)))
+    tail_rows = EXPECT["geometry"][3] % MAX_RESIDENT_PAGES * layout.tuples_per_page
+    tail = tuple(t[:tail_rows] for t in flat[1])
+
+    def walk(x, y, m):
+        return glm_kernel.glm_sgd_chunk(x, y, m, w, coef, "logistic", a, b)
+
+    def plain(x, y, m):
+        return glm_ref.glm_sgd_chunk_ref(x, y, m, w, coef, "logistic", a, b)
+
+    def composite(x, y, m):
+        wv, norms = w, []
+        for s in range(0, x.shape[0], coef):
+            xb = x[s:s + coef]
+            g = torch.matmul((torch.sigmoid(torch.matmul(xb, wv)) - y[s:s + coef])
+                             * m[s:s + coef], xb)
+            norms.append(torch.linalg.vector_norm(g))
+            wv = wv * a - g * b
+        return wv, torch.stack(norms)
+
+    err = 0.0
+    for x, y, m in flat + [tail]:
+        got, want = walk(x, y, m), plain(x, y, m)
+        if not all(torch.equal(g, h) for g, h in zip(got, walk(x, y, m))):
+            raise AssertionError("glm_sgd_chunk is not deterministic at the main path's chunk")
+        for g, p_ in zip(got, want):
+            torch.testing.assert_close(g, p_, rtol=1e-4, atol=1e-4)
+            err = max(err, float((g - p_).abs().max()))
+    n_full, n_tail = flat[0][0].shape[0], tail_rows
+    full_bytes, full_flops = _sgd_work(n_full, d, coef)
+    tail_bytes, tail_flops = _sgd_work(n_tail, d, coef)
+    bound, bound_by = _bound_ms(full_bytes, full_flops)
+    ms = device_ms([lambda t=t: walk(*t) for t in flat])
+    tail_ms = device_ms([lambda: walk(*tail)] * 4)
+    plain_ms = device_ms([lambda: plain(*flat[0])], reps=3)
+    library_ms = device_ms([lambda: composite(*flat[0])], reps=3)
+    nb_full, nb_tail = -(-n_full // coef), -(-n_tail // coef)
+
+    # wide: D = 2,000 and 256-row batches, 32 batches from a seed
+    rng = np.random.default_rng(5)
+    dw, nw = 2000, 32 * coef
+    xw = torch.from_numpy(rng.normal(0, 1, (nw, dw)).astype(np.float32)).cuda()
+    yw = torch.from_numpy((rng.uniform(size=nw) > 0.5).astype(np.float32)).cuda()
+    mw = torch.ones(nw, device=xw.device)
+    ww = torch.from_numpy(rng.normal(0, 0.01, dw).astype(np.float32)).cuda()
+    wide_bytes, wide_flops = _sgd_work(nw, dw, coef)
+    wide_bound, wide_by = _bound_ms(wide_bytes, wide_flops)
+    wide_ms = device_ms([lambda: glm_kernel.glm_sgd_chunk(xw, yw, mw, ww, coef, "logistic",
+                                                          a, b)] * 4)
+    return {
+        "name": "glm_sgd_chunk", "route": "cuda", "source": "src/repro_torch/csrc/glm_grad.cu",
+        "replaces": "src/repro/kernels/engine/engine.py:26",
+        "launches": launches["glm_sgd_chunk"], "max_abs_err": err,
+        "shape": (f"x ({n_full}, {d}) f32, logistic, {nb_full} merge batches of {coef} "
+                  "rows a call, four chunks in turn"),
+        "ms": ms, "per_batch_ms": ms / nb_full, "host_ms": eager_ms(
+            [lambda t=t: walk(*t) for t in flat]),
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+        "bound_bytes": full_bytes,
+        "library_ms": library_ms,
+        "library": ("composite, one CUDA graph of the chunk's batches: torch.matmul, "
+                    "sigmoid, sub, mul, torch.matmul, vector_norm, then a*w - b*g"),
+        "tail": {"rows": n_tail, "batches": nb_tail, "ms": tail_ms,
+                 "per_batch_ms": tail_ms / nb_tail,
+                 "bound_ms": _bound_ms(tail_bytes, tail_flops)[0], "bound_bytes": tail_bytes},
+        "wide": {"shape": f"x ({nw}, {dw}) f32, {nw // coef} batches of {coef}",
+                 "ms": wide_ms, "per_batch_ms": wide_ms / (nw // coef),
+                 "bound_ms": wide_bound, "bound_by": wide_by, "bound_bytes": wide_bytes},
+    }
 
 
 def phase_parity_paged_attn():
@@ -2251,6 +2444,7 @@ def main() -> int:
         phase_build()
         phase_parity_strider()
         phase_parity_glm()
+        phase_parity_sgd_chunk()
         phase_parity_projected()
         phase_parity_predict()
         phase_parity_paged_attn()

@@ -11,7 +11,11 @@ of launches and the caller joins it once.
 GLM template matching: when the pre-merge graph is numerically identical to
 ``err(w.x, y) * x`` the engine swaps in the fused GLM gradient kernel
 (``kernels/engine``), the specialized datapath an FPGA synthesis would produce
-for that hDFG.
+for that hDFG. When, besides, the post-merge update is affine,
+``w <- a*w - b*merged`` (``match_sgd_update``), an epoch over a chunk is one
+launch of the SGD kernel that walks the chunk's merge batches in order with
+the model on chip, as ``repro`` runs the chunk as one device program. Other
+graphs (LRMF, an update that is not affine) loop over the batches.
 
 Device policy: ``make_engine`` and ``init_models`` take ``device=None``, which
 means ``"cuda"``, and raise ``RuntimeError`` when there is no card. Callers ask
@@ -20,6 +24,7 @@ for the CPU with ``device="cpu"``; every kernel then runs its plain version.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -150,6 +155,49 @@ def match_glm_template(g: HDFG, part: Partition) -> str | None:
     return sorted(candidates)[0] if candidates else None
 
 
+def match_sgd_update(g: HDFG, part: Partition, metas) -> tuple[float, float] | None:
+    """(a, b) when the post-merge update of the single vector model is
+    ``w <- a*w - b*merged`` (plain SGD; svm's L2 term folds into a), else
+    None. Probes ``post_fn`` on the CPU in f32 with the engine's ``metas``:
+    a from merged = 0, b from w = 0, then a*w - b*merged verified on random
+    draws of both. a and b come back as the f32 values the graph computes."""
+    if g.merge_id is None or len(g.model_ids) != 1 or len(g.new_model_ids) != 1:
+        return None
+    w_shape = g.node(g.model_ids[0]).shape
+    if len(w_shape) != 1 or w_shape[0] < 1 or g.node(g.merge_id).shape != w_shape:
+        return None
+    if g.node(g.merge_id).attrs["op"] != "+":
+        return None
+    _, post_fn, _, _ = compile_hdfg(g, part)
+
+    def post(w, merged):
+        try:
+            out = post_fn([w], merged, metas)
+        except (RuntimeError, ValueError):
+            return None
+        if len(out) != 1 or not isinstance(out[0], torch.Tensor) \
+                or tuple(out[0].shape) != w_shape:
+            return None
+        return out[0].to(torch.float32)
+
+    ones, zeros = torch.ones(w_shape), torch.zeros(w_shape)
+    at, bt = post(ones, zeros), post(zeros, ones)
+    if at is None or bt is None:
+        return None
+    a, b = float(at[0]), -float(bt[0])
+    if not (math.isfinite(a) and math.isfinite(b)
+            and bool((at == at[0]).all()) and bool((bt == bt[0]).all())):
+        return None
+    rng = np.random.default_rng(11)
+    for _ in range(4):
+        w = torch.as_tensor(rng.normal(0, 1, w_shape), dtype=torch.float32)
+        merged = torch.as_tensor(rng.normal(0, 16, w_shape), dtype=torch.float32)
+        got = post(w, merged)
+        if got is None or not torch.allclose(got, w * a - merged * b, rtol=1e-5, atol=1e-6):
+            return None
+    return a, b
+
+
 class PinnedStager:
     """Carries page chunks to the card through two pinned host buffers.
 
@@ -198,6 +246,7 @@ class Engine:
     glm_template: str | None
     use_fused_kernel: bool
     device: torch.device
+    fused_update: tuple[float, float] | None = None
 
     def __post_init__(self):
         self._pre, self._post, self._conv, _ = compile_hdfg(self.g, self.part)
@@ -222,11 +271,26 @@ class Engine:
         new_models = self._post(models, merged, self.metas)
         return new_models, merged
 
-    # -- one epoch over a resident chunk (loop over batches) -------------------
+    @property
+    def chunk_kernel(self) -> bool:
+        """Whether an epoch over a chunk is one launch of the SGD kernel."""
+        return self.use_fused_kernel and self.fused_update is not None
+
+    def _sgd_chunk(self, models, x, y, mask, coef):
+        a, b = self.fused_update
+        w, gnorms = engine_ops.glm_sgd_chunk(x, y, mask, models[0], coef,
+                                             self.glm_template, a, b)
+        return [w], gnorms
+
+    # -- one epoch over a resident chunk --------------------------------------
     def run_epoch(self, models, X, Y, mask):
         """X: (n_batches, merge_coef, D) float32; mask marks live tuples.
         Returns the updated models and each batch's merged-gradient norm,
-        all on the engine's device, with no host join."""
+        all on the engine's device, with no host join. One SGD kernel
+        launch when ``chunk_kernel``, else a loop over the batches."""
+        if self.chunk_kernel:
+            return self._sgd_chunk(models, X.reshape(-1, X.shape[-1]), Y.reshape(-1),
+                                   mask.reshape(-1), X.shape[1])
         merged = []
         for b in range(X.shape[0]):
             models, m = self.batch_step(models, X[b], Y[b], mask[b])
@@ -248,13 +312,11 @@ class Engine:
             pages = strider_ops.pages_tensor(pages)
         feats, labels, mask = strider_ops.decode_pages(pages, layout)
         t = feats.shape[0] * feats.shape[1]
-        X, Y, M = batches_from_stream(
-            feats.reshape(t, layout.n_features),
-            labels.reshape(t),
-            mask.reshape(t),
-            self.merge_coef,
-        )
-        return self.run_epoch(models, X, Y, M)
+        x, y, m = feats.reshape(t, layout.n_features), labels.reshape(t), mask.reshape(t)
+        if self.chunk_kernel:
+            # the kernel masks the ragged last batch itself: no padded copy
+            return self._sgd_chunk(models, x, y, m, self.merge_coef)
+        return self.run_epoch(models, *batches_from_stream(x, y, m, self.merge_coef))
 
     def converged(self, models, merged) -> bool:
         return bool(self._conv(models, merged, self.metas))
@@ -296,13 +358,15 @@ def make_engine(
     else:
         op, coef = "+", merge_coef or 1
     tmpl = match_glm_template(g, part)
+    metas = metas if metas is not None else default_metas(g)
     return Engine(
         g=g,
         part=part,
         merge_op=op,
         merge_coef=coef,
-        metas=metas if metas is not None else default_metas(g),
+        metas=metas,
         glm_template=tmpl,
         use_fused_kernel=use_fused_kernel and tmpl is not None,
         device=device,
+        fused_update=match_sgd_update(g, part, metas) if tmpl is not None else None,
     )

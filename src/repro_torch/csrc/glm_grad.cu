@@ -1,109 +1,564 @@
-// Fused GLM gradient for Hopper (sm_90a): out = X^T (err(X w, y) * mask).
+// GLM gradient and SGD over merge batches for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/engine/engine.py::_glm_kernel
-// (launched by glm_grad_pallas through pl.pallas_call). Same contract:
-// x (N, D) f32, y (N,), w (D,), mask (N,) -> (D,) f32, with err z - y
-// (linear), sigmoid(z) - y (logistic) or (y*z < 1 ? -y : 0) (svm), as in
-// repro/kernels/engine/ref.py::glm_error.
+// (launched by glm_grad_pallas through pl.pallas_call) and the scan over
+// merge batches around it (repro/core/engine.py::_epoch_impl). One kernel
+// body serves two entries:
 //
-// Bound: bytes. X is read once at N*D*4 bytes and each element takes two
-// multiply-adds, far below the card's f32 rate per byte, so 3.35 TB/s of device
-// memory is the bound. At the TRAIN path's merge batch (256, 54) X is 55 KB:
-// the two launches' latency, not the bound, sets the time.
+//   glm_sgd_chunk  x (N, D), y (N,), mask (N,), w (D,) f32 -> w_out (D,),
+//                  gnorms (ceil(N / coef),): for each merge batch b of `coef`
+//                  rows in order, g = X_b^T (err(X_b w, y_b) * mask_b),
+//                  gnorms[b] = |g|_2, then w <- a*w - b*g.
+//   glm_grad       the one-batch case (coef = N): writes g, updates nothing.
 //
-// Design: the TPU kernel carries the (D,) sum across a sequential grid; Hopper
-// blocks run in no order, so the sum takes two launches. Pass 1: one block per
-// tile of kRows rows; each warp computes z for its rows (lanes across D, then a
-// shuffle reduction), keeps e = err(z, y) * mask in shared memory, and the
-// block writes its partial sum over rows of e * x to scratch (n_tiles, D),
-// re-reading its tile of X from L1/L2. Pass 2 sums the partials of each feature
-// in tile order. No float atomics: the result is the same bits on every run.
-// Tiles are 32 rows, so a 256-row merge batch spreads over 8 blocks and each
-// thread's chain of dependent loads is 4 rows in pass 1 and 32 in its second
-// half: at this size latency, not bandwidth, is what the tile size trades.
-// Any N and D, no padding: the last tile masks its ragged rows itself.
+// err is z - y (linear), sigmoid(z) - y (logistic) or (y*z < 1 ? -y : 0)
+// (svm), as in repro/kernels/engine/ref.py::glm_error.
+//
+// Bound: bytes. X, y and mask are read once (N*(D+2)*4 bytes) and each element
+// of X takes two multiply-adds, far below the card's f32 rate per byte. But at
+// the TRAIN path's merge batch (256, 54) X is 55 KB and its bound 17 ns: the
+// chain of batches is serial (batch b+1 needs the w that batch b wrote), so a
+// launch per batch, and the host's launches around it, set the time. Hence one
+// launch walks all of a chunk's batches in order on one CTA:
+//
+// - w and g stay in shared memory for the whole launch (D <= 8,192; wider
+//   models keep them in a global scratch of 3*D floats and read X in place);
+// - X streams through a two-stage ring in tiles of whole rows (at most 64 KB
+//   and 1,024 rows, never across a batch; at D = 54 one tile is one batch,
+//   one contiguous span). A producer warp keeps the next tile's rows of X, y
+//   and mask in flight while 16 consumer warps compute: the TMA copies each
+//   span's 16-byte-aligned body and cp.async the few words around it (rows
+//   start anywhere on the 4-byte grid), each span landing at its source's
+//   alignment; a full and an empty mbarrier a stage hand the stages over;
+// - D <= 256: each consumer warp takes a contiguous block of the tile's rows,
+//   each row on a segment of L lanes (L the power of two that gives each lane
+//   at most 8 of the row's features). A lane loads its features of 4 rows at
+//   once into registers and sums z = x.w for them; a shuffle tree within the
+//   segment gives every lane of it z; lane i evaluates e = err(z, y) * mask
+//   for the i-th row of the warp's 4 x 32/L (one err a row) and shuffles
+//   hand each segment its rows' e; each lane adds e * x to its features'
+//   partial sums, still in registers: X is read from shared memory once. At
+//   the batch's end the partials are summed over the warp's segments by
+//   shuffles and over the warps in order;
+// - D > 256: z a segment a row as above, then e through shared memory, then
+//   g = X^T e a thread a feature, the rows in four chains (X read twice);
+// - a tile's sums join the batch's with compensation, so a batch of many
+//   tiles (glm_grad over a whole chunk) keeps its digits. The norm's squares
+//   sum per thread, then per warp and over the warps by shuffles in a fixed
+//   tree.
+//
+// The ragged last batch and the last tile are masked inside: rows at or past N
+// are never read. No float atomics and no order that depends on timing, so a
+// second call gives the same bits. The update is a*w - b*g with each product
+// rounded (no contraction into an FMA), as the plain version computes it.
 // Logistic uses 1/(1+expf(-z)), not __expf, and no fast-math flag is set.
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kRows = 32;
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;  // consumers; one more warp produces
 constexpr int kWarps = kThreads / 32;
-constexpr int kReduceThreads = 256;
+constexpr int kStageFloats = 16384;  // X per ring stage: 64 KB
+constexpr int kMaxTileRows = 1024;
+constexpr int kMaxSmemWidth = 8192;  // w and g in shared memory up to this D
+constexpr int kZCache = 8;           // features per lane held in registers
+constexpr int kZRows = 4;            // rows a lane segment takes at once
+constexpr int kFastWidth = 32 * kZCache;  // X read once up to this D
 
 enum Act { kLinear = 0, kLogistic = 1, kSvm = 2 };
 
 __device__ __forceinline__ float glm_error(float z, float y, int act) {
   if (act == kLinear) return z - y;
-  if (act == kLogistic) return 1.0f / (1.0f + expf(-z)) - y;
+  if (act == kLogistic) return __frcp_rn(1.0f + expf(-z)) - y;  // 1/(1+e^-z), rounded once
   return (y * z < 1.0f) ? -y : 0.0f;
 }
 
-__global__ void __launch_bounds__(kThreads) glm_partial_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ w, const float* __restrict__ mask,
-    float* __restrict__ partial, int n, int d, int act) {
-  __shared__ float e_s[kRows];
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, n - row0);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 
-  for (int r = warp; r < rows; r += kWarps) {
-    const float* xr = x + (size_t)(row0 + r) * d;
-    float z = 0.0f;
-    for (int f = lane; f < d; f += 32) z = fmaf(xr[f], w[f], z);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      z += __shfl_xor_sync(0xffffffffu, z, off);
-    if (lane == 0) e_s[r] = glm_error(z, y[row0 + r], act) * mask[row0 + r];
+// Float offsets into dynamic shared memory, all on the 16-byte grid; the four
+// mbarriers (full and empty, a stage each) take the first 32 bytes. Ring stage
+// s holds x at stage + s * stage_floats, y and mask ys and ms floats further.
+struct Layout {
+  int red, norm, e, w, g, c, stage, stage_floats, ys, ms, total;
+};
+
+struct Plan {
+  long long n;
+  int d, coef;
+  int rows;             // rows per tile
+  int tiles_per_batch;  // of a full batch
+  int tiles;            // in the launch
+  int lanes;            // z: lanes per row (a power of two)
+  Layout l;
+};
+
+__host__ inline Plan make_plan(long long n, int d, int coef, bool staged) {
+  Plan p;
+  p.n = n;
+  p.d = d;
+  p.coef = coef;
+  int rows = coef < kMaxTileRows ? coef : kMaxTileRows;
+  if (staged && rows > kStageFloats / d) rows = kStageFloats / d;
+  p.rows = rows;
+  p.tiles_per_batch = (coef + rows - 1) / rows;
+  const long long nb = (n + coef - 1) / coef;
+  const long long last = n - (nb - 1) * coef;
+  p.tiles = (int)((nb - 1) * p.tiles_per_batch + (last + rows - 1) / rows);
+  int lanes = 1;
+  while (lanes < 32 && lanes * kZCache < d) lanes *= 2;
+  p.lanes = lanes;
+  const bool fast = d <= kFastWidth;
+  Layout& l = p.l;
+  int o = 8;
+  l.red = o; o += fast ? kWarps * round4(d) : 0;
+  l.norm = o; o += kWarps;
+  l.e = o; o += fast ? 0 : round4(rows);
+  l.w = l.g = l.c = l.stage = l.stage_floats = l.ys = l.ms = 0;
+  if (staged) {
+    l.w = o; o += round4(d);
+    if (!fast) {
+      l.g = o; o += round4(d);
+      l.c = o; o += round4(d);
+    }
+    l.ys = round4(rows * d) + 4;  // + up to 3 words of alignment each
+    l.ms = l.ys + round4(rows) + 4;
+    l.stage_floats = l.ms + round4(rows) + 4;
+    l.stage = o; o += 2 * l.stage_floats;
   }
-  __syncthreads();
+  l.total = o;
+  return p;
+}
 
-  for (int f = threadIdx.x; f < d; f += kThreads) {
-    const float* xc = x + (size_t)row0 * d + f;
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int r = 0; r < rows; ++r) acc = fmaf(e_s[r], xc[(size_t)r * d], acc);
-    partial[(size_t)blockIdx.x * d + f] = acc;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// An arrival on the barrier once the thread's cp.async copies issued so far
+// have landed (without incrementing the pending count first).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// An arrival that also expects `bytes` more of bulk copies in this phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// The TMA's bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned),
+// reported to the barrier as completed bytes.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
   }
 }
 
-__global__ void __launch_bounds__(kReduceThreads) glm_reduce_kernel(
-    const float* __restrict__ partial, float* __restrict__ out, int n_tiles,
-    int d) {
-  const int f = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (f >= d) return;
-  float acc = 0.0f;
-#pragma unroll 8
-  for (int t = 0; t < n_tiles; ++t) acc += partial[(size_t)t * d + f];
-  out[f] = acc;
+// The consumer warps' barrier (the producer warp never joins it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+// sum += v with Kahan's compensation in comp
+__device__ __forceinline__ void kahan_add(float& sum, float& comp, float v) {
+  const float y = v - comp;
+  const float t = sum + y;
+  comp = (t - sum) - y;
+  sum = t;
+}
+
+// sum over rows r < rows of e[r] * xs[r * d + f], in four interleaved chains
+// added in a fixed tree
+__device__ __forceinline__ float column_sum(const float* xs, const float* e, int d, int f,
+                                            int rows) {
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+  int r = 0;
+  for (; r + 3 < rows; r += 4) {
+    s0 = fmaf(e[r], xs[(size_t)r * d + f], s0);
+    s1 = fmaf(e[r + 1], xs[(size_t)(r + 1) * d + f], s1);
+    s2 = fmaf(e[r + 2], xs[(size_t)(r + 2) * d + f], s2);
+    s3 = fmaf(e[r + 3], xs[(size_t)(r + 3) * d + f], s3);
+  }
+  for (; r < rows; ++r) s0 = fmaf(e[r], xs[(size_t)r * d + f], s0);
+  return (s0 + s1) + (s2 + s3);
+}
+
+struct Tile {
+  long long row0;
+  int rows, batch;
+  bool first, last;  // of its batch
+};
+
+__device__ __forceinline__ Tile tile_of(const Plan& p, int j) {
+  Tile t;
+  t.batch = j / p.tiles_per_batch;
+  const int k = j - t.batch * p.tiles_per_batch;
+  const long long start = (long long)t.batch * p.coef;
+  const long long end = start + p.coef < p.n ? start + p.coef : p.n;
+  t.row0 = start + (long long)k * p.rows;
+  t.rows = (int)(end - t.row0 < p.rows ? end - t.row0 : p.rows);
+  t.first = k == 0;
+  t.last = t.row0 + t.rows == end;
+  return t;
+}
+
+// Words past the last 16-byte boundary at or before `p`: a span lands in
+// shared memory that many words into its area, at its source's alignment.
+__device__ __forceinline__ int misalign(const float* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// A span of `count` words: up to 3 head words to the first 16-byte boundary,
+// `body` 16-byte units, then up to 3 tail words.
+struct Span {
+  float* dst;
+  const float* src;
+  int head, body, count;
+};
+
+__device__ __forceinline__ Span span_of(float* area, const float* src, int count) {
+  Span sp;
+  sp.src = src;
+  sp.dst = area + misalign(src);
+  sp.count = count;
+  sp.head = min(count, (4 - misalign(src)) & 3);
+  sp.body = (count - sp.head) >> 2;
+  return sp;
+}
+
+__device__ __forceinline__ void copy_span(const Span& sp, uint64_t* bar) {
+  if (sp.body) bulk_copy(sp.dst + sp.head, sp.src + sp.head, 16u * sp.body, bar);
+  for (int i = 0; i < sp.head; ++i) cp_async4(sp.dst + i, sp.src + i);
+  for (int i = sp.head + 4 * sp.body; i < sp.count; ++i) cp_async4(sp.dst + i, sp.src + i);
+}
+
+// One thread issues tile t's rows of x, y and mask into ring stage s: the
+// 16-byte bodies by the TMA, the few words around them by cp.async. The
+// stage's full barrier (count 2) completes when both have landed.
+__device__ __forceinline__ void issue_tile(const Plan& p, const Tile& t, int s, float* smem,
+                                           uint64_t* bar, const float* __restrict__ x,
+                                           const float* __restrict__ y,
+                                           const float* __restrict__ mask) {
+  float* base = smem + p.l.stage + s * p.l.stage_floats;
+  const Span sx = span_of(base, x + t.row0 * p.d, t.rows * p.d);
+  const Span sy = span_of(base + p.l.ys, y + t.row0, t.rows);
+  const Span sm = span_of(base + p.l.ms, mask + t.row0, t.rows);
+  mbar_arrive_expect_tx(bar, 16u * (sx.body + sy.body + sm.body));
+  copy_span(sx, bar);
+  copy_span(sy, bar);
+  copy_span(sm, bar);
+  cp_async_arrive(bar);
+}
+
+// kStaged: X through the ring, w (and for D > 256 g and its compensation) in
+// shared memory, D <= kMaxSmemWidth; else X, y and mask read in place, and w,
+// g and g's compensation in `work` (3*D floats). kFast: D <= kFastWidth, X
+// read once into registers. g_out set: the one-batch gradient, written there,
+// and no update.
+template <bool kStaged, bool kFast>
+__global__ void __launch_bounds__(kThreads + 32, 1) glm_sgd_kernel(
+    const Plan p, const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ mask, const float* __restrict__ w_in, float* __restrict__ w_out,
+    float* __restrict__ g_out, float* __restrict__ gnorms, float* __restrict__ work, int act,
+    float a, float b) {
+  extern __shared__ __align__(16) float smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + 2;
+  float* red_s = smem + p.l.red;
+  float* norm_s = smem + p.l.norm;
+  float* e_s = smem + p.l.e;
+  float* w = kStaged ? smem + p.l.w : work;
+  float* g = kStaged ? smem + p.l.g : work + p.d;
+  float* c = kStaged ? smem + p.l.c : work + 2 * p.d;
+  const int d = p.d;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  for (int f = tid; f < d; f += kThreads + 32) w[f] = w_in[f];
+  if (kStaged && tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 2);
+      mbar_init(&empty[s], 1);
+    }
+    // the initialised barriers visible to the TMA (the async proxy)
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();  // the last barrier of all the block's threads
+
+  if (warp == kWarps) {  // the producer
+    if (kStaged && lane == 0) {
+      for (int j = 0; j < p.tiles; ++j) {
+        const int s = j & 1;
+        if (j >= 2) mbar_wait(&empty[s], ((j - 2) >> 1) & 1);
+        issue_tile(p, tile_of(p, j), s, smem, &full[s], x, y, mask);
+      }
+      // its last copies have landed before it leaves
+      mbar_wait(&full[(p.tiles - 1) & 1], ((p.tiles - 1) >> 1) & 1);
+    }
+    return;
+  }
+
+  const int L = p.lanes;
+  const int seg = lane / L;
+  const int sub = lane & (L - 1);
+  const int segs = 32 / L;
+  float acc[kZCache], cmp[kZCache];  // kFast: this lane's features sub + k*L
+#pragma unroll
+  for (int k = 0; k < kZCache; ++k) acc[k] = cmp[k] = 0.0f;
+
+  for (int j = 0; j < p.tiles; ++j) {
+    const Tile t = tile_of(p, j);
+    const float* xs;
+    const float* ys;
+    const float* ms;
+    if (kStaged) {
+      const int s = j & 1;
+      mbar_wait(&full[s], (j >> 1) & 1);
+      const float* base = smem + p.l.stage + s * p.l.stage_floats;
+      xs = base + misalign(x + t.row0 * d);
+      ys = base + p.l.ys + misalign(y + t.row0);
+      ms = base + p.l.ms + misalign(mask + t.row0);
+    } else {
+      xs = x + t.row0 * d;
+      ys = y + t.row0;
+      ms = mask + t.row0;
+    }
+    // each warp a contiguous block of the tile's rows
+    const int per_warp = (t.rows + kWarps - 1) / kWarps;
+    const int rbeg = min(t.rows, warp * per_warp);
+    const int rend = min(t.rows, rbeg + per_warp);
+
+    if (kFast) {
+      float wr[kZCache], ts[kZCache];
+#pragma unroll
+      for (int k = 0; k < kZCache; ++k) {
+        const int f = sub + k * L;
+        wr[k] = f < d ? w[f] : 0.0f;
+        ts[k] = 0.0f;
+      }
+      // a segment takes kZRows consecutive rows: at the same q the segments
+      // are kZRows rows apart (at D = 54 their banks do not collide)
+      const bool shared_err = kZRows * segs <= 32;
+      for (int r0 = rbeg; r0 < rend; r0 += kZRows * segs) {
+        float xv[kZRows][kZCache], z[kZRows], e[kZRows];
+#pragma unroll
+        for (int q = 0; q < kZRows; ++q) {
+          const int r = r0 + seg * kZRows + q;
+          const float* xr = xs + (size_t)r * d;
+          z[q] = 0.0f;
+#pragma unroll
+          for (int k = 0; k < kZCache; ++k) {
+            const int f = sub + k * L;
+            xv[q][k] = r < rend && f < d ? xr[f] : 0.0f;
+            z[q] = fmaf(xv[q][k], wr[k], z[q]);
+          }
+        }
+        for (int off = L >> 1; off > 0; off >>= 1) {
+#pragma unroll
+          for (int q = 0; q < kZRows; ++q) z[q] += __shfl_xor_sync(0xffffffffu, z[q], off);
+        }
+        if (shared_err) {
+          // lane i evaluates err for row r0 + i once, then every segment
+          // fetches its rows' e
+          float zi = 0.0f;
+#pragma unroll
+          for (int q = 0; q < kZRows; ++q) {
+            const float v = __shfl_sync(0xffffffffu, z[q], (lane / kZRows) * L);
+            if (lane % kZRows == q) zi = v;
+          }
+          const int r = r0 + lane;
+          const float ei = r < rend ? glm_error(zi, ys[r], act) * ms[r] : 0.0f;
+#pragma unroll
+          for (int q = 0; q < kZRows; ++q) e[q] = __shfl_sync(0xffffffffu, ei, seg * kZRows + q);
+        } else {
+#pragma unroll
+          for (int q = 0; q < kZRows; ++q) {
+            const int r = r0 + seg * kZRows + q;
+            e[q] = r < rend ? glm_error(z[q], ys[r], act) * ms[r] : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kZRows; ++q) {
+#pragma unroll
+          for (int k = 0; k < kZCache; ++k) ts[k] = fmaf(e[q], xv[q][k], ts[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kZCache; ++k) {
+        if (t.first) {
+          acc[k] = ts[k];
+          cmp[k] = 0.0f;
+        } else {
+          kahan_add(acc[k], cmp[k], ts[k]);
+        }
+      }
+      if (t.last) {  // the warp's segments summed; segment 0 writes the warp's g
+        for (int off = L; off < 32; off <<= 1) {
+#pragma unroll
+          for (int k = 0; k < kZCache; ++k) acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+        }
+        if (seg == 0) {
+#pragma unroll
+          for (int k = 0; k < kZCache; ++k) {
+            const int f = sub + k * L;
+            if (f < d) red_s[warp * d + f] = acc[k];
+          }
+        }
+      }
+    } else {
+      // z a segment a row, e through shared memory, then g a thread a feature
+      for (int r0 = rbeg; r0 < rend; r0 += kZRows * segs) {
+        float z[kZRows];
+#pragma unroll
+        for (int q = 0; q < kZRows; ++q) {
+          const int r = r0 + q * segs + seg;
+          z[q] = 0.0f;
+          if (r < rend) {
+            const float* xr = xs + (size_t)r * d;
+            for (int f = sub; f < d; f += L) z[q] = fmaf(xr[f], w[f], z[q]);
+          }
+        }
+        for (int off = L >> 1; off > 0; off >>= 1) {
+#pragma unroll
+          for (int q = 0; q < kZRows; ++q) z[q] += __shfl_xor_sync(0xffffffffu, z[q], off);
+        }
+        if (sub == 0) {
+#pragma unroll
+          for (int q = 0; q < kZRows; ++q) {
+            const int r = r0 + q * segs + seg;
+            if (r < rend) e_s[r] = glm_error(z[q], ys[r], act) * ms[r];
+          }
+        }
+      }
+      consumers_sync();
+      for (int f = tid; f < d; f += kThreads) {
+        const float tile_sum = column_sum(xs, e_s, d, f, t.rows);
+        if (t.first) {
+          g[f] = tile_sum;
+          c[f] = 0.0f;
+        } else {
+          float sum = g[f], comp = c[f];
+          kahan_add(sum, comp, tile_sum);
+          g[f] = sum;
+          c[f] = comp;
+        }
+      }
+    }
+    consumers_sync();  // the stage is read: hand it back to the producer
+    if (kStaged && tid == 0) mbar_arrive(&empty[j & 1]);
+    if (!t.last) continue;
+
+    // the batch's end: g over the warps in order, the update, the norm
+    float sq = 0.0f;
+    for (int f = tid; f < d; f += kThreads) {
+      float gv;
+      if (kFast) {
+        gv = 0.0f;
+#pragma unroll
+        for (int i = 0; i < kWarps; ++i) gv += red_s[i * d + f];
+      } else {
+        gv = g[f];
+      }
+      if (g_out) {
+        g_out[f] = gv;
+      } else {
+        w[f] = __fsub_rn(__fmul_rn(a, w[f]), __fmul_rn(b, gv));
+      }
+      sq = fmaf(gv, gv, sq);
+    }
+    if (gnorms) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+      if (lane == 0) norm_s[warp] = sq;
+    }
+    consumers_sync();
+    if (gnorms && warp == 0) {  // the warps' sums, in a fixed tree
+      float s = lane < kWarps ? norm_s[lane] : 0.0f;
+#pragma unroll
+      for (int off = kWarps / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0) gnorms[t.batch] = sqrtf(s);
+    }
+  }
+  if (w_out)
+    for (int f = tid; f < d; f += kThreads) w_out[f] = w[f];
+}
+
+int launch(const void* x, const void* y, const void* mask, const void* w_in, void* w_out,
+           void* g_out, void* gnorms, void* work, long long n, int d, int coef, int act,
+           float a, float b, void* stream) {
+  const bool staged = d <= kMaxSmemWidth;
+  const bool fast = d <= kFastWidth;
+  const Plan p = make_plan(n, d, coef, staged);
+  const size_t bytes = (size_t)p.l.total * sizeof(float);
+  auto kern = !staged ? glm_sgd_kernel<false, false>
+              : fast  ? glm_sgd_kernel<true, true>
+                      : glm_sgd_kernel<true, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<1, kThreads + 32, bytes, (cudaStream_t)stream>>>(
+      p, (const float*)x, (const float*)y, (const float*)mask, (const float*)w_in,
+      (float*)w_out, (float*)g_out, (float*)gnorms, (float*)work, act, a, b);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows per pass-1 tile: the wrapper sizes the scratch as (ceil(n / rows), d).
-int glm_grad_tile_rows() { return kRows; }
+// The widest D whose w and g stay in shared memory; wider needs `work`.
+int glm_sgd_max_smem_width() { return kMaxSmemWidth; }
 
-// out (d,) = X^T (err(X w, y) * mask) on `stream`, with n >= 1 and d >= 1.
-// `partial` is scratch of ceil(n / kRows) * d floats. Returns
-// cudaGetLastError() after the launches (0 when both were accepted).
-int glm_grad(const void* x, const void* y, const void* w, const void* mask,
-             void* partial, void* out, int n, int d, int act, void* stream) {
-  const int n_tiles = (n + kRows - 1) / kRows;
-  cudaStream_t s = (cudaStream_t)stream;
-  glm_partial_kernel<<<n_tiles, kThreads, 0, s>>>(
-      (const float*)x, (const float*)y, (const float*)w, (const float*)mask,
-      (float*)partial, n, d, act);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  glm_reduce_kernel<<<(d + kReduceThreads - 1) / kReduceThreads,
-                      kReduceThreads, 0, s>>>((const float*)partial,
-                                              (float*)out, n_tiles, d);
-  return (int)cudaGetLastError();
+// w_out (d,) and gnorms (ceil(n / coef),) on `stream`: SGD over the merge
+// batches of coef rows in order, with n, d, coef >= 1. `work` is scratch of
+// 3*d floats when d > glm_sgd_max_smem_width(), else unused. Returns
+// cudaGetLastError() after the launch (0 when it was accepted).
+int glm_sgd_chunk(const void* x, const void* y, const void* mask, const void* w_in,
+                  void* w_out, void* gnorms, void* work, int n, int d, int coef, int act,
+                  float a, float b, void* stream) {
+  return launch(x, y, mask, w_in, w_out, nullptr, gnorms, work, n, d, coef, act, a, b,
+                stream);
+}
+
+// out (d,) = X^T (err(X w, y) * mask) on `stream`, with n >= 1 and d >= 1:
+// glm_sgd_chunk's one-batch case. `work` as there.
+int glm_grad(const void* x, const void* y, const void* w, const void* mask, void* out,
+             void* work, int n, int d, int act, void* stream) {
+  return launch(x, y, mask, w, nullptr, out, nullptr, work, n, d, n, act, 0.0f, 0.0f,
+                stream);
 }
 
 const char* cuda_error_string(int err) {

@@ -1,6 +1,6 @@
-"""Public fused GLM gradient and GLM scoring: the plain version for CPU
-tensors, the Hopper kernel for CUDA tensors (counterpart of
-``repro.kernels.engine.ops``).
+"""Public fused GLM gradient, SGD over a chunk's merge batches and GLM
+scoring: the plain version for CPU tensors, the Hopper kernel for CUDA
+tensors (counterpart of ``repro.kernels.engine.ops``).
 
 The JAX wrapper's ``use_kernel=`` has no counterpart: the tensors' device
 picks the kernel or the plain version. Its padding of N and D to 128 lanes
@@ -23,6 +23,19 @@ def glm_grad(x, y, w, mask=None, act: str = "linear") -> torch.Tensor:
     if x.device.type == "cpu":
         return ref.glm_grad_ref(x, y, w, mask, act)
     return kernel.glm_grad(x, y, w, mask, act)
+
+
+def glm_sgd_chunk(
+    x, y, mask, w, coef: int, act: str, a: float, b: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The engine's epoch over one chunk: SGD over the merge batches of
+    ``coef`` rows of x (N, D), y (N,), mask (N,), in order, from w (D,),
+    with the update w <- a*w - b*g. Returns (w, each batch's merged-gradient
+    norm), f32 on x's device."""
+    x, y, mask, w = (t.to(torch.float32).contiguous() for t in (x, y, mask, w))
+    if x.device.type == "cpu":
+        return ref.glm_sgd_chunk_ref(x, y, mask, w, coef, act, a, b)
+    return kernel.glm_sgd_chunk(x, y, mask, w, coef, act, a, b)
 
 
 def glm_predict(x, w, mask=None, act: str = "linear") -> torch.Tensor:

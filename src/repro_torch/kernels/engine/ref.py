@@ -1,6 +1,7 @@
-"""Plain PyTorch fused GLM gradient and GLM scoring, held against
-``repro.kernels.engine.ref`` (``ACTS``, ``glm_error``, ``glm_grad_ref``,
-``glm_act``, ``glm_predict_ref``)."""
+"""Plain PyTorch fused GLM gradient, SGD over merge batches and GLM scoring,
+held against ``repro.kernels.engine.ref`` (``ACTS``, ``glm_error``,
+``glm_grad_ref``, ``glm_act``, ``glm_predict_ref``) and, for
+``glm_sgd_chunk_ref``, against ``glm_grad_pallas`` batch by batch."""
 from __future__ import annotations
 
 import torch
@@ -26,6 +27,24 @@ def glm_grad_ref(
     z = x @ w.to(torch.float32)
     e = glm_error(z, y.to(torch.float32), act) * mask.to(torch.float32)
     return e @ x
+
+
+def glm_sgd_chunk_ref(
+    x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
+    coef: int, act: str, a: float, b: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """SGD over the merge batches of ``coef`` rows in order (the last holds
+    the rows left over): per batch g = glm_grad_ref, |g|, then
+    w <- a*w - b*g. Returns (w, the batches' |g|)."""
+    w = w.to(torch.float32)
+    gnorms = []
+    for s in range(0, x.shape[0], coef):
+        g = glm_grad_ref(x[s:s + coef], y[s:s + coef], w, mask[s:s + coef], act)
+        gnorms.append(g.square().sum().sqrt())
+        w = w * a - g * b
+    if not gnorms:
+        return w.clone(), torch.zeros((0,), dtype=torch.float32, device=x.device)
+    return w, torch.stack(gnorms)
 
 
 def glm_act(z: torch.Tensor, act: str) -> torch.Tensor:

@@ -95,6 +95,32 @@ def test_glm_kernel_matches_plain(card, act, n, d):
     assert torch.equal(got, glm_kernel.glm_grad(x, y, w, mask, act))  # deterministic
 
 
+@pytest.mark.parametrize("act", glm_ref.ACTS)
+@pytest.mark.parametrize("d,coef", [(1, 1), (5, 7), (54, 256), (129, 64), (2000, 7),
+                                    (9001, 3)])
+def test_glm_sgd_chunk_matches_plain(card, act, d, coef):
+    n = 4 * coef + coef // 2 + 1  # a ragged last batch
+    rng = np.random.default_rng(d + coef)
+    x = rng.normal(0, 1, (n, d)).astype(np.float32)
+    y = np.sign(rng.normal(0, 1, n)).astype(np.float32)
+    if act == "logistic":
+        y = (y > 0).astype(np.float32)
+    w = rng.normal(0, 0.3, d).astype(np.float32)
+    mask = (rng.uniform(size=n) > 0.2).astype(np.float32)
+    x[mask == 0] = 99.0  # dead rows must not contribute
+    a, b = 1.0 - 1e-3, 0.5 / (coef * d)
+    x, y, mask, w = (torch.from_numpy(v).to(card) for v in (x, y, mask, w))
+    launches = glm_kernel.glm_sgd_chunk.launches
+    got = glm_kernel.glm_sgd_chunk(x, y, mask, w, coef, act, a, b)
+    assert glm_kernel.glm_sgd_chunk.launches == launches + 1
+    want = glm_ref.glm_sgd_chunk_ref(x, y, mask, w, coef, act, a, b)
+    assert got[1].shape == (-(-n // coef),)
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-4)
+    again = glm_kernel.glm_sgd_chunk(x, y, mask, w, coef, act, a, b)
+    assert all(_same_bits(g, h) for g, h in zip(got, again))  # deterministic
+
+
 @pytest.mark.parametrize("algo,labels", [("linear", "real"), ("logistic", "01")])
 def test_train_on_card_matches_cpu(card, tmp_path, algo, labels):
     rng = np.random.default_rng(4)
@@ -105,11 +131,13 @@ def test_train_on_card_matches_cpu(card, tmp_path, algo, labels):
     fn = linear_regression if algo == "linear" else logistic_regression
     g, part = trace(lambda: fn(16, lr=0.1, merge_coef=64, epochs=3))
     glm = glm_kernel.glm_grad.launches
+    walks = glm_kernel.glm_sgd_chunk.launches
     strider = strider_kernel.strider_decode.launches
     a = solver.train(g, part, heap, mode="dana", seed=1)
-    assert glm_kernel.glm_grad.launches - glm == 3 * -(-heap.n_pages * heap.layout
-                                                       .tuples_per_page // 64)
-    assert strider_kernel.strider_decode.launches - strider == 3
+    chunks = -(-heap.n_pages // solver.MAX_RESIDENT_PAGES)
+    assert glm_kernel.glm_sgd_chunk.launches - walks == 3 * chunks  # one per chunk
+    assert glm_kernel.glm_grad.launches == glm
+    assert strider_kernel.strider_decode.launches - strider == 3 * chunks
     b = solver.train(g, part, heap, mode="dana", seed=1, device="cpu")
     assert a.device_syncs == b.device_syncs == 3
     np.testing.assert_allclose(a.models[0], b.models[0], rtol=1e-4, atol=1e-5)
