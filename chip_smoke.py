@@ -13,8 +13,10 @@ Phases, one JSON line each:
            the GLM gradient at rtol=2e-5, atol=2e-4, the SGD walk over a
            chunk's merge batches (w and the norms) at rtol=atol=1e-4 over
            every activation, widths 1-9,001 and batches of 1-256 rows with
-           a ragged tail, GLM scoring at
-           atol=2e-6, svm exactly, and paged attention at rtol=atol=2e-5
+           a ragged tail, GLM scoring at atol=2e-6, svm exactly, over
+           tests/test_torch_predict_plan.py's cases (the scan's chunk, ragged
+           N, odd and wide D, x off the 16-byte grid, no live row, one dead
+           tile; a bool mask bit for bit the f32 one's), and paged attention at rtol=atol=2e-5
            over the CPU tests' cases, with and without their runs, and the
            MLA shapes (the reference's own tolerances), the WKV forward and backward at rtol=atol=2e-4 over
            the CPU tests' cases and the training shape (bf16 outputs within
@@ -37,7 +39,8 @@ Phases, one JSON line each:
            INSERT ... SELECT) with one join each and their launch counts,
            two of them replayed on the CPU, the concurrent executor against
            the serial run byte for byte, and one scan under the sync debug
-           mode
+           mode; B4's share of the scan's busy time and one chunk
+           program's cudaLaunchKernel calls
   serve    mistral-nemo-12b (40 layers, full width, bf16 weights from seed
            0 on the card) serving 48 greedy requests through
            BatchedServer(kv="paged", step_mode="tokens", attn_impl="kernel"):
@@ -65,7 +68,10 @@ Phases, one JSON line each:
   launch-train  launch/train.py's main() at full width for 2 steps
   kernels  each kernel's launches on the main path, error, time, bound,
            plain version's time and library yardstick; the SGD walk per full
-           chunk, per tail chunk, per batch and at D = 2,000; B5 at both captured
+           chunk, per tail chunk, per batch and at D = 2,000; B4 with the
+           scan's bool mask and an f32 one, beside its bound on live rows and
+           on every row, with X warm in L2, and torch.sum over the same
+           rows; B5 at both captured
            calls, with their runs and without, beside its bounds on each
            distinct K/V row, on each run's context and token by token; B6's
            two kernels and B6-bwd's three a call, each one's time,
@@ -117,6 +123,7 @@ TEMPLATE_ONLY = (4, 30)
 # H100 spread 0.094-0.106 (kernel vs gather) and 0.146 (8 vs 64 tokens per
 # call); a bf16 logit in [4, 8) moves in steps of 0.03125
 DEVIATION_LIMIT = 0.25
+B4_KERNEL = "glm_predict_kernel"  # B4 in profiles
 KERNEL_SOURCES = ("strider_decode", "glm_grad", "strider_decode_projected", "glm_predict",
                   "paged_attn", "wkv", "wkv_bwd")
 # the predict phase's statements (table 'remote_sensing', UDF 'rs_lr')
@@ -415,39 +422,38 @@ def phase_parity_projected():
 
 
 def phase_parity_predict():
-    import numpy as np
     import torch
 
     from repro_torch.kernels.engine import kernel, ref
+    from test_torch_predict_plan import CASES, make
 
-    rng = np.random.default_rng(3)
     worst = 0.0
     cases = 0
+    bodies = set()
     for act in ref.ACTS:
-        for n, d in ((70_656, 54), (217, 31), (1, 1)):
-            x = rng.normal(0, 1, (n, d)).astype(np.float32)
-            # |x.w| stays below ~4, where atol=2e-6 is about 8 f32 ulps
-            w = rng.normal(0, 0.1, d).astype(np.float32)
-            mask = (rng.uniform(size=n) > 0.2).astype(np.float32)
-            mask[0] = 1.0
-            dead = np.flatnonzero(mask == 0)
-            x[dead] = 1e6
-            x[dead[::2]] = np.inf  # dead rows must come back 0, never NaN
-            x, w, mask = (torch.from_numpy(a).cuda() for a in (x, w, mask))
+        for name, n, d, kind in CASES:
+            buf, w, mask = (torch.from_numpy(a).cuda() for a in make(n, d, kind))
+            x = buf[1:] if kind == "misaligned" else buf  # 4-byte aligned, not 16
             got = kernel.glm_predict(x, w, mask, act)
             again = kernel.glm_predict(x, w, mask, act)
+            keep = kernel.glm_predict(x, w, mask > 0, act)
             plain = ref.glm_predict_ref(x, w, mask, act)
             torch.testing.assert_close(got, plain, rtol=0, atol=2e-6)
             if act == "svm" and not torch.equal(got, plain):
-                raise AssertionError("glm_predict svm differs from its plain version")
+                raise AssertionError(f"glm_predict svm differs from its plain version ({name})")
             if not torch.equal(got, again):
-                raise AssertionError("glm_predict is not deterministic")
+                raise AssertionError(f"glm_predict is not deterministic ({name})")
+            if not torch.equal(got.view(torch.int32), keep.view(torch.int32)):
+                raise AssertionError(f"glm_predict with a bool mask differs ({name})")
             if not torch.isfinite(got).all() or got[mask == 0].any():
-                raise AssertionError("glm_predict leaked a dead row")
+                raise AssertionError(f"glm_predict leaked a dead row ({name})")
             worst = max(worst, float((got - plain).abs().max()))
+            bodies.add(kernel.glm_predict_plan(n, d).body)
             cases += 1
-    emit({"phase": "parity", "kernel": "glm_predict", "cases": cases, "rtol": 0,
-          "atol": 2e-6, "svm": "exact", "max_abs_err": worst, "deterministic": True})
+    emit({"phase": "parity", "kernel": "glm_predict", "cases": cases,
+          "shapes": [c[0] for c in CASES], "bodies": sorted(bodies), "rtol": 0,
+          "atol": 2e-6, "svm": "exact", "bool_mask": "bit-exact", "max_abs_err": worst,
+          "deterministic": True})
 
 
 def _wrappers():
@@ -790,8 +796,9 @@ def phase_predict(heap, res):
 def _predict_phase(heap, res, db, n_chunks, joins):
     """phase_predict's body, with ``joins`` recording each scan's join."""
     import numpy as np
+    import torch
 
-    from repro_torch.db import Database, scoring
+    from repro_torch.db import Database, query, scoring
     from repro_torch.db.heap import HeapFile
     from repro_torch.db.page import parse_page
 
@@ -890,7 +897,14 @@ def _predict_phase(heap, res, db, n_chunks, joins):
     steady_join_s = joins[-1][1]
     if steady.predictions.tobytes() != rows.predictions.tobytes():
         raise AssertionError("a second scan of the same statement differs")
-    traced_s, busy_s, top = _device_profile(lambda: sess.sql(SQL["rows"]))
+    traced_s, busy_s, top = _device_profile(lambda: sess.sql(SQL["rows"]),
+                                            kernels=(B4_KERNEL,))
+    # the launches of one chunk's program (decode, WHERE, keep mask, scoring)
+    scan = scoring.PredictScan(query.parse(SQL["rows"]), db.catalog, device="cuda")
+    pages = heap.read_pages(np.arange(min(scoring.CHUNK_PAGES, heap.n_pages)))
+    scan.run_chunk(pages)
+    torch.cuda.synchronize()
+    _, _, chunk_top = _device_profile(lambda: scan.run_chunk(pages))
     sess.close()
     emit({"phase": "predict", "workload": WORKLOAD, "chunk_pages": scoring.CHUNK_PAGES,
           "chunks_per_scan": n_chunks, "main_path_s": main_s, "launches": launches,
@@ -912,7 +926,11 @@ def _predict_phase(heap, res, db, n_chunks, joins):
                       "untraced_scan_s": steady.total_s, "untraced_join_s": steady_join_s,
                       "untraced_compute_s": steady.compute_s,
                       "device_idle_share": 1.0 - busy_s / steady.total_s if busy_s else None,
-                      **top, "units": "ms totals over the scan"}})
+                      "b4_share_of_busy": (top["device_ms_of"][B4_KERNEL] / (1e3 * busy_s)
+                                           if busy_s else None),
+                      **top, "units": "ms totals over the scan"},
+          "chunk_program": {"sql": SQL["rows"], "launch_calls": chunk_top["launch_calls"],
+                            "top_device": chunk_top["top_device"]}})
     if in_loop:
         raise AssertionError("the scan's chunk loop synchronises with the host")
     return db, launches
@@ -1034,12 +1052,12 @@ def phase_kernels(heap, engine, res, launches, db, predict_launches):
     del b3_calls, b3_plain
 
     # B4's inputs as the chunk program gives them: the model's columns of
-    # the decoded chunk and statement 2's keep mask, over four chunks
+    # the decoded chunk and statement 2's keep mask (bool), over four chunks
     inputs = []
     for k in range(4):
         _, keep, f2, _ = prog(heap.read_pages(np.arange(k * p, (k + 1) * p) % heap.n_pages))
         x = f2 if prog.model_pos is None else f2.index_select(1, prog.model_pos)
-        inputs.append((x.contiguous(), keep.to(torch.float32)))
+        inputs.append((x.contiguous(), keep))
     w4 = prog.w
     b4_err = max(
         float((glm_kernel.glm_predict(x, w4, m, "logistic")
@@ -1049,27 +1067,42 @@ def phase_kernels(heap, engine, res, launches, db, predict_launches):
     x0, m0 = inputs[0]
     n4, d4 = x0.shape
     live4 = int(m0.sum())
-    b4_bytes = 4 * (live4 * d4 + 2 * n4 + d4)
+    # live rows of X, the mask at its width, the output and w; beside it the
+    # same with an f32 mask (the parent's input) and reading every row of X
+    b4_bytes = 4 * live4 * d4 + m0.element_size() * n4 + 4 * n4 + 4 * d4
+    b4_bytes_f32 = 4 * (live4 * d4 + 2 * n4 + d4)
+    b4_bytes_all = 4 * (n4 * d4 + 2 * n4 + d4)
     b4_flops = 2 * live4 * d4
+    b4_bound, b4_by = _bound_ms(b4_bytes, b4_flops)
     b4_calls = [lambda x=x, m=m: glm_kernel.glm_predict(x, w4, m, "logistic")
                 for x, m in inputs] * 5
+    b4_f32 = [lambda x=x, m=m.float(): glm_kernel.glm_predict(x, w4, m, "logistic")
+              for x, m in inputs] * 5
     b4_plain = [lambda x=x, m=m: glm_ref.glm_predict_ref(x, w4, m, "logistic")
                 for x, m in inputs] * 5
-    b4_lib = [lambda x=x, m=m: torch.where(m > 0, torch.sigmoid(torch.mv(x, w4)), 0.0)
+    b4_lib = [lambda x=x, m=m: torch.where(m, torch.sigmoid(torch.mv(x, w4)), 0.0)
               for x, m in inputs] * 5
+    plan4 = glm_kernel.glm_predict_plan(
+        n4, d4, torch.cuda.get_device_properties(0).multi_processor_count)
     b4 = {
         "name": "glm_predict", "route": "cuda", "source": "src/repro_torch/csrc/glm_predict.cu",
         "replaces": "src/repro/kernels/engine/engine.py:73",
         "launches": predict_launches["glm_predict"], "max_abs_err": b4_err,
-        "shape": f"x ({n4}, {d4}) f32, {live4} live rows, logistic",
+        "shape": f"x ({n4}, {d4}) f32, {live4} live rows, bool keep mask, logistic",
+        "plan": dataclasses.asdict(plan4),
         "ms": device_ms(b4_calls), "host_ms": eager_ms(b4_calls),
         "plain_ms": device_ms(b4_plain),
-        "bound_ms": 1e3 * max(b4_bytes / HBM_BYTES_PER_S, b4_flops / F32_FLOPS),
-        "bound_by": "bytes" if b4_bytes / HBM_BYTES_PER_S >= b4_flops / F32_FLOPS
-        else "operations",
-        "bound_bytes": b4_bytes,
+        "bound_ms": b4_bound, "bound_by": b4_by, "bound_bytes": b4_bytes,
         "library_ms": device_ms(b4_lib),
-        "library": "torch.where(mask > 0, torch.sigmoid(torch.mv(x, w)), 0)",
+        "library": "torch.where(keep, torch.sigmoid(torch.mv(x, w)), 0)",
+        "f32_mask_ms": device_ms(b4_f32),
+        "f32_mask_bound_ms": 1e3 * b4_bytes_f32 / HBM_BYTES_PER_S,
+        "every_row_bytes": b4_bytes_all,
+        "every_row_bound_ms": 1e3 * b4_bytes_all / HBM_BYTES_PER_S,
+        # floors of a streaming pass here: the first chunk again and again (X
+        # stays in the 50 MB L2), and torch.sum reading the same rows of X
+        "same_chunk_ms": device_ms([lambda: glm_kernel.glm_predict(x0, w4, m0, "logistic")] * 20),
+        "sum_every_row_ms": device_ms([lambda x=x: x.sum() for x, _ in inputs] * 5),
     }
     if b4_err > 2e-6:
         raise AssertionError(f"glm_predict differs by {b4_err} at the main path's chunks")

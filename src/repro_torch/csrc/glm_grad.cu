@@ -29,7 +29,8 @@
 //   and mask in flight while 16 consumer warps compute: the TMA copies each
 //   span's 16-byte-aligned body and cp.async the few words around it (rows
 //   start anywhere on the 4-byte grid), each span landing at its source's
-//   alignment; a full and an empty mbarrier a stage hand the stages over;
+//   alignment (tma_ring.cuh); a full and an empty mbarrier a stage hand the
+//   stages over;
 // - D <= 256: each consumer warp takes a contiguous block of the tile's rows,
 //   each row on a segment of L lanes (L the power of two that gives each lane
 //   at most 8 of the row's features). A lane loads its features of 4 rows at
@@ -55,6 +56,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "tma_ring.cuh"
 
 namespace {
 
@@ -131,60 +134,6 @@ __host__ inline Plan make_plan(long long n, int d, int coef, bool staged) {
   return p;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-// An arrival on the barrier once the thread's cp.async copies issued so far
-// have landed (without incrementing the pending count first).
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// An arrival that also expects `bytes` more of bulk copies in this phase.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// The TMA's bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned),
-// reported to the barrier as completed bytes.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
 // The consumer warps' barrier (the producer warp never joins it).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
@@ -231,36 +180,6 @@ __device__ __forceinline__ Tile tile_of(const Plan& p, int j) {
   t.first = k == 0;
   t.last = t.row0 + t.rows == end;
   return t;
-}
-
-// Words past the last 16-byte boundary at or before `p`: a span lands in
-// shared memory that many words into its area, at its source's alignment.
-__device__ __forceinline__ int misalign(const float* p) {
-  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
-}
-
-// A span of `count` words: up to 3 head words to the first 16-byte boundary,
-// `body` 16-byte units, then up to 3 tail words.
-struct Span {
-  float* dst;
-  const float* src;
-  int head, body, count;
-};
-
-__device__ __forceinline__ Span span_of(float* area, const float* src, int count) {
-  Span sp;
-  sp.src = src;
-  sp.dst = area + misalign(src);
-  sp.count = count;
-  sp.head = min(count, (4 - misalign(src)) & 3);
-  sp.body = (count - sp.head) >> 2;
-  return sp;
-}
-
-__device__ __forceinline__ void copy_span(const Span& sp, uint64_t* bar) {
-  if (sp.body) bulk_copy(sp.dst + sp.head, sp.src + sp.head, 16u * sp.body, bar);
-  for (int i = 0; i < sp.head; ++i) cp_async4(sp.dst + i, sp.src + i);
-  for (int i = sp.head + 4 * sp.body; i < sp.count; ++i) cp_async4(sp.dst + i, sp.src + i);
 }
 
 // One thread issues tile t's rows of x, y and mask into ring stage s: the
@@ -312,9 +231,7 @@ __global__ void __launch_bounds__(kThreads + 32, 1) glm_sgd_kernel(
       mbar_init(&full[s], 2);
       mbar_init(&empty[s], 1);
     }
-    // the initialised barriers visible to the TMA (the async proxy)
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();  // the last barrier of all the block's threads
 

@@ -225,9 +225,7 @@ class _ChunkProgram:
                 d = torch.where(keep[:, None], x - recon, 0.0)
                 preds = torch.sqrt(torch.sum(d * d, dim=1))
             else:
-                preds = engine_ops.glm_predict(
-                    x, w, keep.to(torch.float32), act=self.family
-                )
+                preds = engine_ops.glm_predict(x, w, keep, act=self.family)
         if self.aggregates is not None:
             sums = []
             for a in self.aggregates:

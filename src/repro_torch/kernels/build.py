@@ -8,8 +8,8 @@ interface (no PyTorch headers, so a build takes seconds):
 (plus ``-Xptxas -v``, whose register and shared-memory report ``build`` returns).
 
 Libraries go to ``build/repro_torch/`` at the repository root, named by the
-SHA-256 of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once. A build writes a temporary file and renames it,
+SHA-256 of the source, the headers (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged one loads at once. A build writes a temporary file and renames it,
 so processes that build the same source at once never load a half-written
 library. ``--use_fast_math`` is never passed: denormals are kept and division,
 ``expf`` and multiplication round as IEEE f32 does.
@@ -42,8 +42,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where the library built from ``csrc/<name>.cu`` lives: named by the
+    source, the headers of ``csrc/`` it may include, and the flags."""
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -40,10 +40,12 @@ def glm_sgd_chunk(
 
 def glm_predict(x, w, mask=None, act: str = "linear") -> torch.Tensor:
     """Batch GLM scoring: x (N, D), w (D,), mask (N,) -> (N,) predictions
-    act(X·w), 0 on dead rows, f32 on x's device."""
+    act(X·w), 0 on dead rows, f32 on x's device. A bool mask is taken as it
+    is (a row lives where it is True); any other mask as f32 (where > 0)."""
     if mask is None:
         mask = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
-    x, w, mask = (t.to(torch.float32).contiguous() for t in (x, w, mask))
+    x, w = (t.to(torch.float32).contiguous() for t in (x, w))
+    mask = (mask if mask.dtype == torch.bool else mask.to(torch.float32)).contiguous()
     if x.device.type == "cpu":
         return ref.glm_predict_ref(x, w, mask, act)
     return kernel.glm_predict(x, w, mask, act)

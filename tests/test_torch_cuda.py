@@ -31,6 +31,8 @@ from repro_torch.kernels.wkv import ops as wkv_ops
 from repro_torch.kernels.wkv import ref as wkv_ref
 from test_torch_paged_attn_cases import CASES as PA_CASES
 from test_torch_paged_attn_cases import make as pa_case
+from test_torch_predict_plan import CASES as PREDICT_CASES
+from test_torch_predict_plan import make as predict_case
 from test_torch_wkv_cases import CASES as WKV_CASES
 from test_torch_wkv_cases import FULL as WKV_FULL
 from test_torch_wkv_cases import GENERAL as WKV_GENERAL
@@ -190,18 +192,12 @@ def test_projected_kernel_keeps_denormal_tokens(card, tmp_path):
 
 
 @pytest.mark.parametrize("act", glm_ref.ACTS)
-@pytest.mark.parametrize("n,d", [(70_656, 54), (217, 31), (1, 1)])
-def test_predict_kernel_matches_plain(card, act, n, d):
-    rng = np.random.default_rng(n + d + 1)
-    x = rng.normal(0, 1, (n, d)).astype(np.float32)
-    # |x.w| stays below ~4, where atol=2e-6 is about 8 f32 ulps
-    w = rng.normal(0, 0.1, d).astype(np.float32)
-    mask = (rng.uniform(size=n) > 0.2).astype(np.float32)
-    if n > 1:
-        mask[0] = 1.0
-        x[mask == 0] = 1e6
-        x[np.flatnonzero(mask == 0)[::2]] = np.inf  # dead rows must come back 0
-    x, w, mask = (torch.from_numpy(a).to(card) for a in (x, w, mask))
+@pytest.mark.parametrize("name,n,d,kind", PREDICT_CASES, ids=[c[0] for c in PREDICT_CASES])
+def test_predict_kernel_matches_plain(card, act, name, n, d, kind):
+    buf, w, mask = predict_case(n, d, kind)
+    buf, w, mask = (torch.from_numpy(a).to(card) for a in (buf, w, mask))
+    x = buf[1:] if kind == "misaligned" else buf
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (kind == "misaligned")
     launches = glm_kernel.glm_predict.launches
     got = glm_kernel.glm_predict(x, w, mask, act)
     assert glm_kernel.glm_predict.launches == launches + 1
@@ -211,6 +207,8 @@ def test_predict_kernel_matches_plain(card, act, n, d):
     if act == "svm":
         assert torch.equal(got, plain)
     assert torch.equal(got, glm_kernel.glm_predict(x, w, mask, act))  # deterministic
+    # the chunk program's bool keep mask: the same bits as its f32 form
+    assert _same_bits(glm_kernel.glm_predict(x, w, mask > 0, act), got)
 
 
 PREDICT_SQL = ("SELECT c0, c1 FROM dana.predict('udf', 'score_t') "

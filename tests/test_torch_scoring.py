@@ -132,6 +132,25 @@ def test_glm_predict_matches_repro(act, n, d):
                                rtol=0, atol=1e-7)
 
 
+@pytest.mark.parametrize("act", eref.ACTS)
+def test_glm_predict_takes_a_bool_mask(act):
+    """The chunk program hands its keep mask over as bool: the same
+    predictions, bit for bit, as its f32 form, and repro's within atol=2e-6."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(0, 1, (300, 54)).astype(np.float32)
+    w = rng.normal(0, 0.1, 54).astype(np.float32)
+    keep = rng.random(300) > 0.3
+    x[~keep] = np.inf
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    got = eops.glm_predict(xt, wt, torch.from_numpy(keep), act=act).numpy()
+    f32 = eops.glm_predict(xt, wt, torch.from_numpy(keep.astype(np.float32)), act=act).numpy()
+    assert _bits(got).tobytes() == _bits(f32).tobytes()
+    want = np.asarray(jeref.glm_predict_ref(jnp.asarray(x), jnp.asarray(w),
+                                            jnp.asarray(keep.astype(np.float32)), act))
+    assert np.isfinite(got).all() and not got[~keep].any()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
 def test_glm_predict_cuda_path_never_falls_back(monkeypatch):
     x, w, m = torch.ones(4, 3), torch.ones(3), torch.ones(4)
     calls = []
