@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA card: DAnA's TRAIN path and
 its in-database scoring (SQL PREDICT) at full size, LM serving of
 mistral-nemo-12b and LM training of rwkv6-3b at full width and depth,
-through the port's hand-written CUDA kernels.
+through the port's hand-written CUDA kernels, and LM PREDICT of
+mistral-nemo-12b from SQL over a token table.
 
 Phases, one JSON line each:
 
@@ -55,6 +56,20 @@ Phases, one JSON line each:
            step) and at the decode-only step with the most context are
            captured for the kernels line
   launch   launch/serve.py's main() at the same full configuration
+  lm-predict  the same model registered as an LM UDF (register_lm_udf: its
+           24.5 GB weights file written beside the catalog, the disk's free
+           bytes printed first, loaded back onto the card bit for bit), then
+           LM PREDICT through Session.sql over a token table of 40,960
+           prompts of 32-256 tokens (1,322 pages of 32 KB, 3 chunks; token 7
+           first in 32 rows): SELECT * ... WHERE c0 = 7 AND label >= 64, 32
+           new tokens on 16 slots, then the same as INSERT INTO nemo_out
+           under the sync debug mode. B3 once a chunk and no other kernel,
+           one join a scan and no synchronising call in the scan's code, the
+           kept and filtered rows, tokens equal to generate_greedy's except
+           at reported near-ties within DEVIATION_LIMIT, the aggregate and
+           column-list statements rejected, nemo_out read back through B1
+           and B3; the statement's, the scan's and a direct score_tokens'
+           seconds and rates, and B3 on the token chunks for the kernels line
   train    rwkv6-3b (32 layers, full width, f32 masters from seed 0 on the
            card) trained by train_loop.run for 6 steps of 8 x 512 tokens from
            the page data path (B1) with full rematerialisation and AdamW:
@@ -66,7 +81,8 @@ Phases, one JSON line each:
            the kernels against the plain WKV on the card, and prefill (B6)
            against token-by-token decode on 64 tokens
   launch-train  launch/train.py's main() at full width for 2 steps
-  kernels  each kernel's launches on the main path, error, time, bound,
+  kernels  each kernel's launches on the main path (B3's: the GLM scans' and
+           the LM statements'), error, time, bound,
            plain version's time and library yardstick; the SGD walk per full
            chunk, per tail chunk, per batch and at D = 2,000; B4 with the
            scan's bool mask and an f32 one, beside its bound on live rows and
@@ -517,7 +533,8 @@ def _scan_loop_lines():
     from repro_torch.kernels.strider import ops as strider_ops
 
     return _source_spans((
-        scoring.PredictScan.units, scoring._ChunkProgram.__call__,
+        scoring.PredictScan.units, scoring._scan_units, scoring._ChunkDecoder.__call__,
+        scoring._ChunkProgram.__call__, scoring._TokenChunkProgram.__call__,
         engine.PinnedStager.__call__, query.Predicate, query.And, query.Or, query.Not,
         glm_kernel, glm_ops, strider_kernel, strider_ops))
 
@@ -1021,7 +1038,7 @@ def phase_kernels(heap, engine, res, launches, db, predict_launches):
 
     scan = scoring.PredictScan(query.parse(SQL["rows"]), db.catalog, device="cuda")
     plan, prog = scan.plan, scan.run_chunk
-    got = strider_kernel.strider_decode_projected(chunks[0], layout, plan, prog.src)
+    got = strider_kernel.strider_decode_projected(chunks[0], layout, plan, prog.decode.src)
     plain = strider_ref.decode_pages_projected_ref(chunks[0], layout, plan)
     b3_err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
     b3_bits = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -1031,7 +1048,7 @@ def phase_kernels(heap, engine, res, launches, db, predict_launches):
     live = int(got[2].sum())
     c = plan.n_columns
     b3_bytes = live * plan.bytes_per_tuple + 4 * p + 4 * p * t * (c + 2)
-    b3_calls = [lambda ch=ch: strider_kernel.strider_decode_projected(ch, layout, plan, prog.src)
+    b3_calls = [lambda ch=ch: strider_kernel.strider_decode_projected(ch, layout, plan, prog.decode.src)
                 for ch in chunks] * 5
     b3_plain = [lambda ch=ch: strider_ref.decode_pages_projected_ref(ch, layout, plan)
                 for ch in chunks] * 5
@@ -1714,6 +1731,247 @@ def kernel_row_paged_attn(captured, launches):
                     "F.scaled_dot_product_attention(attn_mask=valid rows, enable_gqa)"),
         "decode_only": decode,
     }
+
+
+# the lm-predict phase: mistral-nemo-12b (SERVE_ARCH) registered as an LM UDF
+# and called from SQL over a token table of 40,960 prompts of 32-256 tokens in
+# 32 KB pages (1,322 pages, 3 chunks of at most 512); the first token is 7 in
+# 32 rows and nowhere else
+LM_TABLE = {"prompts": 40_960, "lengths": (32, 256), "marked": 32, "page_bytes": 32 * 1024}
+LM_SQL = "SELECT * FROM dana.predict('nemo', 'prompts') WHERE c0 = 7 AND label >= 64;"
+LM_INSERT = "INSERT INTO nemo_out " + LM_SQL
+LM_SERVE = {"max_new_tokens": 32, "batch_slots": 16}
+LM_REJECTED = ("SELECT SUM(label) FROM dana.predict('nemo', 'prompts');",
+               "SELECT c0 FROM dana.predict('nemo', 'prompts');")
+
+
+def _lm_prompts(vocab: int):
+    """The lm-predict phase's prompts, from seed 1: token ids drawn from
+    8 and up, the first set to 7 in LM_TABLE["marked"] rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    n, (lo, hi) = LM_TABLE["prompts"], LM_TABLE["lengths"]
+    lengths = rng.integers(lo, hi + 1, n)
+    tokens = rng.integers(8, vocab, (n, hi))
+    tokens[rng.choice(n, LM_TABLE["marked"], replace=False), 0] = 7
+    return [tokens[i, :lengths[i]].tolist() for i in range(n)]
+
+
+def _token_rows(feats, labels, mask):
+    """A decoded token table's live rows as token lists (int32 views)."""
+    import torch
+
+    tokens = feats.view(torch.int32).reshape(-1, feats.shape[-1]).cpu()
+    lengths = labels.reshape(-1).cpu().int()
+    live = (mask.reshape(-1) > 0).cpu()
+    return [tokens[i, :lengths[i]].tolist() for i in range(tokens.shape[0]) if live[i]]
+
+
+def phase_lm_predict():
+    """LM PREDICT through Session.sql at mistral-nemo-12b's full width and
+    depth: returns B3's launches on this path and its sub-row for the
+    kernels line (the token table's chunks)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import striders
+    from repro_torch.db import Database, scoring
+    from repro_torch.db.heap import HeapFile, write_token_table
+    from repro_torch.db.query import register_lm_udf
+    from repro_torch.kernels.strider import kernel as strider_kernel
+    from repro_torch.kernels.strider import ops as strider_ops
+    from repro_torch.kernels.strider import ref as strider_ref
+    from repro_torch.models import model_zoo
+    from repro_torch.models.params import leaves
+    from repro_torch.serve.serving import generate_greedy, score_tokens
+
+    root = os.path.join(SCRATCH, "lm_catalog")
+    os.makedirs(root, exist_ok=True)
+    emit({"phase": "lm-predict", "step": "start", "dir": os.path.relpath(root, ROOT),
+          "disk_free_bytes": shutil.disk_usage(root).free})
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, _ = model_zoo.init_params(cfg, seed=0, device="cuda")
+    prompts = _lm_prompts(cfg.vocab_size)
+    page_bytes = LM_TABLE["page_bytes"]
+    heap = write_token_table(os.path.join(root, "prompts.heap"), prompts, page_bytes=page_bytes)
+    n_chunks = -(-heap.n_pages // scoring.CHUNK_PAGES)
+    # the pool holds the whole table, warm: the scan measures decode and filter
+    db = Database(root, page_bytes=page_bytes, pool_bytes=heap.n_pages * page_bytes,
+                  device="cuda")
+    db.pool.warm(heap)
+    db.catalog.register_table("prompts", heap.path, {"kind": "tokens"})
+
+    # the weights file: written, loaded back onto the card, bit for bit
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = register_lm_udf(db.catalog, "nemo", cfg, params)["params"]
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = db.catalog.load_weights(ref, "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    pairs = list(zip(leaves(back), leaves(params)))
+    weight_bytes = sum(b.numel() * b.element_size() for _, b in pairs)
+    if len(pairs) != ref.n_leaves or not all(
+            a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(torch.uint8), b.view(torch.uint8)) for a, b in pairs):
+        raise AssertionError("the weights file does not give the weights back bit for bit")
+    del params, back, pairs
+    torch.cuda.empty_cache()
+    emit({"phase": "lm-predict", "step": "weights", "file_bytes": ref.nbytes,
+          "weight_bytes": weight_bytes, "leaves": ref.n_leaves, "write_s": write_s,
+          "load_s": load_s, "round_trip": "bit-exact"})
+
+    # the main path: the statement, then the same with INSERT INTO, the latter
+    # under the sync debug mode; each scan's join counted, each load timed
+    joins, loads = [], []
+    real_join, real_load = scoring._device_join, db.catalog.load_weights
+
+    def counted_join(outs, aggregate):
+        joins.append(len(outs))
+        return real_join(outs, aggregate)
+
+    def timed_load(*args):
+        t0 = time.perf_counter()
+        out = real_load(*args)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+        return out
+
+    sess = db.connect()
+    scoring._device_join, db.catalog.load_weights = counted_join, timed_load
+    inserted = []
+    try:
+        zero_launches()
+        res = sess.sql(LM_SQL, **LM_SERVE)
+        first = read_launches()
+        where, in_scan = _synchronizing_calls(
+            lambda: inserted.append(sess.sql(LM_INSERT, **LM_SERVE)), _scan_loop_lines())
+        launches = read_launches()
+    finally:
+        scoring._device_join, db.catalog.load_weights = real_join, real_load
+    ins = inserted[0]
+    want = {k: 0 for k in launches}
+    if first != dict(want, strider_decode_projected=n_chunks) or \
+            launches != dict(want, strider_decode_projected=2 * n_chunks):
+        raise AssertionError(f"lm-predict launches {first} then {launches}: expected B3 "
+                             f"once a chunk ({n_chunks}) and nothing else")
+    if joins != [n_chunks, n_chunks] or in_scan:
+        raise AssertionError(f"joins {joins} (one a scan after {n_chunks} chunks), "
+                             f"{in_scan} synchronising calls in the scan's code: {where}")
+    kept = [p for p in prompts if p[0] == 7 and len(p) >= 64]
+    for r in (res, ins):
+        if (r.n_rows, r.rows_scanned, r.rows_filtered, r.device_syncs) != \
+                (len(kept), len(prompts), len(prompts) - len(kept), 1) or not kept:
+            raise AssertionError(f"kept {r.n_rows} of {r.rows_scanned} rows, filtered "
+                                 f"{r.rows_filtered}; expected {len(kept)} of {len(prompts)}")
+        if any(len(g) != LM_SERVE["max_new_tokens"] or not all(0 <= t < cfg.vocab_size
+                                                               for t in g)
+               for g in r.predictions):
+            raise AssertionError("a prediction of the wrong length or outside the vocab")
+    rejected = []
+    for sql in LM_REJECTED:
+        try:
+            sess.sql(sql)
+        except ValueError as e:
+            rejected.append(str(e))
+        else:
+            raise AssertionError(f"not rejected: {sql}")
+
+    # nemo_out read back through B1 and through B3's full plan
+    out = HeapFile(db.catalog.table("nemo_out")["heap"])
+    pages = strider_ops.pages_tensor(out.read_all()).cuda()
+    for decoded in (strider_kernel.strider_decode(pages, out.layout),
+                    strider_kernel.strider_decode_projected(pages, out.layout,
+                                                            striders.full_plan(out.layout))):
+        if _token_rows(*decoded) != ins.predictions:
+            raise AssertionError("nemo_out's pages do not give the INSERT's predictions back")
+
+    # B3 on the token table's chunks, against its plain version; the first two
+    # (512 full pages each) timed in turn
+    plan = striders.full_plan(heap.layout)
+    src = torch.tensor(strider_kernel.plan_sources(plan), dtype=torch.int32).cuda()
+    p = scoring.CHUNK_PAGES
+    chunks = [strider_ops.pages_tensor(heap.read_pages(np.arange(s, min(s + p, heap.n_pages))))
+              .cuda() for s in range(0, heap.n_pages, p)]
+    err = 0.0
+    for ch in chunks:
+        got = strider_kernel.strider_decode_projected(ch, heap.layout, plan, src)
+        plain = strider_ref.decode_pages_projected_ref(ch, heap.layout, plan)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, plain)):
+            raise AssertionError("strider_decode_projected differs on the token table")
+        err = max([err] + [float((a - b).abs().max()) for a, b in zip(got, plain)])
+    t, c = heap.layout.tuples_per_page, plan.n_columns
+    live = int(strider_kernel.strider_decode_projected(chunks[0], heap.layout, plan, src)[2].sum())
+    b3_bytes = live * plan.bytes_per_tuple + 4 * p + 4 * p * t * (c + 2)
+    b3 = {"shape": (f"pages ({p}, {heap.layout.page_words}) int32 -> tokens ({p}, {t}, {c}), "
+                    f"full plan, label True"),
+          "chunks": len(chunks), "max_abs_err": err, "bit_exact": True,
+          "ms": device_ms([lambda ch=ch: strider_kernel.strider_decode_projected(
+              ch, heap.layout, plan, src) for ch in chunks[:2]] * 5),
+          "plain_ms": device_ms([lambda ch=ch: strider_ref.decode_pages_projected_ref(
+              ch, heap.layout, plan) for ch in chunks[:2]] * 5),
+          "bound_ms": 1e3 * b3_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+          "bound_bytes": b3_bytes, "library_ms": None}
+    del chunks, pages
+
+    # beside the statement: a direct score_tokens with the same slots, and the
+    # reference, generate_greedy (one slot a prompt), on the same weights
+    params = db.catalog.load_weights(ref, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct, dm = score_tokens(cfg, params, kept, device="cuda", **LM_SERVE)
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    greedy = generate_greedy(cfg, params, kept, LM_SERVE["max_new_tokens"], device="cuda")
+    stream = [(i, q, 0, 0) for i, q in enumerate(kept)]
+    ties, probe = _near_ties(cfg, params, stream, dict(enumerate(res.predictions)),
+                             dict(enumerate(greedy)), ("gather", LM_SERVE["batch_slots"]),
+                             ("gather", len(kept)), "lm-predict vs generate_greedy")
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    sess.close()
+    db.close()
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+    def stmt(r, load_s):
+        scan_s = r.exposed_io_s + r.compute_s
+        gen = sum(len(g) for g in r.predictions)
+        return {"seconds": r.total_s, "generated_tokens": gen,
+                "tokens_per_s": gen / r.total_s, "scan_s": scan_s,
+                "rows_scanned": r.rows_scanned, "rows_per_s": r.rows_scanned / scan_s,
+                "rows_kept": r.n_rows, "rows_filtered": r.rows_filtered,
+                "exposed_io_s": r.exposed_io_s, "overlapped_io_s": r.overlapped_io_s,
+                "compute_s": r.compute_s, "weights_load_s": load_s,
+                "serve_steps": r.serve_metrics.steps,
+                "serve_tok_per_s": r.serve_metrics.tok_per_s}
+
+    emit({"phase": "lm-predict", "arch": SERVE_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "weights": "bf16 from seed 0, drawn on the card",
+          "table": dict(LM_TABLE, pages=heap.n_pages, chunks=n_chunks,
+                        tuples_per_page=heap.layout.tuples_per_page),
+          "sql": LM_SQL, "server": dict(LM_SERVE, kv="dense", attn_impl="gather",
+                                        step_mode="chunked", prefill_chunk=1),
+          "launches": launches, "joins": joins,
+          "statement": stmt(res, loads[0]), "insert": stmt(ins, loads[1]),
+          "insert_equal_to_statement": ins.predictions == res.predictions,
+          "direct_score_tokens": {"seconds": direct_s, "tokens_per_s":
+                                  sum(len(g) for g in direct) / direct_s,
+                                  "steps": dm.steps,
+                                  "equal_to_statement": direct == res.predictions},
+          "generate_greedy": {"near_ties": len(ties), "divergences": ties, "probe": probe,
+                              "deviation_limit": DEVIATION_LIMIT},
+          "syncs": {"synchronizing_calls": sum(where.values()), "in_scan": in_scan,
+                    "where": where},
+          "rejected": rejected, "nemo_out_read_back": "B1 and B3 equal to the INSERT",
+          "peak_memory_bytes": peak})
+    return launches["strider_decode_projected"], b3
 
 
 # the train phase: rwkv6-3b at full width and depth from f32 masters, on the
@@ -2490,6 +2748,10 @@ def main() -> int:
         phase_launch_serve()
         rows.append(kernel_row_paged_attn(captured, serve_launches))
         del captured
+        lm_launches, lm_b3 = phase_lm_predict()
+        b3_row = next(r for r in rows if r["name"] == "strider_decode_projected")
+        b3_row["launches"] += lm_launches
+        b3_row["lm_scan"] = dict(lm_b3, launches=lm_launches)
         wkv_calls, train_launches = phase_train()
         phase_train_parity()
         phase_launch_train()

@@ -6,12 +6,21 @@ name of a UDF to be invoked from the query'. Artifacts are stored with pickle
 (schedules, hDFGs, design points) next to a JSON index.
 
 Copy of ``repro.db.catalog``, which it is held against; the port imports nothing of ``repro``.
+One difference: a language model's weights stay out of the pickle. ``repro``
+pickles the whole parameter tree into the artifact (24.5 GB at
+mistral-nemo-12b); here ``save_weights`` writes the tree with ``torch.save``
+to ``udf_<name>.weights.pt`` beside the index, the artifact's ``params`` is a
+:class:`WeightsFile` naming that file, and ``load_weights`` maps it back
+(``torch.load(mmap=True)``) onto a device leaf by leaf.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pickle
+
+import torch
 
 
 def validate_udf_artifact(name: str, artifact) -> None:
@@ -38,6 +47,25 @@ def validate_udf_artifact(name: str, artifact) -> None:
             f"register via register_udf_from_trace (DSL) or "
             f"register_lm_udf (language model)"
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightsFile:
+    """An LM artifact's ``params``: the weights file ``save_weights`` wrote,
+    by its name relative to the catalog's root, its size in bytes and the
+    number of tensors (leaves) in the tree."""
+
+    path: str
+    nbytes: int
+    n_leaves: int
+
+
+def _n_leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_n_leaves(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_n_leaves(v) for v in tree)
+    return 1
 
 
 class Catalog:
@@ -105,6 +133,32 @@ class Catalog:
         # the way out, so the executor never sees a malformed one
         validate_udf_artifact(name, artifact)
         return artifact
+
+    # -- LM weights, beside the index -------------------------------------------
+    def save_weights(self, name: str, params) -> WeightsFile:
+        """Write UDF ``name``'s parameter tree (nested dicts and lists of
+        tensors, on any device; dtypes and layouts kept) to
+        ``udf_<name>.weights.pt``, replacing an earlier file whole."""
+        rel = f"udf_{name}.weights.pt"
+        path = os.path.join(self.root, rel)
+        torch.save(params, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        return WeightsFile(rel, os.path.getsize(path), _n_leaves(params))
+
+    def load_weights(self, ref: WeightsFile, device):
+        """The tree ``ref`` names, memory-mapped from its file and moved to
+        ``device`` one leaf at a time."""
+        tree = torch.load(os.path.join(self.root, ref.path), map_location="cpu",
+                          mmap=True, weights_only=True)
+
+        def to(node):
+            if isinstance(node, dict):
+                return {k: to(v) for k, v in node.items()}
+            if isinstance(node, list):
+                return [to(v) for v in node]
+            return node.to(device)
+
+        return to(tree)
 
     def udfs(self) -> list[str]:
         return sorted(self._index["udfs"])

@@ -42,9 +42,16 @@ entry point) or this module's typed ``parse``/``execute`` lower layer.
 Device policy: ``execute`` takes ``device=None``, meaning the card, and
 raises ``RuntimeError`` when there is none; callers ask for the CPU with
 ``device="cpu"``. JAX's ``use_kernel=`` has no counterpart: the tensors'
-device picks each kernel or its plain version. LM UDFs
-(``register_lm_udf`` in ``repro``) wait for the port's serving slice
-(ROADMAP A16): PREDICT on one raises ``NotImplementedError``.
+device picks each kernel or its plain version.
+
+LM PREDICT: ``register_lm_udf`` registers a language model as a scoring UDF,
+its weights in a file beside the catalog's index (``db/catalog.py``), and
+``SELECT * FROM dana.predict('lm', 'prompts') WHERE label >= 8`` decodes a
+token table (``db/heap.py::write_token_table``) through the strider path,
+filters it on the card (``c<i>`` compare as token ids, ``label`` as the
+prompt length), and generates for the kept prompts on a short-lived
+continuous-batching session (``max_new_tokens=``, ``batch_slots=``);
+``INSERT INTO`` stores the generated tokens as a token table.
 
 Column naming: feature columns are positional — ``c0 .. c<D-1>`` — plus the
 ``label`` column; a PREDICT's result schema is its projected columns with a
@@ -273,6 +280,7 @@ class QueryResult:
     result_pages: np.ndarray | None = None
     result_layout: object | None = None  # page.PageLayout
     train: solver.TrainResult | None = None
+    serve_metrics: object | None = None  # serve.metrics.ServeMetrics (LM)
     aggregates: dict | None = None  # label -> value (aggregate queries)
 
 
@@ -585,6 +593,8 @@ def execute(
     seed: int = 0,
     pipelined: bool = True,
     chunk_pages: int | None = None,
+    max_new_tokens: int = 32,
+    batch_slots: int | None = None,
     into: str | None = None,
     or_replace: bool = False,
     device=None,
@@ -599,8 +609,9 @@ def execute(
     straight into batched model evaluation (see ``db/scoring.py``); an
     ``INSERT INTO`` statement (or ``into=``) materializes the result pages
     as a catalog table — rejecting an existing name unless ``OR REPLACE``
-    (or ``or_replace=True``). A shared ``pool`` gives mixed train+score
-    workloads one BufferPool.
+    (or ``or_replace=True``). A PREDICT on an LM UDF generates
+    ``max_new_tokens`` tokens a kept prompt on ``batch_slots`` server slots.
+    A shared ``pool`` gives mixed train+score workloads one BufferPool.
     """
     device = resolve_device(device)
     if isinstance(stmt, str):
@@ -627,6 +638,8 @@ def execute(
         catalog,
         pool=pool,
         chunk_pages=chunk_pages,
+        max_new_tokens=max_new_tokens,
+        batch_slots=batch_slots,
         into=stmt.insert_into if stmt.insert_into is not None else into,
         or_replace=stmt.or_replace or or_replace,
         device=device,
@@ -687,5 +700,21 @@ def set_udf_model(catalog: Catalog, name: str, models) -> dict:
     arrays, so that a PREDICT scores with exactly those numbers."""
     artifact = catalog.udf(name)
     artifact["model"] = [np.array(m, dtype=np.float32) for m in models]
+    catalog.register_udf(name, artifact)
+    return artifact
+
+
+def register_lm_udf(catalog: Catalog, name: str, cfg, params) -> dict:
+    """Register a language model as a scoring UDF: PREDICT on a token table
+    decodes prompts through the strider path and generates via a short-lived
+    BatchedServer session. The parameter tree goes to a weights file beside
+    the catalog's index (``Catalog.save_weights``, replaced on
+    re-registration); the pickled artifact holds only its
+    :class:`~repro_torch.db.catalog.WeightsFile`."""
+    artifact = {
+        "kind": "lm",
+        "cfg": cfg,
+        "params": catalog.save_weights(name, params),
+    }
     catalog.register_udf(name, artifact)
     return artifact

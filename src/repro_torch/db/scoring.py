@@ -34,8 +34,14 @@ Model families:
   LRMF  single 2-D model (n_items, rank); the prediction is the per-row
       reconstruction error ||x - (xM)Mᵀ|| of the rating row, by
       ``torch.matmul`` (``repro`` computes it outside any Pallas kernel too).
-  LM    waits for the port's serving slice (ROADMAP A16): ``execute_predict``
-      raises ``NotImplementedError``.
+  LM    ``SELECT *`` over a token table (``db/heap.py::write_token_table``):
+      the full plan's decode (B3) and the WHERE tree run per chunk on the
+      card, token columns compared as the int32 ids they store (ids below
+      2^23 are f32 denormals, so never as f32 values) and ``label`` as the
+      prompt length; after the scan's one join only the kept prompts reach
+      a short-lived ``BatchedServer`` session (``serve.serving.score_tokens``)
+      with the weights loaded from the catalog's weights file.
+      ``INSERT INTO`` stores the generated tokens as a token table.
 
 Row-returning results flow back as result pages — the projected schema with
 a `prediction` column appended — and ``INSERT INTO t SELECT ...`` (or
@@ -43,9 +49,11 @@ a `prediction` column appended — and ``INSERT INTO t SELECT ...`` (or
 unless ``OR REPLACE`` is given.
 
 :class:`PredictScan` is the prepared form of a GLM/LRMF statement and
-``PredictScan.units`` its double-buffered scan, a generator that yields after
-each chunk dispatch: ``execute_predict`` drains it, and the concurrent
-executor (``db/executor.py``) steps it one chunk per scheduling unit.
+``PredictScan.units`` its double-buffered scan (``_scan_units``, which LM
+PREDICT shares), a generator that yields after each chunk dispatch:
+``execute_predict`` drains it, and the concurrent executor
+(``db/executor.py``) steps it one chunk per scheduling unit. The executor
+refuses LM UDFs, so LM PREDICT runs through ``execute_predict`` only.
 
 Device policy: ``execute_predict`` and ``PredictScan`` take ``device=None``,
 meaning the card, and raise ``RuntimeError`` when there is none. On the card
@@ -66,7 +74,8 @@ import torch
 from repro_torch.core import striders
 from repro_torch.core.engine import PinnedStager, match_glm_template, resolve_device
 from repro_torch.db.bufferpool import BufferPool
-from repro_torch.db.heap import HeapFile, write_table
+from repro_torch.db.catalog import WeightsFile
+from repro_torch.db.heap import HeapFile, write_table, write_token_table
 from repro_torch.db.page import PageLayout, build_pages
 from repro_torch.kernels.engine import ops as engine_ops
 from repro_torch.kernels.strider import kernel as strider_kernel
@@ -163,32 +172,15 @@ def _scoring_model(artifact: dict, udf: str) -> np.ndarray:
     return np.asarray(artifact["model"][0])
 
 
-class _ChunkProgram:
-    """One chunk's decode + WHERE keep-mask + scoring, queued on ``device``.
+class _ChunkDecoder:
+    """A chunk's pages onto ``device`` (through two pinned buffers on the
+    card) and through the projected decode (B3 on the card, its plain
+    version on the CPU): (feats (N, C), labels (N,), live (N,)) over the
+    chunk's N tuples, on ``device``. The plan table moves to the card once,
+    here."""
 
-    Row mode returns (preds, keep, feats, labels) flattened over tuples;
-    aggregate mode returns only (partial_sums, kept_count). Everything stays
-    on the device: no call here reads a value back, so the card runs the
-    chunks from its queue and the scan joins it once. Model weights, column
-    indices and the decode's plan table move to the device once, here."""
-
-    def __init__(self, layout, plan, family, model, where, where_pos, device,
-                 aggregates=None, agg_pos=None):
-        self.layout, self.plan, self.family = layout, plan, family
-        self.where, self.where_pos = where, where_pos
-        self.aggregates, self.agg_pos = aggregates, agg_pos
-        self.device = device
-        pos = [plan.columns.index(c) for c in range(model.shape[0])]
-        # the model reads a prefix of the plan's columns: no gather needed
-        # when that prefix is the whole plan
-        self.model_pos = (
-            None if pos == list(range(plan.n_columns))
-            else torch.tensor(pos, dtype=torch.long).to(device)
-        )
-        self.w = torch.from_numpy(np.array(model, dtype=np.float32)).to(device)
-        self.need_preds = aggregates is None or any(
-            a.arg == "prediction" for a in aggregates
-        )
+    def __init__(self, layout, plan, device):
+        self.layout, self.plan = layout, plan
         if device.type == "cuda":
             self.stage = PinnedStager(device)
             self.src = torch.tensor(
@@ -206,9 +198,39 @@ class _ChunkProgram:
             pages, self.layout, self.plan, self.src
         )
         p, t, c = feats.shape
-        f2 = feats.reshape(p * t, c)
-        lab = labels.reshape(p * t)
-        keep = mask.reshape(p * t) > 0
+        return feats.reshape(p * t, c), labels.reshape(p * t), mask.reshape(p * t) > 0
+
+
+class _ChunkProgram:
+    """One chunk's decode + WHERE keep-mask + scoring, queued on ``device``.
+
+    Row mode returns (preds, keep, feats, labels) flattened over tuples;
+    aggregate mode returns only (partial_sums, kept_count). Everything stays
+    on the device: no call here reads a value back, so the card runs the
+    chunks from its queue and the scan joins it once. Model weights, column
+    indices move to the device once, here."""
+
+    def __init__(self, layout, plan, family, model, where, where_pos, device,
+                 aggregates=None, agg_pos=None):
+        self.decode = _ChunkDecoder(layout, plan, device)
+        self.family = family
+        self.where, self.where_pos = where, where_pos
+        self.aggregates, self.agg_pos = aggregates, agg_pos
+        self.device = device
+        pos = [plan.columns.index(c) for c in range(model.shape[0])]
+        # the model reads a prefix of the plan's columns: no gather needed
+        # when that prefix is the whole plan
+        self.model_pos = (
+            None if pos == list(range(plan.n_columns))
+            else torch.tensor(pos, dtype=torch.long).to(device)
+        )
+        self.w = torch.from_numpy(np.array(model, dtype=np.float32)).to(device)
+        self.need_preds = aggregates is None or any(
+            a.arg == "prediction" for a in aggregates
+        )
+
+    def __call__(self, pages_np: np.ndarray):
+        f2, lab, keep = self.decode(pages_np)
         if self.where is not None:
             def lookup(name):
                 pos = self.where_pos[name]
@@ -241,6 +263,34 @@ class _ChunkProgram:
                 sums.append(torch.sum(torch.where(keep, val, 0.0)))
             return torch.stack(sums), keep.sum()
         return preds, keep, f2, lab
+
+
+class _TokenChunkProgram:
+    """LM PREDICT's chunk: the full plan's decode of a token table and the
+    WHERE keep-mask, queued on ``device`` without a read back. Returns
+    (tokens (N, D) int32, lengths (N,) f32, live (N,), keep (N,)) over the
+    chunk's tuples. The tree compares in f64, where int32 ids and the
+    literal keep their values, as ``repro``'s host-side compare does."""
+
+    def __init__(self, layout, plan, where, device):
+        self.decode = _ChunkDecoder(layout, plan, device)
+        self.where = where
+        self.where_pos = {
+            name: _column_index(name, layout) for name in where.columns()
+        } if where is not None else {}
+
+    def __call__(self, pages_np: np.ndarray):
+        feats, lengths, live = self.decode(pages_np)
+        tokens = feats.view(torch.int32)
+        keep = live
+        if self.where is not None:
+            def lookup(name):
+                pos = self.where_pos[name]
+                col = lengths if pos is None else tokens[:, pos]
+                return col.to(torch.float64)
+
+            keep = keep & self.where.evaluate(lookup)
+        return tokens, lengths, live, keep
 
 
 def _device_join(outs: list, aggregate: bool) -> list[np.ndarray]:
@@ -290,6 +340,57 @@ def combine_aggregates(aggregates, outs) -> tuple[dict, int]:
     return values, count
 
 
+def _scan_pool(layout: PageLayout, chunk: int) -> BufferPool:
+    """A scan's own pool when the caller shares none: one chunk of frames."""
+    return BufferPool(pool_bytes=chunk * layout.page_bytes, page_bytes=layout.page_bytes)
+
+
+def _page_chunks(heap: HeapFile, chunk: int) -> list[np.ndarray]:
+    return [np.arange(s, min(s + chunk, heap.n_pages))
+            for s in range(0, heap.n_pages, chunk)]
+
+
+def _scan_units(heap, pool, chunks, run_chunk):
+    """Double-buffered page scan: fetch chunk k+1 on the pool's background
+    thread while the device runs ``run_chunk`` on chunk k, yielding after
+    each chunk dispatch. Returns (chunk outputs, exposed I/O seconds,
+    overlapped I/O seconds) via ``StopIteration.value``; it reads nothing
+    back from the device."""
+    outs: list = []
+    exposed = overlapped = 0.0
+    if chunks:
+        handle = pool.prefetch_batch(heap, chunks[0])
+        try:
+            for k in range(len(chunks)):
+                t_wait = time.perf_counter()
+                pages_np = handle.result()
+                waited = time.perf_counter() - t_wait
+                exposed += waited
+                overlapped += max(handle.fetch_s - waited, 0.0)
+                if k + 1 < len(chunks):
+                    handle = pool.prefetch_batch(heap, chunks[k + 1])
+                outs.append(run_chunk(pages_np))
+                yield  # chunk dispatched: the scheduling point
+        finally:
+            # leave the pool quiescent on every exit: a chunk that raised or
+            # a generator closed early (deadline cancel) included
+            if not handle.cancel():
+                try:
+                    handle.result()
+                except Exception:
+                    pass
+    return outs, exposed, overlapped
+
+
+def _drain(gen):
+    """Run a unit generator to its end; its return value."""
+    while True:
+        try:
+            next(gen)
+        except StopIteration as stop:
+            return stop.value
+
+
 class PredictScan:
     """A prepared GLM/LRMF PREDICT statement: resolved artifacts, projection
     plan, the chunk program, and the finalizer that turns the joined chunk
@@ -310,17 +411,15 @@ class PredictScan:
         self.or_replace = or_replace
         self.artifact = catalog.udf(stmt.udf)
         if self.artifact.get("kind") == "lm":
-            raise NotImplementedError(
-                f"UDF {stmt.udf!r} is a language model: LM PREDICT waits for the "
-                f"port's serving slice (ROADMAP A16)"
+            raise ValueError(
+                f"UDF {stmt.udf!r} is a language model: LM PREDICT runs a "
+                f"serving session through execute_predict (Session.sql), "
+                f"not a PredictScan"
             )
         self.heap = HeapFile(catalog.table(stmt.table)["heap"])
         layout = self.layout = self.heap.layout
         self.chunk = chunk_pages or CHUNK_PAGES
-        self.pool = pool or BufferPool(
-            pool_bytes=self.chunk * layout.page_bytes,
-            page_bytes=layout.page_bytes,
-        )
+        self.pool = pool or _scan_pool(layout, self.chunk)
 
         family = self.family = _glm_family(self.artifact, stmt.udf)
         model = self.model = _scoring_model(self.artifact, stmt.udf)
@@ -381,43 +480,18 @@ class PredictScan:
             layout, plan, family, model, stmt.where, where_pos, self.device,
             aggregates=stmt.aggregates, agg_pos=agg_pos,
         )
-        self.page_chunks = [
-            np.arange(s, min(s + self.chunk, self.heap.n_pages))
-            for s in range(0, self.heap.n_pages, self.chunk)
-        ]
+        self.page_chunks = _page_chunks(self.heap, self.chunk)
 
     # -- the scan ------------------------------------------------------------
     def units(self, t_start: float | None = None):
-        """Double-buffered page scan: fetch chunk k+1 on the pool's
-        background thread while the device runs chunk k, yielding after each
-        chunk dispatch; ONE host↔device join after the last. Returns the
-        QueryResult via ``StopIteration.value``."""
+        """The scan (``_scan_units``), yielding after each chunk dispatch,
+        then ONE host↔device join after the last. Returns the QueryResult
+        via ``StopIteration.value``."""
         t_start = time.perf_counter() if t_start is None else t_start
-        outs: list = []
-        exposed = overlapped = 0.0
         t0 = time.perf_counter()
-        chunks = self.page_chunks
-        if chunks:
-            handle = self.pool.prefetch_batch(self.heap, chunks[0])
-            try:
-                for k in range(len(chunks)):
-                    t_wait = time.perf_counter()
-                    pages_np = handle.result()
-                    waited = time.perf_counter() - t_wait
-                    exposed += waited
-                    overlapped += max(handle.fetch_s - waited, 0.0)
-                    if k + 1 < len(chunks):
-                        handle = self.pool.prefetch_batch(self.heap, chunks[k + 1])
-                    outs.append(self.run_chunk(pages_np))
-                    yield  # chunk dispatched: the scheduling point
-            finally:
-                # leave the pool quiescent on every exit: a chunk that raised
-                # or a generator closed early (deadline cancel) included
-                if not handle.cancel():
-                    try:
-                        handle.result()
-                    except Exception:
-                        pass
+        outs, exposed, overlapped = yield from _scan_units(
+            self.heap, self.pool, self.page_chunks, self.run_chunk
+        )
         joined = _device_join(outs, self.stmt.aggregates is not None) if outs else None
         compute = time.perf_counter() - t0 - exposed
         return self.finalize(joined, exposed, overlapped, compute, t_start)
@@ -521,6 +595,8 @@ def execute_predict(
     pool: BufferPool | None = None,
     *,
     chunk_pages: int | None = None,
+    max_new_tokens: int = 32,
+    batch_slots: int | None = None,
     into: str | None = None,
     or_replace: bool = False,
     device=None,
@@ -529,17 +605,110 @@ def execute_predict(
     returns a query.QueryResult.
 
     ``into=`` additionally materializes the result pages as a heap table
-    registered in the catalog under that name, so a scoring query's output
-    is itself queryable — an existing name is rejected unless ``or_replace``.
+    registered in the catalog under that name (a token table for LM UDFs),
+    so a scoring query's output is itself queryable — an existing name is
+    rejected unless ``or_replace``. ``max_new_tokens`` and ``batch_slots``
+    go to an LM UDF's serving session.
     """
     t_start = time.perf_counter()
+    artifact = catalog.udf(stmt.udf)
+    if artifact.get("kind") == "lm":
+        if stmt.aggregates is not None:
+            raise ValueError(
+                "aggregates apply to GLM/LRMF scoring queries; LM PREDICT "
+                "returns generated token sequences"
+            )
+        return _predict_lm(
+            stmt, catalog, artifact, pool, t_start, chunk_pages=chunk_pages,
+            max_new_tokens=max_new_tokens, batch_slots=batch_slots, into=into,
+            or_replace=or_replace, device=resolve_device(device),
+        )
     scan = PredictScan(
         stmt, catalog, pool, chunk_pages=chunk_pages, into=into,
         or_replace=or_replace, device=device,
     )
-    gen = scan.units(t_start)
-    while True:
-        try:
-            next(gen)
-        except StopIteration as stop:
-            return stop.value
+    return _drain(scan.units(t_start))
+
+
+def _predict_lm(stmt, catalog, artifact, pool, t_start, *, chunk_pages,
+                max_new_tokens, batch_slots, into, or_replace, device):
+    """LM PREDICT: decode prompts from a token table through B3 with the
+    full plan, filter on the device, generate on a short-lived
+    continuous-batching session.
+
+    Filtered rows never reach the server: the WHERE tree runs in each
+    chunk's program, and the host reads the decoded rows once, at the
+    scan's join. The weights are loaded onto ``device`` only when a prompt
+    is kept, and dropped when the session ends.
+    """
+    from repro_torch.db import query as q
+    from repro_torch.serve.serving import score_tokens
+
+    if stmt.columns is not None:
+        raise ValueError("LM PREDICT supports SELECT * only (token tables)")
+    weights = artifact["params"]
+    if not isinstance(weights, WeightsFile):
+        raise ValueError(
+            f"UDF {stmt.udf!r}: an LM artifact's params must name its weights "
+            f"file (a WeightsFile, got {type(weights).__name__}); register "
+            f"the model with register_lm_udf"
+        )
+    if into is not None and not or_replace and catalog.has_table(into):
+        raise ValueError(
+            f"catalog: table {into!r} already exists; use "
+            f"INSERT OR REPLACE INTO (or or_replace=True) to overwrite"
+        )
+    heap = HeapFile(catalog.table(stmt.table)["heap"])
+    layout = heap.layout
+    chunk = chunk_pages or CHUNK_PAGES
+    plan = striders.full_plan(layout)  # generation reads every token column
+    pushdown = _pushdown_stats(heap, plan)
+    run_chunk = _TokenChunkProgram(layout, plan, stmt.where, device)
+
+    t0 = time.perf_counter()
+    outs, exposed, overlapped = _drain(_scan_units(
+        heap, pool or _scan_pool(layout, chunk), _page_chunks(heap, chunk), run_chunk
+    ))
+    if outs:
+        tokens, lengths, live, keep = _device_join(outs, aggregate=False)
+    else:
+        tokens = np.zeros((0, layout.n_features), np.int32)
+        lengths = np.zeros(0, np.float32)
+        live = keep = np.zeros(0, bool)
+    compute = time.perf_counter() - t0 - exposed
+
+    lengths = lengths.astype(np.int32)
+    prompts = [tokens[i, : lengths[i]].tolist() for i in np.flatnonzero(keep)]
+    params = catalog.load_weights(weights, device) if prompts else None
+    gen, metrics = score_tokens(
+        artifact["cfg"], params, prompts, max_new_tokens=max_new_tokens,
+        batch_slots=batch_slots, device=device,
+    )
+    del params
+
+    if into is not None and gen:
+        # zero-row LM results have no width to materialize: nothing registered
+        path = os.path.join(catalog.root, f"{into}.heap")
+        write_token_table(path, gen, page_bytes=layout.page_bytes)
+        catalog.register_table(
+            into, path, {"n_features": max(len(g) for g in gen), "kind": "tokens"},
+            or_replace=or_replace,
+        )
+
+    return q.QueryResult(
+        verb="PREDICT",
+        udf=stmt.udf,
+        table=stmt.table,
+        schema=("prediction",),
+        n_rows=len(gen),
+        predictions=gen,
+        rows_scanned=heap.n_tuples,
+        rows_filtered=int(live.sum()) - len(gen),
+        total_s=time.perf_counter() - t_start,
+        exposed_io_s=exposed,
+        overlapped_io_s=overlapped,
+        compute_s=compute,
+        device_syncs=1,
+        pushdown=pushdown,
+        serve_metrics=metrics,
+    )

@@ -340,6 +340,40 @@ def test_server_kernel_path_matches_gather_on_card(card):
     assert pa_kernel.paged_attention.launches > launches
 
 
+def test_lm_predict_on_card_matches_generate_greedy(card, tmp_path):
+    """LM PREDICT over a token table on the card, one chunk a page: B3 runs
+    once a chunk, and the kept prompts' tokens equal generate_greedy's on
+    the same card (the default slot count equals the kept prompts' count
+    here, so both run the same batch shapes)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.db.query import register_lm_udf
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.serving import generate_greedy
+
+    cfg = get_reduced_config("mistral-nemo-12b")
+    params, _ = model_zoo.init_params(cfg, seed=3, device=card)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(8, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(3, 12, 24)]
+    for i in range(0, 24, 4):
+        prompts[i][0] = 7
+    path = str(tmp_path / "p.heap")
+    heap = write_token_table(path, prompts, page_bytes=512)
+    cat = Catalog(str(tmp_path / "cat"))
+    cat.register_table("p", path, {"kind": "tokens"})
+    register_lm_udf(cat, "lm", cfg, params)
+    launches = strider_kernel.strider_decode_projected.launches
+    res = execute("SELECT * FROM dana.predict('lm', 'p') "
+                  "WHERE c0 = 7 AND label >= 8 OR label >= 11;",
+                  cat, chunk_pages=1, max_new_tokens=5, device=card)
+    assert heap.n_pages > 1
+    assert strider_kernel.strider_decode_projected.launches == launches + heap.n_pages
+    kept = [p for p in prompts if p[0] == 7 and len(p) >= 8 or len(p) >= 11]
+    assert 0 < len(kept) <= 8 and res.n_rows == len(kept)
+    assert res.rows_filtered == len(prompts) - len(kept)
+    assert res.predictions == generate_greedy(cfg, params, kept, 5, device=card)
+
+
 # ------------------------------- WKV6 (B6, B6-bwd) ----------------------------
 WKV_TOL = dict(rtol=2e-4, atol=2e-4)
 # bf16 outputs: the kernel's and the plain version's f32 results round to bf16

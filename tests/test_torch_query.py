@@ -139,7 +139,7 @@ def test_node_and_aggregate_rejections_match():
 def test_result_and_statement_fields_match():
     fields = [f.name for f in dataclasses.fields(query.QueryResult)]
     jfields = [f.name for f in dataclasses.fields(jquery.QueryResult)]
-    assert fields == [f for f in jfields if f != "serve_metrics"]  # no LM path yet
+    assert fields == jfields
     assert ([f.name for f in dataclasses.fields(query.Statement)]
             == [f.name for f in dataclasses.fields(jquery.Statement)])
 

@@ -349,7 +349,7 @@ def test_sql_train_equals_solver_train(logistic_catalogs, tmp_path):
 def test_predict_rejections(logistic_catalogs, monkeypatch):
     _, cat, _, _ = logistic_catalogs
     cat.register_udf("lm", {"kind": "lm", "cfg": None, "params": None})
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(ValueError, match="register_lm_udf"):
         execute("SELECT * FROM dana.predict('lm', 'score_t');", cat, device=CPU)
     register_udf_from_trace(cat, "bare", lambda: algorithms.linear_regression(D))
     set_udf_model(cat, "bare", [np.zeros(D, np.float32)])

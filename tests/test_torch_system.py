@@ -191,7 +191,7 @@ def test_train_units_yields_once_per_chunk(linreg_heap, monkeypatch):
 
 
 # ------------------------- device policy and isolation -----------------------
-def test_entry_points_raise_without_a_card(linreg_heap, monkeypatch):
+def test_entry_points_raise_without_a_card(linreg_heap, monkeypatch, tmp_path):
     heap, _, _ = linreg_heap
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g, part = trace(lambda: linear_regression(16, epochs=1))
@@ -209,9 +209,19 @@ def test_entry_points_raise_without_a_card(linreg_heap, monkeypatch):
 
     cfg = get_reduced_config("mistral-nemo-12b")
     params, _ = model_zoo.init_params(cfg, device=CPU)
+    # LM PREDICT through SQL
+    from repro_torch.db.catalog import Catalog
+    from repro_torch.db.heap import write_token_table
+    from repro_torch.db.query import execute, register_lm_udf
+
+    cat = Catalog(str(tmp_path))
+    write_token_table(str(tmp_path / "t.heap"), [[5, 6, 7]], page_bytes=1024)
+    cat.register_table("t", str(tmp_path / "t.heap"), {"kind": "tokens"})
+    register_lm_udf(cat, "lm", cfg, params)
     for call in (lambda: model_zoo.init_params(cfg),
                  lambda: BatchedServer(cfg, params, batch_slots=1, max_seq=8),
-                 lambda: serve_cli.main(["--arch", "mistral-nemo-12b", "--reduced"])):
+                 lambda: serve_cli.main(["--arch", "mistral-nemo-12b", "--reduced"]),
+                 lambda: execute("SELECT * FROM dana.predict('lm', 't');", cat)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # the training slice's entry points
