@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card: DAnA's TRAIN path and
 its in-database scoring (SQL PREDICT) at full size, LM serving of
-mistral-nemo-12b and LM training of rwkv6-3b at full width and depth,
-through the port's hand-written CUDA kernels, and LM PREDICT of
-mistral-nemo-12b from SQL over a token table.
+mistral-nemo-12b (GQA) and minicpm3-4b (MLA) and LM training of rwkv6-3b and
+minicpm3-4b at full width and depth, through the port's hand-written CUDA
+kernels, and LM PREDICT of mistral-nemo-12b from SQL over a token table.
 
 Phases, one JSON line each:
 
@@ -56,6 +56,16 @@ Phases, one JSON line each:
            step) and at the decode-only step with the most context are
            captured for the kernels line
   launch   launch/serve.py's main() at the same full configuration
+  serve-mla  minicpm3-4b (62 layers, full width, bf16 weights from seed 0)
+           serving the same 48 requests the same way: the absorbed-latent
+           decode is one B5 call a layer at KVH 1, G 40, Dk 288, Dv 256 (the
+           tiled body), K = [c ; kr] concatenated over the pool at each call;
+           every request FINISHED, B5 62 times a fused step, the gather path
+           token for token except at reported near-ties within
+           DEVIATION_LIMIT, one host read per fused step, 5 profiled steps
+           (B5's share and the concatenations' device time); B5's calls at
+           step 100 and at the decode-only step with the most context
+           captured for the kernels line
   lm-predict  the same model registered as an LM UDF (register_lm_udf: its
            24.5 GB weights file written beside the catalog, the disk's free
            bytes printed first, loaded back onto the card bit for bit), then
@@ -75,11 +85,20 @@ Phases, one JSON line each:
            the page data path (B1) with full rematerialisation and AdamW:
            every loss finite, B1 / B6 / B6-bwd launched 1 / 64 / 32 times a
            step, one host read a step (three at the logging step) under the
-           sync debug mode, step time, tokens/s, peak memory, and one
-           profiled step (busy time and the WKV kernels' shares)
+           sync debug mode, step time, tokens/s, peak memory, one
+           profiled step (busy time and the WKV kernels' shares), and
+           AdamW's update alone in pieces and in one pass
   train-parity  a 2-layer full-width rwkv6-3b's loss and gradients through
            the kernels against the plain WKV on the card, and prefill (B6)
            against token-by-token decode on 64 tokens
+  train-mla  minicpm3-4b (62 layers, full width, f32 masters from seed 0)
+           trained for 4 steps of 4 x 512 tokens from the page data path (B1
+           once a step, no other kernel: the attention training forward is
+           plain PyTorch), full rematerialisation, AdamW, checked as the
+           train phase is (published width, losses, launches, one host
+           read a step) and measured the same way; then a
+           2-layer full-width model's prefill against 32 decode steps
+           (argmax equal, logits within 3e-2)
   launch-train  launch/train.py's main() at full width for 2 steps
   kernels  each kernel's launches on the main path (B3's: the GLM scans' and
            the LM statements'), error, time, bound,
@@ -89,7 +108,10 @@ Phases, one JSON line each:
            on every row, with X warm in L2, and torch.sum over the same
            rows; B5 at both captured
            calls, with their runs and without, beside its bounds on each
-           distinct K/V row, on each run's context and token by token; B6's
+           distinct K/V row, on each run's context and token by token, and
+           under "mla" serve-mla's two calls (the tiled body, which ignores
+           runs), with the bound on the latent's own bytes and the gather
+           path's composite as the library yardstick; B6's
            two kernels and B6-bwd's three a call, each one's time,
            registers and CTAs per SM, beside the bytes its design moves
 
@@ -115,6 +137,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
+BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense (NVIDIA data sheet)
 WORKLOAD = "remote_sensing_lr"
 SCALE = 1.0  # the paper's full table
 EPOCHS = 3
@@ -133,6 +156,20 @@ SERVE_MAX_NEW = 64
 SERVE_MAX_SEQ = 1088
 TEMPLATE_LEN = 256
 TEMPLATE_ONLY = (4, 30)
+# the serve-mla and train-mla phases: minicpm3-4b at full width and depth,
+# (layers, d_model, heads, q_lora, kv_lora, rope, nope, v, d_ff, vocab) of
+# configs/minicpm3_4b.py; its absorbed decode is one B5 call a layer at
+# KVH 1, G 40, Dk 288, Dv 256 (the tiled body)
+SERVE_MLA_ARCH = "minicpm3-4b"
+MLA_FIELDS = ("n_layers", "d_model", "n_heads", "q_lora_rank", "kv_lora_rank",
+              "qk_rope_head_dim", "qk_nope_head_dim", "v_head_dim", "d_ff", "vocab_size")
+MLA_WIDTH = (62, 2560, 40, 768, 256, 32, 64, 64, 6400, 73448)
+# train-mla: batch 4 (the rwkv6-3b phase's 8 halved: 4.07 B parameters take
+# 65.2 GB of master, gradient and moments), 4 steps
+MLA_TRAIN_BATCH, MLA_TRAIN_STEPS = 4, 4
+# torch.cat's kernels in a profile: on the MLA kernel path, each layer's
+# [c ; kr] pool and [q_lat ; qr] queries
+CAT_KERNELS = "CatArrayBatchedCopy"
 # the most that two sound computations' greedy logits may deviate (largest
 # spread over the vocab of their difference, teacher-forced) before a
 # divergence between them stops counting as a near-tie. Sound runs on an
@@ -1316,7 +1353,7 @@ class _Arrivals:
 
 
 def _count_forwards(server):
-    """Count the server's fused decodes (each runs the 40 layers' attention)."""
+    """Count the server's fused decodes (each runs every layer's attention)."""
     calls = [0]
     real = server._forward
 
@@ -1443,6 +1480,35 @@ def _near_ties(cfg, params, stream, got, want, side, ref_side, what):
 
 
 def phase_serve():
+    """mistral-nemo-12b (GQA) served at full width and depth: the kernel
+    path, the gather path, chunked stepping and the deviation limit's
+    check."""
+    return _serve_phase(SERVE_ARCH, "serve", compare_chunked=True)
+
+
+def phase_serve_mla():
+    """minicpm3-4b (MLA) served at full width and depth: the absorbed-latent
+    decode through B5's tiled body (Dk 288, Dv 256) and the gather path."""
+    import gc
+
+    import torch
+
+    _published(SERVE_MLA_ARCH, MLA_FIELDS, MLA_WIDTH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _serve_phase(SERVE_MLA_ARCH, "serve-mla", compare_chunked=False)
+
+
+def _serve_phase(arch, phase, compare_chunked):
+    """``arch`` at full width and depth, bf16 weights from seed 0, serving
+    the 48-request stream on the kernel path (every request FINISHED, B5
+    once a layer a fused step, sharing ran; B5's first call at step 100 and
+    its decode-only call with the most context captured), then the same
+    stream on the gather path token for token up to near-ties, one host read
+    per fused step over 24 steps, and 5 profiled steps. With
+    ``compare_chunked``, also 8 requests through chunked stepping and the
+    deviation limit against two broken kernels. Returns (the captured
+    calls, the main path's launches)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1453,7 +1519,7 @@ def phase_serve():
     from repro_torch.serve import scheduler as sched
     from repro_torch.serve.serving import BatchedServer
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, _ = model_zoo.init_params(cfg, seed=0, device="cuda")
@@ -1541,19 +1607,21 @@ def phase_serve():
         cfg, params, stream, outs, {r: q.out for r, q in gdone.items()},
         ("kernel", 64), ("gather", 64), "kernel vs gather")
 
-    # 8 requests (the 4 shortest with the template, the 4 shortest without)
-    # through chunked stepping: token for token except at near-ties, where
-    # the deviation is that of 8 tokens per call (the chunked step's 8 rows)
-    # against 64 (a token step's batch)
-    by_len = sorted(stream, key=lambda r: len(r[1]))
-    subset = [r for r in by_len if r[0] % 2 == 0][:4] + [r for r in by_len if r[0] % 2][:4]
-    chunked = server(step_mode="chunked", batch_slots=8)
-    cdone = _Arrivals(chunked, [(rid, p, prio, 0) for rid, p, prio, _ in subset]).run()
-    del chunked
-    chunked_ties, chunked_probe = _near_ties(
-        cfg, params, stream, {r: q.out for r, q in cdone.items()}, {r: outs[r] for r in cdone},
-        ("kernel", 8), ("kernel", 64), "chunked vs tokens")
-    limit_check = _limit_check(cfg, params, stream[1][1][:512])
+    chunked_ties = chunked_probe = limit_check = cdone = None
+    if compare_chunked:
+        # 8 requests (the 4 shortest with the template, the 4 shortest
+        # without) through chunked stepping: token for token except at
+        # near-ties, where the deviation is that of 8 tokens per call (the
+        # chunked step's 8 rows) against 64 (a token step's batch)
+        by_len = sorted(stream, key=lambda r: len(r[1]))
+        subset = [r for r in by_len if r[0] % 2 == 0][:4] + [r for r in by_len if r[0] % 2][:4]
+        chunked = server(step_mode="chunked", batch_slots=8)
+        cdone = _Arrivals(chunked, [(rid, p, prio, 0) for rid, p, prio, _ in subset]).run()
+        del chunked
+        chunked_ties, chunked_probe = _near_ties(
+            cfg, params, stream, {r: q.out for r, q in cdone.items()},
+            {r: outs[r] for r in cdone}, ("kernel", 8), ("kernel", 64), "chunked vs tokens")
+        limit_check = _limit_check(cfg, params, stream[1][1][:512])
 
     # one host read per fused step, under the sync debug mode, over the first
     # 24 steps of the stream (admission, shared prefixes, prefill and decode)
@@ -1572,10 +1640,10 @@ def phase_serve():
     torch.cuda.synchronize()
     untraced_s = time.perf_counter() - t0
     traced_s, busy_s, top = _device_profile(lambda: synced.run(max_steps=5),
-                                            kernels=("paged_attn",))
+                                            kernels=("paged_attn", CAT_KERNELS))
     del synced
 
-    emit({"phase": "serve", "arch": SERVE_ARCH, "layers": cfg.n_layers,
+    emit({"phase": phase, "arch": arch, "layers": cfg.n_layers,
           "d_model": cfg.d_model, "weights": "bf16 from seed 0, drawn on the card",
           "weight_bytes": weight_bytes, "init_s": init_s, "server": SERVE,
           "max_seq": SERVE_MAX_SEQ, "requests": SERVE_REQUESTS, "max_new_tokens": SERVE_MAX_NEW,
@@ -1593,8 +1661,9 @@ def phase_serve():
           "deviation_limit": DEVIATION_LIMIT, "limit_check": limit_check,
           "gather": {"wall_s": gather_s, "steps": g_steps, "near_ties": len(gather_ties),
                      "divergences": gather_ties, "probe": gather_probe},
-          "chunked_subset": {"rids": sorted(cdone), "near_ties": len(chunked_ties),
-                             "divergences": chunked_ties, "probe": chunked_probe},
+          "chunked_subset": None if cdone is None else {
+              "rids": sorted(cdone), "near_ties": len(chunked_ties),
+              "divergences": chunked_ties, "probe": chunked_probe},
           "syncs": {"steps": 24, "synchronizing_calls": reads, "where": where},
           "captures": {"mixed_step": captured["step"], "decode_only_step": decode["step"],
                        "decode_only_context": decode["ctx"]},
@@ -1603,6 +1672,8 @@ def phase_serve():
                       "device_idle_share": 1.0 - busy_s / untraced_s if busy_s else None,
                       "paged_attn_share_of_busy": (top["device_ms_of"]["paged_attn"] / 1e3
                                                    / busy_s if busy_s else None),
+                      "concat_ms": top["device_ms_of"][CAT_KERNELS],
+                      "concat_launches": top["launches_of"][CAT_KERNELS],
                       **top, "units": "ms totals over the 5 steps"}})
     return captured, launches
 
@@ -1634,11 +1705,15 @@ def phase_launch_serve():
           "lines": lines[:8], "launches": launches})
 
 
-def _paged_attn_call(cap):
+def _paged_attn_call(cap, latent=False):
     """Kernel, plain and library times of one captured B5 call, with the
     call's runs and without (every row its own run), and its bounds: each
     distinct K/V row once (the bound), each run's context once (what the
-    kernel reads with runs) and each token's rows (without)."""
+    kernel reads with runs) and each token's rows (without). ``latent``: an
+    absorbed-MLA call (one kv head, K = [c ; kr], V = c), which takes the
+    tiled body: that body ignores runs, so one time; its library yardstick
+    is the gather path's composite, and beside the bound on the bytes handed
+    to the kernel stands the latent's own (V is K's first Dv columns)."""
     import torch
     import torch.nn.functional as F
 
@@ -1651,7 +1726,7 @@ def _paged_attn_call(cap):
     pools += [(k.clone(), v.clone()) for k, v in pools * 3]
     plain = ref.paged_attn_ref(q, *pools[0], table, pos, **kw)
     err, kernels = 0.0, {}
-    for name, hint in (("runs", runs), ("no_runs", None)):
+    for name, hint in (("runs", runs),) + ((("no_runs", None),) if not latent else ()):
         got = kernel.paged_attention(q, *pools[0], table, pos, runs=hint, **kw)
         kernels[name] = kernel.paged_attention.kernels
         e = float((got - plain).abs().max())
@@ -1672,9 +1747,12 @@ def _paged_attn_call(cap):
     unique = {(tab[i][n // bs], n % bs) for i in range(t) for n in range(lst[i] + 1)}
     grouped = sum(max(lst[f:f + n]) + 1 for f, n in runs.tolist())
     unique_bytes = len(unique) * per_row + io_bytes
-    flops = 2 * rows * kvh * g * (dk + dv)
+    # q·K has bf16 operands (products exact in f32): the bf16 tensor rate;
+    # P·V takes the f32 probabilities: the f32 rate. The two times add
+    qk_flops, pv_flops = 2 * rows * kvh * g * dk, 2 * rows * kvh * g * dv
+    flops = qk_flops + pv_flops
     bound_bytes_ms = 1e3 * unique_bytes / HBM_BYTES_PER_S
-    bound_ops_ms = 1e3 * flops / F32_FLOPS
+    bound_ops_ms = 1e3 * (qk_flops / BF16_FLOPS + pv_flops / F32_FLOPS)
 
     def timed(fn):
         return device_ms([lambda k=k, v=v: fn(k, v) for k, v in pools] * 5)
@@ -1688,19 +1766,32 @@ def _paged_attn_call(cap):
             q.reshape(t, kvh * g, 1, dk), gk, gv, attn_mask=mask[:, None, None, :],
             scale=kw["scale"], enable_gqa=g > 1)
 
+    def latent_library(k, v):
+        # the gather path's absorbed attention: c and kr gathered through
+        # the table, the two score products in bf16, softmax, P·c in f32
+        tl = table.long()
+        gc = v[:, :, 0][tl].reshape(t, -1, dv)
+        gkr = k[:, :, 0, dv:][tl].reshape(t, -1, dk - dv)
+        qh = q[:, 0]
+        scores = (torch.einsum("thr,tsr->ths", qh[..., :dv], gc)
+                  + torch.einsum("thk,tsk->ths", qh[..., dv:], gkr))
+        scores = scores.float() * kw["scale"] + torch.where(mask, 0.0, -1e9)[:, None]
+        return torch.einsum("ths,tsr->thr", torch.softmax(scores, -1), gc.float())
+
+    if latent:
+        library = latent_library
     torch.testing.assert_close(library(*pools[0]).float().reshape(plain.shape), plain,
                                rtol=2e-2, atol=2e-2)
     def with_runs(k, v):
         return kernel.paged_attention(q, k, v, table, pos, runs=runs, **kw)
 
-    return {
+    out = {
         "shape": (f"q ({t}, {kvh}, {g}, {dk}) bf16, pools {tuple(pools[0][0].shape)} bf16, "
                   f"table {tuple(table.shape)}, positions {int(pos.min())}-{int(pos.max())}, "
                   f"{runs.shape[0]} runs of {min(runs[:, 1].tolist())}-"
                   f"{max(runs[:, 1].tolist())} rows, captured at step {cap['step']}"),
         "max_abs_err": err,
         "ms": timed(with_runs),
-        "no_runs_ms": timed(lambda k, v: kernel.paged_attention(q, k, v, table, pos, **kw)),
         "host_ms": eager_ms([lambda k=k, v=v: with_runs(k, v) for k, v in pools] * 5),
         "plain_ms": timed(lambda k, v: ref.paged_attn_ref(q, k, v, table, pos, **kw)),
         "library_ms": timed(library),
@@ -1708,6 +1799,8 @@ def _paged_attn_call(cap):
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "bound_bytes": unique_bytes, "unique_rows": len(unique), "flops": flops,
+        "qk_flops": qk_flops, "pv_flops": pv_flops, "ops_bound_ms": bound_ops_ms,
+        "f32_ops_bound_ms": 1e3 * flops / F32_FLOPS,
         "bytes_read_grouped": grouped * per_row + io_bytes, "grouped_rows": grouped,
         "grouped_bound_ms": max(1e3 * (grouped * per_row + io_bytes) / HBM_BYTES_PER_S,
                                 bound_ops_ms),
@@ -1715,21 +1808,43 @@ def _paged_attn_call(cap):
         "per_token_bound_ms": max(1e3 * (rows * per_row + io_bytes) / HBM_BYTES_PER_S,
                                   bound_ops_ms),
     }
+    if latent:
+        latent_bytes = len(unique) * kvh * dk * pools[0][0].element_size() + io_bytes
+        # the layer's K pool, [c ; kr] over the whole pool, as the kernel
+        # path builds it before each call
+        lat = [(v[:, :, 0].clone(), k[:, :, 0, dv:].clone()) for k, v in pools]
+        out.update(latent_bound_bytes=latent_bytes,
+                   latent_bound_ms=max(1e3 * latent_bytes / HBM_BYTES_PER_S, bound_ops_ms),
+                   k_pool_concat_ms=device_ms([lambda c=c, r=r: torch.cat([c, r], dim=-1)
+                                               for c, r in lat] * 5),
+                   k_pool_concat_bytes=sum(x.numel() * x.element_size() for x in lat[0]) * 2)
+    else:
+        out["no_runs_ms"] = timed(lambda k, v: kernel.paged_attention(q, k, v, table, pos,
+                                                                        **kw))
+    return out
 
 
-def kernel_row_paged_attn(captured, launches):
+def kernel_row_paged_attn(captured, launches, mla_captured, mla_launches):
     """B5's row of the kernels line: the serve phase's step-100 call (prefill
     runs beside decode rows), and beside it its decode-only call with the
-    most context (every row a run of one)."""
+    most context (every row a run of one); under ``mla`` the same two calls
+    of the serve-mla phase (the tiled body). ``launches`` counts both
+    phases' main paths."""
     mixed = _paged_attn_call(captured)
     decode = _paged_attn_call(captured["decode_only"])
+    mla = _paged_attn_call(mla_captured, latent=True)
+    mla["decode_only"] = _paged_attn_call(mla_captured["decode_only"], latent=True)
+    mla["launches"] = mla_launches["paged_attn"]
+    mla["library"] = ("composite, no single call: c and kr gathered through the table, "
+                      "the two score einsums in bf16, softmax, P·c")
     return {
         "name": "paged_attn", "route": "cuda", "source": "src/repro_torch/csrc/paged_attn.cu",
         "replaces": "src/repro/kernels/paged_attn/kernel.py:32",
-        "launches": launches["paged_attn"], **mixed,
+        "launches": launches["paged_attn"] + mla_launches["paged_attn"],
+        "launches_serve": launches["paged_attn"], **mixed,
         "library": ("composite, no single call: gather k_pool[table], v_pool[table] + "
                     "F.scaled_dot_product_attention(attn_mask=valid rows, enable_gqa)"),
-        "decode_only": decode,
+        "decode_only": decode, "mla": mla,
     }
 
 
@@ -1980,6 +2095,7 @@ def phase_lm_predict():
 TRAIN_ARCH = "rwkv6-3b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_REMAT = 8, 512, 6, "full"
 # (layers, d_model, d_ff, vocab, head size, chunk) of configs/rwkv6_3b.py
+TRAIN_FIELDS = ("n_layers", "d_model", "d_ff", "vocab_size", "rwkv_head_size", "chunk_len")
 TRAIN_WIDTH = (32, 2560, 8960, 65536, 64, 32)
 WKV_TOL = dict(rtol=2e-4, atol=2e-4)
 # bf16 outputs of the WKV kernels: theirs and the plain version's f32 results
@@ -2277,27 +2393,39 @@ def _sync_lines(module, needles):
     return {n: f"{path}:{i + 1}" for i, ln in enumerate(lines) for n in needles if n in ln}
 
 
-def phase_train():
-    """rwkv6-3b at full width and depth trained for TRAIN_STEPS steps by
-    train_loop.run on the page data path; returns (the captured first calls
-    of B6 and B6-bwd, the launches of the run)."""
+def _published(arch, fields, width):
+    """``arch``'s config, checked at its published width and depth: the
+    values of ``fields`` equal ``width``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if tuple(getattr(cfg, f) for f in fields) != width:
+        raise AssertionError(f"{arch} is not at its published width and depth")
+    return cfg
+
+
+def _train_phase(cfg, batch, steps, per_step, heap, kernels=(), around=None):
+    """``cfg`` trained from f32 masters drawn on the card from seed 0 by
+    train_loop.run for ``steps`` steps of ``batch`` x TRAIN_SEQ tokens from
+    the page data path (B1 each step), full rematerialisation, AdamW (lr
+    3e-4, warmup steps // 4 + 1, as launch/train.py), with the sync debug
+    mode on; then one step untraced, one under the profiler (device ms of
+    ``kernels``) and the AdamW update alone. ``per_step`` gives the launches
+    a step of each kernel; ``around`` wraps the training run (a context
+    manager). Returns (the record, the run: params, optimizer state, loss
+    function, dataset, loop and optimizer configs). ``_check_train`` holds
+    the record to its expectations."""
+    import contextlib
     import gc
 
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import PageTokenDataset
-    from repro_torch.kernels.wkv import kernel as wkv_kernel
-    from repro_torch.kernels.wkv import ops as wkv_ops
     from repro_torch.models import model_zoo
-    from repro_torch.models.params import count_params
-    from repro_torch.train import train_loop
+    from repro_torch.models.params import count_params, leaves
+    from repro_torch.train import optimizer, train_loop
     from repro_torch.train.optimizer import OptConfig, make_train_step
 
-    cfg = get_config(TRAIN_ARCH)
-    if (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.rwkv_head_size,
-            cfg.chunk_len) != TRAIN_WIDTH:
-        raise AssertionError(f"{TRAIN_ARCH} is not at its published width and depth")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2308,9 +2436,8 @@ def phase_train():
     init_s = time.perf_counter() - t0
     n_params = count_params(params)
     t0 = time.perf_counter()
-    ds = PageTokenDataset(os.path.join(SCRATCH, "tokens.heap"),
-                          n_seqs=max(TRAIN_BATCH * 8, 64), seq_len=TRAIN_SEQ,
-                          vocab=cfg.vocab_size, seed=0, device="cuda")
+    ds = PageTokenDataset(os.path.join(SCRATCH, heap), n_seqs=max(batch * 8, 64),
+                          seq_len=TRAIN_SEQ, vocab=cfg.vocab_size, seed=0, device="cuda")
     data_setup_s = time.perf_counter() - t0
 
     loss_fn = model_zoo.loss_fn(cfg, remat=TRAIN_REMAT)
@@ -2323,8 +2450,114 @@ def phase_train():
 
     def data_fn(step):
         starts.append(time.perf_counter())
-        return ds.batch(step, TRAIN_BATCH)
+        return ds.batch(step, batch)
 
+    loop_cfg = train_loop.TrainLoopConfig(total_steps=steps, ckpt_every=10**9,
+                                          ckpt_dir=os.path.join(SCRATCH, heap + ".ckpt"))
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=steps // 4 + 1)  # as launch/train.py
+    out = {}
+    zero_launches()
+    with around if around is not None else contextlib.nullcontext():
+        where, _ = _synchronizing_calls(
+            lambda: out.update(zip(("params", "opt", "history"), train_loop.run(
+                recording_loss, params, data_fn, loop_cfg, opt_cfg))), [])
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    loss_values = [float(x) for x in losses]
+    step_s = [b - a for a, b in zip(starts, starts[1:] + [end])]
+    steady_s = statistics.median(step_s[1:])
+    reads = _sync_lines(train_loop, ('float(metrics["loss"])', 'float(metrics["grad_norm"])',
+                                     'float(metrics["lr"])'))
+    want_reads = {reads['float(metrics["loss"])']: steps,
+                  reads['float(metrics["grad_norm"])']: 1, reads['float(metrics["lr"])']: 1}
+
+    # one more step untraced, then one under the profiler
+    step_fn = make_train_step(loss_fn, opt_cfg)
+    p, o = out["params"], out["opt"]
+    b = ds.batch(steps, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    float(step_fn(p, o, b)[2]["loss"])
+    untraced_s = time.perf_counter() - t0
+    b = ds.batch(steps + 1, batch)
+    traced_s, busy_s, top = _device_profile(
+        lambda: float(step_fn(p, o, b)[2]["loss"]), kernels=kernels)
+
+    # the AdamW update alone: in pieces of UPDATE_PIECE elements, as the step
+    # runs it, and each leaf in one pass. The parameters stand in for the
+    # gradients (the update reads each once; its time does not depend on
+    # their values)
+    update = [lambda: optimizer.adamw_update(p, p, o, opt_cfg)]
+    largest = max(x.numel() for x in leaves(p))
+    pieced_ms = eager_ms(update, reps=3)
+    saved, optimizer.UPDATE_PIECE = optimizer.UPDATE_PIECE, largest
+    try:
+        one_pass_ms = eager_ms(update, reps=3)
+    finally:
+        optimizer.UPDATE_PIECE = saved
+
+    tokens = batch * TRAIN_SEQ
+    record = {
+        "layers": cfg.n_layers, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "params": n_params,
+        "weights": "f32 masters from seed 0, drawn on the card", "remat": TRAIN_REMAT,
+        "batch": batch, "seq": TRAIN_SEQ, "tokens_per_step": tokens,
+        "data_path": "pages (B1 on 32 KB token pages)",
+        "optimizer": {"lr": opt_cfg.lr, "warmup_steps": opt_cfg.warmup_steps},
+        "init_s": init_s, "data_setup_s": data_setup_s, "steps": steps,
+        "losses": loss_values, "finite": all(math.isfinite(x) for x in loss_values),
+        "loss_fell": loss_values[-1] < loss_values[0], "step_s": step_s,
+        "s_per_step": steady_s, "tokens_per_s": tokens / steady_s,
+        "peak_memory_bytes": peak, "launches": launches,
+        "launches_expected": {k: per_step.get(k, 0) * steps for k in launches},
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "syncs": {"steps": steps, "synchronizing_calls": sum(where.values()),
+                  "where": where, "expected": want_reads},
+        "adamw": {"pieced_ms": pieced_ms, "one_pass_ms": one_pass_ms,
+                  "piece_elements": saved, "largest_leaf": largest,
+                  "pieces_of_largest": -(-largest // saved),
+                  "note": "eager, CUDA events, median of 3; parameters as gradients"},
+        "profile": {"steps": 1, "traced_s": traced_s, "untraced_s": untraced_s,
+                    "device_busy_s": busy_s if busy_s else None,
+                    "device_idle_share": 1.0 - busy_s / untraced_s if busy_s else None,
+                    **top, "units": "ms totals over the step"},
+    }
+    return record, types.SimpleNamespace(params=p, opt=o, loss_fn=loss_fn, ds=ds,
+                                         loop_cfg=loop_cfg, opt_cfg=opt_cfg)
+
+
+def _check_train(record):
+    """Every loss finite, each kernel launched as expected, and the host
+    read once a step (the loss) and once more each for the logged gradient
+    norm and learning rate."""
+    losses = record["losses"]
+    if len(losses) != record["steps"] or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses {losses}")
+    if record["launches"] != record["launches_expected"]:
+        raise AssertionError(f"training launches {record['launches']}, "
+                             f"expected {record['launches_expected']}")
+    if record["syncs"]["where"] != record["syncs"]["expected"]:
+        raise AssertionError(f"host reads {record['syncs']['where']}, "
+                             f"expected {record['syncs']['expected']}")
+
+
+def phase_train():
+    """rwkv6-3b at full width and depth trained for TRAIN_STEPS steps by
+    train_loop.run on the page data path; returns (the captured first calls
+    of B6 and B6-bwd, the launches of the run)."""
+    import contextlib
+    import gc
+
+    import torch
+
+    from repro_torch.kernels.wkv import kernel as wkv_kernel
+    from repro_torch.kernels.wkv import ops as wkv_ops
+    from repro_torch.models import model_zoo
+    from repro_torch.train import train_loop
+
+    cfg = _published(TRAIN_ARCH, TRAIN_FIELDS, TRAIN_WIDTH)
     captured = {}
 
     def fwd(*args, **kw):
@@ -2337,48 +2570,23 @@ def phase_train():
             captured["bwd"] = [a.clone() if torch.is_tensor(a) else a for a in args]
         return wkv_kernel.wkv_backward(*args)
 
-    loop_cfg = train_loop.TrainLoopConfig(total_steps=TRAIN_STEPS, ckpt_every=10**9,
-                                          ckpt_dir=os.path.join(SCRATCH, "train_ckpt"))
-    opt_cfg = OptConfig(lr=3e-4, warmup_steps=TRAIN_STEPS // 4 + 1)  # as launch/train.py
-    out = {}
-    zero_launches()
-    # the wrappers count on themselves, so the capture sits between ops and
-    # the kernel module
-    wkv_ops.kernel = types.SimpleNamespace(wkv_forward=fwd, wkv_backward=bwd)
-    try:
-        where, _ = _synchronizing_calls(
-            lambda: out.update(zip(("params", "opt", "history"), train_loop.run(
-                recording_loss, params, data_fn, loop_cfg, opt_cfg))), [])
-        torch.cuda.synchronize()
-        end = time.perf_counter()
-    finally:
-        wkv_ops.kernel = wkv_kernel
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
-    loss_values = [float(x) for x in losses]
-    step_s = [b - a for a, b in zip(starts, starts[1:] + [end])]
-    steady_s = statistics.median(step_s[1:])
-    per_step = {"strider_decode": 1, "wkv": 2 * cfg.n_layers, "wkv_bwd": cfg.n_layers}
-    want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
-    reads = _sync_lines(train_loop, ('float(metrics["loss"])', 'float(metrics["grad_norm"])',
-                                     'float(metrics["lr"])'))
-    want_reads = {reads['float(metrics["loss"])']: TRAIN_STEPS,
-                  reads['float(metrics["grad_norm"])']: 1, reads['float(metrics["lr"])']: 1}
+    @contextlib.contextmanager
+    def capturing():
+        # the wrappers count on themselves, so the capture sits between ops
+        # and the kernel module
+        wkv_ops.kernel = types.SimpleNamespace(wkv_forward=fwd, wkv_backward=bwd)
+        try:
+            yield
+        finally:
+            wkv_ops.kernel = wkv_kernel
 
-    # one more step untraced, then one under the profiler
-    step_fn = make_train_step(loss_fn, opt_cfg)
-    p, o = out["params"], out["opt"]
-    batch = ds.batch(TRAIN_STEPS, TRAIN_BATCH)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    p, o, m = step_fn(p, o, batch)
-    float(m["loss"])
-    untraced_s = time.perf_counter() - t0
-    batch = ds.batch(TRAIN_STEPS + 1, TRAIN_BATCH)
-    traced_s, busy_s, top = _device_profile(
-        lambda: float(step_fn(p, o, batch)[2]["loss"]),
-        kernels=(WKV_FWD_KERNELS, WKV_BWD_KERNELS, "strider_decode"))
-    del p, o, m, batch, step_fn, out, params
+    record, run = _train_phase(
+        cfg, TRAIN_BATCH, TRAIN_STEPS,
+        {"strider_decode": 1, "wkv": 2 * cfg.n_layers, "wkv_bwd": cfg.n_layers},
+        "tokens.heap", kernels=(WKV_FWD_KERNELS, WKV_BWD_KERNELS, "strider_decode"),
+        around=capturing())
+    ds, loop_cfg, opt_cfg = run.ds, run.loop_cfg, run.opt_cfg
+    del run
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2404,48 +2612,24 @@ def phase_train():
     del params, plain
     gc.collect()
     torch.cuda.empty_cache()
+    loss_values = record["losses"]
     traj_rel = [abs(a - b) / abs(b) for a, b in zip(loss_values, plain_values)]
 
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    b6 = top["device_ms_of"]
-    emit({"phase": "train", "arch": TRAIN_ARCH, "layers": cfg.n_layers,
-          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
-          "params": n_params, "weights": "f32 masters from seed 0, drawn on the card",
-          "remat": TRAIN_REMAT, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-          "tokens_per_step": tokens, "data_path": "pages (B1 on 32 KB token pages)",
-          "optimizer": {"lr": opt_cfg.lr, "warmup_steps": opt_cfg.warmup_steps},
-          "init_s": init_s, "data_setup_s": data_setup_s, "steps": TRAIN_STEPS,
-          "losses": loss_values, "finite": all(math.isfinite(x) for x in loss_values),
-          "loss_fell": loss_values[-1] < loss_values[0],
+    prof = record["profile"]
+    busy_s, b6 = prof["device_busy_s"], prof["device_ms_of"]
+    prof["wkv_share_of_busy"] = b6[WKV_FWD_KERNELS] / 1e3 / busy_s if busy_s else None
+    prof["wkv_bwd_share_of_busy"] = b6[WKV_BWD_KERNELS] / 1e3 / busy_s if busy_s else None
+    emit({"phase": "train", "arch": TRAIN_ARCH, **record,
           "plain_wkv_run": {"losses": plain_values, "rel_diff": traj_rel, "seconds": plain_s,
                             "tolerance": {k: TRAIN_PARITY_TOL[k]
-                                          for k in ("loss_abs", "trajectory_rel")}},
-          "step_s": step_s,
-          "s_per_step": steady_s, "tokens_per_s": tokens / steady_s,
-          "peak_memory_bytes": peak, "launches": launches,
-          "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
-          "syncs": {"steps": TRAIN_STEPS, "synchronizing_calls": sum(where.values()),
-                    "where": where, "expected": want_reads},
-          "profile": {"steps": 1, "traced_s": traced_s, "untraced_s": untraced_s,
-                      "device_busy_s": busy_s if busy_s else None,
-                      "device_idle_share": 1.0 - busy_s / untraced_s if busy_s else None,
-                      "wkv_share_of_busy": (b6[WKV_FWD_KERNELS] / 1e3 / busy_s
-                                            if busy_s else None),
-                      "wkv_bwd_share_of_busy": (b6[WKV_BWD_KERNELS] / 1e3 / busy_s
-                                                if busy_s else None),
-                      **top, "units": "ms totals over the step"}})
-    if len(loss_values) != TRAIN_STEPS or not all(math.isfinite(x) for x in loss_values):
-        raise AssertionError(f"training losses {loss_values}")
+                                          for k in ("loss_abs", "trajectory_rel")}}})
+    _check_train(record)
     if abs(loss_values[0] - plain_values[0]) > TRAIN_PARITY_TOL["loss_abs"] or \
             max(traj_rel) > TRAIN_PARITY_TOL["trajectory_rel"]:
         raise AssertionError(f"losses {loss_values}, with the plain WKV {plain_values}")
-    if launches != want:
-        raise AssertionError(f"training launches {launches}, expected {want}")
-    if where != want_reads:
-        raise AssertionError(f"host reads {where}, expected {want_reads}")
     if "fwd" not in captured or "bwd" not in captured:
         raise AssertionError("no call of the WKV kernels was captured")
-    return captured, launches
+    return captured, record["launches"]
 
 
 def _named_leaves(tree, prefix=""):
@@ -2546,6 +2730,54 @@ def phase_train_parity():
                              f"prefill {pre_launches}")
     if float(dev.max()) > DEVIATION_LIMIT or any(t["margin"] > t["deviation"] for t in ties):
         raise AssertionError(f"prefill vs decode: deviation {float(dev.max())}, ties {ties}")
+
+
+def phase_train_mla():
+    """minicpm3-4b at full width and depth trained for MLA_TRAIN_STEPS steps
+    of MLA_TRAIN_BATCH x TRAIN_SEQ tokens by ``_train_phase`` (B1 the one
+    kernel: the attention training forward is plain PyTorch); then a
+    2-layer full-width model's prefill (the MLA training forward) against
+    32 decode steps."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model_zoo
+
+    cfg = _published(SERVE_MLA_ARCH, MLA_FIELDS, MLA_WIDTH)
+    record, run = _train_phase(cfg, MLA_TRAIN_BATCH, MLA_TRAIN_STEPS, {"strider_decode": 1},
+                               "mla_tokens.heap", kernels=("strider_decode",))
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # prefill (the training forward: mla_train) against 32 dense decode
+    # steps (mla_decode) of a 2-layer full-width model, bf16 weights
+    small = dataclasses.replace(cfg, n_layers=2)
+    params, _ = model_zoo.init_params(small, seed=1, device="cuda")
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (4, 32)).astype(np.int32)).cuda()
+    with torch.no_grad():
+        pre = model_zoo.prefill_fn(small)(params, {"tokens": tokens}).float()
+        step = model_zoo.decode_fn(small)
+        cache = model_zoo.make_cache(small, 4, 33, "cuda")
+        for t in range(32):
+            logits, cache = step(params, tokens[:, t], cache, t)
+    dec = logits.float()
+    dev = float((pre - dec).abs().max())
+    agree = int((pre.argmax(-1) == dec.argmax(-1)).sum())
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    emit({"phase": "train-mla", "arch": SERVE_MLA_ARCH, "heads": cfg.n_heads,
+          "kv_lora": cfg.kv_lora_rank, **record,
+          "prefill_vs_decode": {"layers": 2, "tokens": [4, 32], "max_abs_dev": dev,
+                                "tolerance": 3e-2, "argmax_agree": agree}})
+    _check_train(record)
+    if dev > 3e-2 or agree != 4:
+        raise AssertionError(f"prefill vs decode: deviation {dev}, argmax agree {agree} of 4")
 
 
 def phase_launch_train():
@@ -2746,14 +2978,16 @@ def main() -> int:
         del heap, engine, res, db
         captured, serve_launches = phase_serve()
         phase_launch_serve()
-        rows.append(kernel_row_paged_attn(captured, serve_launches))
-        del captured
+        mla_captured, mla_launches = phase_serve_mla()
+        rows.append(kernel_row_paged_attn(captured, serve_launches, mla_captured, mla_launches))
+        del captured, mla_captured
         lm_launches, lm_b3 = phase_lm_predict()
         b3_row = next(r for r in rows if r["name"] == "strider_decode_projected")
         b3_row["launches"] += lm_launches
         b3_row["lm_scan"] = dict(lm_b3, launches=lm_launches)
         wkv_calls, train_launches = phase_train()
         phase_train_parity()
+        phase_train_mla()
         phase_launch_train()
         rows.extend(kernel_rows_wkv(wkv_calls, train_launches, *wkv_kernels))
         emit({"kernels": rows})

@@ -4,8 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-nemo-12b \\
         --kv paged --batch 8 --requests 16 --prefill-chunk 16
 
-Submit more requests than slots (``--requests``) to exercise mid-run
-admission. ``--kv paged`` swaps the dense per-slot cache for the block-pool
+Every decoder-only family the port serves takes the same flags: GQA
+(mistral-nemo-12b, internlm2-20b, ...) and MLA (``--arch minicpm3-4b``,
+whose kernel path runs the absorbed-latent attention on B5). Submit more
+requests than slots (``--requests``) to exercise mid-run admission. ``--kv paged`` swaps the dense per-slot cache for the block-pool
 layout (``--block-size`` tokens per block, ``--kv-blocks`` total, by default
 dense-equivalent capacity); ``--prefill-chunk C`` feeds C prompt tokens per
 fused step. ``--attn-impl`` picks the paged attention read path: ``kernel``

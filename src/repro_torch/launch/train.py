@@ -10,7 +10,8 @@ path); ``synthetic`` draws them per step. The weights are random f32 masters
 drawn on the device from ``--seed``. ``--device`` defaults to ``cuda``;
 without a card the launcher raises unless ``--device cpu`` is given (with
 ``--reduced`` that runs in seconds). The port trains the families its model
-stack runs (rwkv6-3b); the others raise ``NotImplementedError``.
+stack runs (rwkv6-3b, and the dense GQA and MLA attention models such as
+minicpm3-4b); the others raise ``NotImplementedError``.
 
 Like the reference, ``--microbatch`` is parsed and not passed on: the train
 loop always steps with one microbatch. The reference's mesh flags wait for

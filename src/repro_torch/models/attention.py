@@ -1,5 +1,14 @@
-"""GQA decode attention over dense and paged KV caches (counterpart of
-``repro.models.attention``, lines 102-310, which it is held against).
+"""Attention: GQA and MLA, their training forms and their decode paths over
+dense and paged KV caches (counterpart of ``repro.models.attention``, lines
+36-500, which it is held against).
+
+The training forms (``gqa_train``, ``mla_train``) run plain PyTorch: einsum,
+softmax and, with ``cfg.attn_q_chunk``, query tiles each under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``). MLA serves
+in the absorbed-latent form: the queries are projected into the KV latent
+space, so the cache holds ``kv_lora + rope`` values a token
+(``init_mla_cache``), and the paged kernel path runs it as one MQA call of
+B5 (``mla_decode_paged``).
 
 Decode positions are per-row: every decode entry point accepts ``pos`` as a
 scalar (single stream) or a (B,) vector (continuous batching: each cache row
@@ -19,30 +28,77 @@ row that nothing reads: dense caches are ``(B + 1, S, KVH, D)`` with slot
 the landing block, which the allocator never maps. Reads slice the spare off
 (dense) or never reach it (paged: tables map blocks ``< NB``).
 
-MLA, cross attention and the training forms wait for later slices; the
-model stack (``transformer``) raises ``NotImplementedError`` for them.
+Cross attention waits for ROADMAP queue item 3e.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.paged_attn import ops as paged_attn_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, rope_tables
+from repro_torch.models.layers import apply_norm, apply_rope, make_norm, rope_tables
 from repro_torch.models.params import Maker
 
 NEG = -1e9
 ATTN_IMPLS = ("gather", "kernel")
 
 
+def _mask(sq: int, skv: int, kind: str, window: int, offset: int = 0, device=None):
+    """(sq, skv) additive f32 mask. offset = kv position of query row 0."""
+    if kind == "bidir":
+        return torch.zeros((sq, skv), dtype=torch.float32, device=device)
+    qpos = torch.arange(sq, device=device)[:, None] + offset
+    kpos = torch.arange(skv, device=device)[None, :]
+    ok = kpos <= qpos
+    if kind == "swa":
+        ok &= (qpos - kpos) < window
+    return torch.where(ok, 0.0, NEG).to(torch.float32)
+
+
 def _sdpa(q, k, v, mask, scale):
-    """q (B,Sq,KVH,G,D), k/v (B,Skv,KVH,D), mask (B,1,1,Sq,Skv) f32."""
+    """q (B,Sq,KVH,G,D), k/v (B,Skv,KVH,D*), mask (Sq,Skv) or (B,1,1,Sq,Skv)
+    f32 (both broadcast over the scores)."""
     scores = torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32),
                           k.to(torch.float32)) * scale
     probs = torch.softmax(scores + mask, dim=-1)
     return torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(torch.float32))
+
+
+def _sdpa_qchunk(q, k, v, kind, window, scale, q_chunk, qk_bf16: bool = False):
+    """Query-chunked attention, the same function as ``_sdpa`` over
+    ``_mask``: the scores exist one (B, KVH, G, q_chunk, Skv) tile at a time,
+    each tile under ``torch.utils.checkpoint``, so the backward recomputes it
+    and the peak drops from O(Sq*Skv) to O(q_chunk*Skv) a layer.
+
+    ``qk_bf16`` rounds the operands of both products (q, k, the
+    probabilities and v) to bf16 and sums in f32, as the reference's bf16
+    einsums with ``preferred_element_type=f32`` do: bf16 products are exact
+    in f32, so only the roundings of the operands change the result."""
+    b, sq, kvh, g, d = q.shape
+    q_chunk = min(q_chunk, sq)
+    pad = (-sq) % q_chunk
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, pad))
+
+    def rounded(x):
+        return x.to(torch.bfloat16).to(torch.float32) if qk_bf16 else x.to(torch.float32)
+
+    kf, vf = rounded(k), rounded(v)
+
+    def block(qb, offset):
+        mask = _mask(q_chunk, kf.shape[1], kind, window, offset=offset, device=qb.device)
+        s = torch.einsum("bqkgd,bskd->bkgqs", rounded(qb), kf) * scale
+        p = torch.softmax(s + mask, dim=-1)
+        return torch.einsum("bkgqs,bskd->bqkgd", rounded(p), vf)
+
+    out = torch.cat([checkpoint(block, q[:, i:i + q_chunk], i, use_reentrant=False)
+                     for i in range(0, q.shape[1], q_chunk)], dim=1)
+    return out[:, :sq]
 
 
 # =============================== GQA =========================================
@@ -75,6 +131,27 @@ def gqa_project(p, x, cfg: ModelConfig, positions):
     cos, sin = rope_tables(positions, cfg.hd, cfg.rope_theta)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def gqa_attend(p, q, k, v, cfg: ModelConfig, kind, window):
+    """Attention of rotated q (B,Sq,H,hd) over k/v (B,Skv,KVH,hd), then the
+    output projection: (B,Sq,d)."""
+    b, sq, h, hd = q.shape
+    kvh = cfg.n_kv_heads
+    qg = q.reshape(b, sq, kvh, h // kvh, hd)
+    scale = 1.0 / math.sqrt(hd)
+    if cfg.attn_q_chunk:
+        out = _sdpa_qchunk(qg, k, v, kind, window, scale, cfg.attn_q_chunk,
+                           qk_bf16=cfg.attn_qk_bf16)
+    else:
+        out = _sdpa(qg, k, v, _mask(sq, k.shape[1], kind, window, device=q.device), scale)
+    return _out_proj(out.reshape(b, sq, h, hd).to(q.dtype), p["wo"])
+
+
+def gqa_train(p, x, cfg: ModelConfig, positions, kind="causal", window=0):
+    """Training and prefill form: x (B,S,d), positions (B,S) -> (B,S,d)."""
+    q, k, v = gqa_project(p, x, cfg, positions)
+    return gqa_attend(p, q, k, v, cfg, kind, window)
 
 
 def _batch_pos(pos, b: int, device):
@@ -222,3 +299,205 @@ def init_gqa_cache_paged(cfg: ModelConfig, num_blocks: int, block_size: int,
     shape = (num_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+# =============================== MLA =========================================
+def make_mla(m: Maker, cfg: ModelConfig):
+    d = cfg.d_model
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    p = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = m.param((d, cfg.q_lora_rank), ("embed", "lora"))
+        p["q_norm"] = make_norm(m, cfg.q_lora_rank)
+        p["wq_b"] = m.param((cfg.q_lora_rank, cfg.n_heads, qk), ("lora", "heads", "qk_dim"))
+    else:
+        p["wq"] = m.param((d, cfg.n_heads, qk), ("embed", "heads", "qk_dim"))
+    p["wkv_a"] = m.param((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim), ("embed", "lora"))
+    p["kv_norm"] = make_norm(m, cfg.kv_lora_rank)
+    p["wkv_b"] = m.param((cfg.kv_lora_rank, cfg.n_heads, cfg.qk_nope_head_dim + cfg.v_head_dim),
+                         ("lora", "heads", "qk_dim"))
+    p["wo"] = m.param((cfg.n_heads, cfg.v_head_dim, d), ("heads", "head_dim", "embed"))
+    return p
+
+
+def _rope_part(x, positions, cfg: ModelConfig):
+    """Rotary embedding of x (B,S,H,rope) at positions (B,S)."""
+    cos, sin = rope_tables(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    return apply_rope(x, cos[:, :, None, :], sin[:, :, None, :])
+
+
+def _mla_q(p, x, cfg: ModelConfig, positions):
+    """x (B,S,d) -> the queries' no-rope part (B,S,H,nope) and rotated rope
+    part (B,S,H,rope)."""
+    if cfg.q_lora_rank:
+        cq = apply_norm(p["q_norm"], x @ p["wq_a"].to(x.dtype), cfg.norm_eps)
+        q = _proj(cq, p["wq_b"])
+    else:
+        q = _proj(x, p["wq"])
+    nope = cfg.qk_nope_head_dim
+    return q[..., :nope], _rope_part(q[..., nope:], positions, cfg)
+
+
+def _mla_latent(p, x, cfg: ModelConfig, positions):
+    """x (B,S,d) -> the normed KV latent (B,S,kv_lora) and the one rotated
+    rope head every query head shares (B,S,rope)."""
+    kv = x @ p["wkv_a"].to(x.dtype)
+    c_kv = apply_norm(p["kv_norm"], kv[..., :cfg.kv_lora_rank], cfg.norm_eps)
+    kr = _rope_part(kv[..., cfg.kv_lora_rank:][:, :, None, :], positions, cfg)
+    return c_kv, kr[:, :, 0, :]
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def mla_train(p, x, cfg: ModelConfig, positions, kind="causal", window=0):
+    """Training and prefill form: the latent expanded to per-head keys and
+    values, each head its own kv head (G = 1). x (B,S,d) -> (B,S,d)."""
+    b, s, _ = x.shape
+    qn, qr = _mla_q(p, x, cfg, positions)
+    c_kv, kr = _mla_latent(p, x, cfg, positions)
+    kv = _proj(c_kv, p["wkv_b"])
+    nope = cfg.qk_nope_head_dim
+    kn, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([kn, kr[:, :, None, :].expand(*kn.shape[:3], cfg.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([qn, qr], dim=-1)
+    qg = q.reshape(b, s, cfg.n_heads, 1, q.shape[-1])
+    if cfg.attn_q_chunk:
+        out = _sdpa_qchunk(qg, k, v, kind, window, _mla_scale(cfg), cfg.attn_q_chunk,
+                           qk_bf16=cfg.attn_qk_bf16)
+    else:
+        out = _sdpa(qg, k, v, _mask(s, s, kind, window, device=x.device), _mla_scale(cfg))
+    return _out_proj(out.reshape(b, s, cfg.n_heads, cfg.v_head_dim).to(x.dtype), p["wo"])
+
+
+def _mla_absorb(p, qn, cfg: ModelConfig):
+    """The no-rope queries (B,1,H,nope) projected into the latent space
+    (B,1,H,kv_lora) through wkv_b's key half, in the activations' type."""
+    w_uk = p["wkv_b"][..., :cfg.qk_nope_head_dim].to(qn.dtype)  # (r, H, nope)
+    return torch.einsum("bthk,rhk->bthr", qn, w_uk)
+
+
+def _mla_out(p, out_lat, cfg: ModelConfig):
+    """The attention's latent output (B,H,kv_lora) through wkv_b's value half
+    and wo: (B,1,d)."""
+    w_uv = p["wkv_b"][..., cfg.qk_nope_head_dim:].to(out_lat.dtype)  # (r, H, v)
+    out = torch.einsum("bhr,rhv->bhv", out_lat, w_uv)
+    return _out_proj(out, p["wo"])[:, None, :]
+
+
+def _mla_latent_attn(q_lat, qr, gc, gkr, valid, scale):
+    """The reference's absorbed attention over a gathered latent: both score
+    products in the activations' type (bf16 in serving) and added there, as
+    the reference's einsums round them, then f32 from the scale on.
+    q_lat (B,1,H,r), qr (B,1,H,rope), gc (B,S,r), gkr (B,S,rope), valid (B,S)
+    -> (B,H,r) in the activations' type."""
+    dt = q_lat.dtype
+    scores = torch.einsum("bthr,bsr->bhs", q_lat, gc.to(dt))
+    scores = scores + torch.einsum("bthk,bsk->bhs", qr, gkr.to(dt))
+    scores = scores.to(torch.float32) * scale + torch.where(valid, 0.0, NEG)[:, None]
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhs,bsr->bhr", probs, gc.to(torch.float32)).to(dt)
+
+
+def mla_decode(p, x, cache, pos, cfg: ModelConfig, slot=None, write_ok=None):
+    """Absorbed-latent decode over dense caches {c (B+1,S,kv_lora),
+    kr (B+1,S,rope)}, row B the landing row. ``pos``, ``slot`` and
+    ``write_ok`` as in ``gqa_decode``. Returns (out (B,1,d), cache)."""
+    b = x.shape[0]
+    pos_b = _batch_pos(pos, b, x.device)
+    qn, qr = _mla_q(p, x, cfg, pos_b[:, None])
+    c_t, kr_t = _mla_latent(p, x, cfg, pos_b[:, None])
+
+    c, kr = cache["c"], cache["kr"]
+    s = c.shape[1]
+    rows = torch.arange(b, device=x.device) if slot is None else slot
+    wrow = rows if write_ok is None else torch.where(write_ok, rows, c.shape[0] - 1)
+    row = pos_b.clamp(max=s - 1)
+    c[wrow, row] = c_t[:, 0].to(c.dtype)
+    kr[wrow, row] = kr_t[:, 0].to(kr.dtype)
+    gc, gkr = (c[:b], kr[:b]) if slot is None else (c[slot], kr[slot])
+    valid = torch.arange(s, device=x.device)[None, :] <= pos_b[:, None]
+    out_lat = _mla_latent_attn(_mla_absorb(p, qn, cfg), qr, gc, gkr, valid, _mla_scale(cfg))
+    return _mla_out(p, out_lat, cfg), cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, seq: int, device="cpu"):
+    """Dense latent cache: ``batch`` slot rows and the spare landing row."""
+    return {"c": torch.zeros((batch + 1, seq, cfg.kv_lora_rank), dtype=torch.bfloat16,
+                             device=device),
+            "kr": torch.zeros((batch + 1, seq, cfg.qk_rope_head_dim), dtype=torch.bfloat16,
+                              device=device)}
+
+
+def mla_decode_paged(p, x, cache, pos, cfg: ModelConfig, table, block_size, max_seq=None,
+                     write_ok=None, impl="gather", runs=None):
+    """Paged variant of ``mla_decode``: cache {c (NB+1, bs, kv_lora),
+    kr (NB+1, bs, rope)} block pools, block NB the landing block; ``table``
+    (B, nb_slot) int32. ``impl="kernel"`` runs the absorbed attention as one
+    MQA call of B5 (the reference's ``"pallas"``): q = [q_lat ; qr] as
+    (B, 1, H, kv_lora + rope), K the latent [c ; kr] shared by every head
+    (built over the whole pool at every call, as the reference builds it), V
+    the latent c; ``runs`` reaches the kernel. ``"gather"`` reads the
+    padded (B, nb_slot*bs) view with the reference's bf16 score products.
+    Returns (out, cache)."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"impl must be one of {ATTN_IMPLS}, got {impl!r}")
+    b = x.shape[0]
+    pos_b = _batch_pos(pos, b, x.device)
+    qn, qr = _mla_q(p, x, cfg, pos_b[:, None])
+    c_t, kr_t = _mla_latent(p, x, cfg, pos_b[:, None])
+
+    c, kr = cache["c"], cache["kr"]
+    blk, off = _paged_write_idx(table, pos_b, block_size, 0, c.shape[0] - 1, write_ok)
+    c[blk, off] = c_t[:, 0].to(c.dtype)
+    kr[blk, off] = kr_t[:, 0].to(kr.dtype)
+
+    q_lat = _mla_absorb(p, qn, cfg)
+    max_rows = max_seq if max_seq is not None else table.shape[1] * block_size
+    if impl == "kernel":
+        out_lat = paged_attn_ops.paged_attention(
+            torch.cat([q_lat, qr], dim=-1), torch.cat([c, kr], dim=-1)[:, :, None],
+            c[:, :, None], table, pos_b, block_size=block_size, ring_width=0,
+            max_rows=max_rows, scale=_mla_scale(cfg), runs=runs,
+        )[:, 0].to(x.dtype)
+    else:
+        tl = table.long()
+        gc = c[tl].reshape(b, -1, cfg.kv_lora_rank)
+        gkr = kr[tl].reshape(b, -1, cfg.qk_rope_head_dim)
+        valid = _paged_valid(pos_b, gc.shape[1], 0, max_rows)
+        out_lat = _mla_latent_attn(q_lat, qr, gc, gkr, valid, _mla_scale(cfg))
+    return _mla_out(p, out_lat, cfg), cache
+
+
+def init_mla_cache_paged(cfg: ModelConfig, num_blocks: int, block_size: int, device="cpu"):
+    """Latent block pools of ``num_blocks`` blocks and the spare landing
+    block."""
+    return {"c": torch.zeros((num_blocks + 1, block_size, cfg.kv_lora_rank),
+                             dtype=torch.bfloat16, device=device),
+            "kr": torch.zeros((num_blocks + 1, block_size, cfg.qk_rope_head_dim),
+                              dtype=torch.bfloat16, device=device)}
+
+
+@dataclasses.dataclass(frozen=True)
+class Kind:
+    """What the layer stack calls of one attention kind (``cfg.attn_kind``):
+    its parameters, its training form, its decode over dense and paged
+    caches, and those caches."""
+    make: Callable
+    train: Callable
+    decode: Callable
+    decode_paged: Callable
+    init_cache: Callable
+    init_cache_paged: Callable
+
+
+_KIND_NAMES = ("make_{}", "{}_train", "{}_decode", "{}_decode_paged", "init_{}_cache",
+               "init_{}_cache_paged")
+
+
+def kind_of(cfg: ModelConfig) -> Kind:
+    """The functions of ``cfg.attn_kind`` (``gqa`` or ``mla``), looked up in
+    this module at each call, so that a function patched here reaches the
+    layer stack."""
+    return Kind(*(globals()[name.format(cfg.attn_kind)] for name in _KIND_NAMES))

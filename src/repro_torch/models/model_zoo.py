@@ -24,7 +24,7 @@ import numpy as np
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_norm, embed, unembed
+from repro_torch.models.layers import apply_norm, unembed
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=torch.bfloat16):
@@ -50,8 +50,8 @@ def prefill_fn(cfg: ModelConfig, remat: str = "none", wkv_impl: str = "kernel"):
     transformer.check_supported(cfg)
 
     def run(params, batch):
-        x = embed(params["embed"], batch["tokens"], cfg)
-        x = transformer._run_segments(params["segments"], x, cfg, remat, wkv_impl)
+        x, positions = transformer.embed_inputs(params, batch, cfg)
+        x = transformer._run_segments(params["segments"], x, cfg, positions, remat, wkv_impl)
         h = apply_norm(params["final_norm"], x, cfg.norm_eps)
         return unembed(params["embed"], h[:, -1:], cfg)[:, 0]
 
@@ -81,12 +81,19 @@ def make_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device=
 
 def demo_batch(cfg: ModelConfig, batch: int, seq: int, rng=None, device=None) -> dict:
     """A random training batch from ``rng`` (numpy; default seed 0), the same
-    numbers as ``repro``'s ``demo_batch`` with the same generator state."""
+    numbers as ``repro``'s ``demo_batch`` with the same generator state: of
+    ``seq`` positions, ``cfg.vis_tokens`` are patches (f32 ``patches``
+    (batch, vis_tokens, d_model)) and the rest text."""
     rng = rng or np.random.default_rng(0)
     device = resolve_device(device)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq + 1)))
-    return {
+    t = seq - cfg.vis_tokens
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, t + 1)))
+    out = {
         "tokens": tokens[:, :-1].to(device, torch.int32),
         "targets": tokens[:, 1:].to(device, torch.int32),
-        "loss_mask": torch.ones((batch, seq), dtype=torch.float32, device=device),
+        "loss_mask": torch.ones((batch, t), dtype=torch.float32, device=device),
     }
+    if cfg.vis_tokens:
+        patches = rng.normal(0, 1, (batch, cfg.vis_tokens, cfg.d_model))
+        out["patches"] = torch.from_numpy(patches).to(device, torch.float32)
+    return out

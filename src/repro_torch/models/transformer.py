@@ -8,13 +8,13 @@ views of them (``torch.unbind`` once per forward), so the stacked tensors stay
 the autograd leaves and nothing is copied.
 
 ``segments_for`` covers every family. The port runs the families whose
-segments are all ``attn_mlp`` with GQA attention (dense and VLM backbones:
-internlm2, mistral-nemo, deepseek-67b, internvl2) for serving, and the
-``rwkv`` family (rwkv6-3b) for training, prefill and ``lm_decode_step``.
-The others raise ``NotImplementedError`` naming the ROADMAP item that ports
-them: ``check_supported`` for the model stack, ``check_servable`` for the
-server, which does not hold RWKV's per-slot state yet. The attention
-families' training forward waits for ROADMAP queue item 3.
+segments are all ``attn_mlp`` (dense and VLM backbones with GQA attention:
+internlm2, mistral-nemo, deepseek-67b, internvl2; and MLA: minicpm3) and the
+``rwkv`` family (rwkv6-3b): training, prefill and ``lm_decode_step``, and the
+attention families in the server. The others raise
+``NotImplementedError`` naming the ROADMAP item that ports them:
+``check_supported`` for the model stack, ``check_servable`` for the
+server, which does not hold RWKV's per-slot state yet.
 
 ``remat`` follows the reference: ``"none"`` keeps every activation,
 ``"full"`` keeps each layer's input only (``torch.utils.checkpoint``, one
@@ -92,8 +92,6 @@ def check_supported(cfg: ModelConfig) -> None:
     cannot run yet, naming the ROADMAP item that ports it."""
     if cfg.family == "encdec":
         why = "encoder-decoder models wait for ROADMAP A15 (encdec)"
-    elif cfg.attn_kind == "mla":
-        why = "MLA attention waits for ROADMAP A13 (MLA decode, B5 at its shapes)"
     elif cfg.family == "hybrid":
         why = "Mamba and sliding-window layers wait for ROADMAP A14 (ssm.py, SWA rings)"
     elif cfg.is_moe:
@@ -129,7 +127,7 @@ def _make_layer(m: Maker, cfg: ModelConfig, kind: str):
     return {
         "ln1": make_norm(m, cfg.d_model),
         "ln2": make_norm(m, cfg.d_model),
-        "attn": attn.make_gqa(m, cfg),
+        "attn": attn.kind_of(cfg).make(m, cfg),
         "mlp": make_mlp(m, cfg.d_model, cfg.d_ff),
     }
 
@@ -154,16 +152,19 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device,
 # --------------------------------------------------------------------------
 # training / prefill forward
 # --------------------------------------------------------------------------
-def _layer_train(p, x, cfg: ModelConfig, kind: str, wkv_impl: str = "kernel"):
-    if kind != "rwkv":
-        raise NotImplementedError(
-            f"{cfg.name}: the training forward of {kind} layers waits for ROADMAP "
-            "queue item 3 (A13-A15: attention, MoE and hybrid training)")
-    h, _ = ssm.rwkv_tmix(p["tmix"], apply_norm(p["ln_t"], x, cfg.norm_eps), cfg,
-                         wkv_impl=wkv_impl)
-    x = x + h
-    h, _ = ssm.rwkv_cmix(p["cmix"], apply_norm(p["ln_c"], x, cfg.norm_eps), cfg)
-    return x + h
+def _layer_train(p, x, positions, cfg: ModelConfig, kind: str, wkv_impl: str = "kernel"):
+    """One layer of the training and prefill forward; ``positions`` (B, S)
+    reach the attention's rotary embedding (RWKV ignores them)."""
+    if kind == "rwkv":
+        h, _ = ssm.rwkv_tmix(p["tmix"], apply_norm(p["ln_t"], x, cfg.norm_eps), cfg,
+                             wkv_impl=wkv_impl)
+        x = x + h
+        h, _ = ssm.rwkv_cmix(p["cmix"], apply_norm(p["ln_c"], x, cfg.norm_eps), cfg)
+        return x + h
+    h = apply_norm(p["ln1"], x, cfg.norm_eps)
+    x = x + attn.kind_of(cfg).train(p["attn"], h, cfg, positions)
+    h = apply_norm(p["ln2"], x, cfg.norm_eps)
+    return x + apply_mlp(p["mlp"], h)
 
 
 # the outputs a "dots" rematerialisation keeps: matrix products
@@ -184,32 +185,47 @@ def _unbind_layers(tree, n_layers):
     return list(torch.unbind(tree, 0))
 
 
-def _run_segments(seg_params, x, cfg: ModelConfig, remat: str, wkv_impl: str = "kernel"):
+def _run_segments(seg_params, x, cfg: ModelConfig, positions, remat: str,
+                  wkv_impl: str = "kernel"):
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat must be none|full|dots, got {remat!r}")
     for seg, sp in zip(segments_for(cfg), seg_params):
         body = functools.partial(_layer_train, cfg=cfg, kind=seg.kind, wkv_impl=wkv_impl)
         for lp in _unbind_layers(sp, seg.n_layers):
             if remat == "none":
-                x = body(lp, x)
+                x = body(lp, x, positions)
             elif remat == "full":
-                x = checkpoint(body, lp, x, use_reentrant=False)
+                x = checkpoint(body, lp, x, positions, use_reentrant=False)
             else:
-                x = checkpoint(body, lp, x, use_reentrant=False,
+                x = checkpoint(body, lp, x, positions, use_reentrant=False,
                                context_fn=functools.partial(
                                    create_selective_checkpoint_contexts, _save_dots))
     return x
 
 
+def embed_inputs(params, batch, cfg: ModelConfig):
+    """The first layer's input and its positions: the tokens' embeddings,
+    after the projected patch embeddings (``batch["patches"]`` (B, P, d))
+    where the model takes them (``cfg.vis_tokens``); positions count from 0
+    over both. Returns (x (B, S, d), positions (B, S))."""
+    x = embed(params["embed"], batch["tokens"], cfg)
+    if cfg.vis_tokens:
+        vis = batch["patches"].to(x.dtype) @ params["vis_proj"].to(x.dtype)
+        x = torch.cat([vis, x], dim=1)
+    b, s = x.shape[:2]
+    return x, torch.arange(s, device=x.device).expand(b, s)
+
+
 def lm_loss(params, batch, cfg: ModelConfig, remat: str = "full",
             wkv_impl: str = "kernel"):
     """Mean next-token cross-entropy of ``batch`` (``tokens``, ``targets``
-    (B, S) int, ``loss_mask`` (B, S) f32). ``wkv_impl`` as in
+    (B, S) int, ``loss_mask`` (B, S) f32, and ``patches`` where the model
+    takes them) over the text positions. ``wkv_impl`` as in
     ``ssm.rwkv_tmix``."""
     check_supported(cfg)
-    x = embed(params["embed"], batch["tokens"], cfg)
-    x = _run_segments(params["segments"], x, cfg, remat, wkv_impl)
-    h = apply_norm(params["final_norm"], x, cfg.norm_eps)
+    x, positions = embed_inputs(params, batch, cfg)
+    x = _run_segments(params["segments"], x, cfg, positions, remat, wkv_impl)
+    h = apply_norm(params["final_norm"], x, cfg.norm_eps)[:, cfg.vis_tokens:]
     if cfg.loss_chunk:
         return chunked_xent(params["embed"], h, batch["targets"], batch["loss_mask"], cfg,
                             cfg.loss_chunk)
@@ -231,25 +247,29 @@ def _rwkv_cache(cfg: ModelConfig, batch: int, device):
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device):
     """Dense caches, one dict per segment of layer-stacked tensors: GQA
-    (L, batch + 1, seq, KVH, D) (see attention: the spare row); RWKV the
-    per-row state, ``wkv`` (L, batch, H, hs, hs) f32 and the token shifts
-    ``shift_t``/``shift_c`` (L, batch, 1, d_model) bf16."""
+    ``k``/``v`` (L, batch + 1, seq, KVH, D) (see attention: the spare row);
+    MLA the latent ``c`` (L, batch + 1, seq, kv_lora) and ``kr``
+    (L, batch + 1, seq, rope); RWKV the per-row state, ``wkv``
+    (L, batch, H, hs, hs) f32 and the token shifts ``shift_t``/``shift_c``
+    (L, batch, 1, d_model) bf16."""
     check_supported(cfg)
     caches = []
     for s in segments_for(cfg):
-        layer = (_rwkv_cache(cfg, batch, device) if s.kind == "rwkv"
-                 else attn.init_gqa_cache(cfg, batch, seq, device=device))
+        if s.kind == "rwkv":
+            layer = _rwkv_cache(cfg, batch, device)
+        else:
+            layer = attn.kind_of(cfg).init_cache(cfg, batch, seq, device=device)
         caches.append(_stacked(layer, s.n_layers))
     return caches
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device):
-    """Paged caches: block pools (L, num_blocks + 1, block_size, KVH, D)
-    shared by all slots (see attention: the spare block). The reference's
-    per-slot recurrent state and SWA ring pools belong to families the port
-    does not serve yet."""
+    """Paged caches: block pools (L, num_blocks + 1, block_size, ...) shared
+    by all slots (see attention: the spare block), GQA's ``k``/``v`` or
+    MLA's ``c``/``kr``. The reference's per-slot recurrent state and SWA ring
+    pools belong to families the port does not serve yet."""
     check_servable(cfg)
-    layer = attn.init_gqa_cache_paged(cfg, num_blocks, block_size, device=device)
+    layer = attn.kind_of(cfg).init_cache_paged(cfg, num_blocks, block_size, device=device)
     return [_stacked(layer, s.n_layers) for s in segments_for(cfg)]
 
 
@@ -283,11 +303,11 @@ def _layer_decode(p, x, cache, pos, cfg: ModelConfig, kind: str = "attn_mlp", pa
                              "cache and no token-batched slot mapping")
         return _layer_decode_rwkv(p, x, cache, cfg)
     h = apply_norm(p["ln1"], x, cfg.norm_eps)
+    ops = attn.kind_of(cfg)
     if paged is None:
-        a, _ = attn.gqa_decode(p["attn"], h, cache, pos, cfg, slot=slot,
-                               write_ok=write_ok)
+        a, _ = ops.decode(p["attn"], h, cache, pos, cfg, slot=slot, write_ok=write_ok)
     else:
-        a, _ = attn.gqa_decode_paged(
+        a, _ = ops.decode_paged(
             p["attn"], h, cache, pos, cfg, table=paged["table"],
             block_size=paged["block_size"], max_seq=paged["max_seq"],
             write_ok=paged["write_ok"], impl=paged.get("impl", "gather"),

@@ -89,7 +89,9 @@ Where the port differs from ``repro``:
     is, on a ``torch.Generator`` seeded with ``seed``: the same distribution,
     not the same numbers.
   * **Families.** The port serves the families whose segments are all
-    ``attn_mlp`` with GQA attention; the others raise ``NotImplementedError``
+    ``attn_mlp``, with GQA or MLA attention (MLA's caches are the latent
+    ``c``/``kr`` leaves, which every cache walk here reaches as it reaches
+    ``k``/``v``); the others raise ``NotImplementedError``
     (models/transformer.py), so no step-mode or prefix-sharing fallback for
     recurrent or MoE segments is needed. ``mesh=`` raises until ROADMAP A19.
 """

@@ -2,7 +2,11 @@
 of ``repro.train.optimizer``, which it is held against).
 
 The update is in place: parameters and moments are tensors the step
-overwrites, where the reference returns new arrays. Nothing is read back to
+overwrites, where the reference returns new arrays. A leaf of more than
+``UPDATE_PIECE`` elements is walked in pieces of at most that many along its
+leading axis, so its temporaries are two pieces and not two copies of the
+leaf (a 4 GB stacked matrix at minicpm3-4b's full width, where the training
+state leaves 18 GB of the card); a smaller leaf is one piece. Nothing is read back to
 the host: the step counter, the learning rate, the gradient norm and the clip
 scale stay tensors on the parameters' device. ``state_specs`` is a copy of
 the reference's logical-spec rule (the ZeRO 'zero' axis), kept for the
@@ -72,8 +76,18 @@ def lr_at(step, cfg: OptConfig):
     return cfg.lr * warm
 
 
+# elements of a leaf the update computes at a time (256 MB in f32)
+UPDATE_PIECE = 1 << 26
+
+
 def _f32(x):
     return x if x.dtype == torch.float32 else x.to(torch.float32)
+
+
+def _pieces(n_elements: int, rows: int) -> int:
+    """Rows of a leaf's leading axis in each piece of the update."""
+    n = -(-n_elements // UPDATE_PIECE)
+    return max(1, -(-rows // n))
 
 
 @torch.no_grad()
@@ -90,19 +104,24 @@ def adamw_update(params, grads, state, cfg: OptConfig):
     stepf = step.to(torch.float32)
     c1 = 1.0 - torch.pow(b1, stepf)
     c2 = 1.0 - torch.pow(b2, stepf)
-    for p, g, mu, nu in zip(leaves(params), flat_g, leaves(state["mu"]),
-                            leaves(state["nu"])):
-        g = _f32(g) * scale  # not in place: a gradient may be an expanded view
-        mu32, nu32, p32 = _f32(mu), _f32(nu), _f32(p)
-        mu32.mul_(b1).add_(g, alpha=1 - b1)
-        nu32.mul_(b2).addcmul_(g, g, value=1 - b2)
-        del g
-        delta = torch.div(nu32, c2).sqrt_().add_(cfg.eps)
-        delta = torch.div(mu32, c1).div_(delta).add_(p32, alpha=cfg.weight_decay)
-        p32.sub_(delta.mul_(lr))
-        for x, x32 in ((mu, mu32), (nu, nu32), (p, p32)):
-            if x32 is not x:
-                x.copy_(x32)
+    for leaf in zip(leaves(params), flat_g, leaves(state["mu"]), leaves(state["nu"])):
+        if leaf[0].dim() == 0:
+            pieces = [leaf]
+        else:
+            rows = _pieces(leaf[0].numel(), leaf[0].shape[0])
+            pieces = zip(*(torch.split(x, rows) for x in leaf))
+        for p, g, mu, nu in pieces:
+            g = _f32(g) * scale  # not in place: a gradient may be an expanded view
+            mu32, nu32, p32 = _f32(mu), _f32(nu), _f32(p)
+            mu32.mul_(b1).add_(g, alpha=1 - b1)
+            nu32.mul_(b2).addcmul_(g, g, value=1 - b2)
+            del g
+            delta = torch.div(nu32, c2).sqrt_().add_(cfg.eps)
+            delta = torch.div(mu32, c1).div_(delta).add_(p32, alpha=cfg.weight_decay)
+            p32.sub_(delta.mul_(lr))
+            for x, x32 in ((mu, mu32), (nu, nu32), (p, p32)):
+                if x32 is not x:
+                    x.copy_(x32)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
 

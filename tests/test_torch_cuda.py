@@ -340,6 +340,78 @@ def test_server_kernel_path_matches_gather_on_card(card):
     assert pa_kernel.paged_attention.launches > launches
 
 
+def _paged_teacher_forced(cfg, params, seq, impl, card, bs=4):
+    """Logits (f32, true vocab) of ``seq`` teacher-forced one token a call
+    through one slot's paged decode on ``impl``'s read path."""
+    from repro_torch.models import model_zoo
+
+    nb = -(-len(seq) // bs)
+    cache = model_zoo.make_paged_cache(cfg, nb, bs, card)
+    ctx = {"table": torch.arange(nb, dtype=torch.int32, device=card)[None], "block_size": bs,
+           "write_ok": torch.ones(1, dtype=torch.bool, device=card), "max_seq": len(seq),
+           "impl": impl}
+    decode = model_zoo.decode_fn(cfg)
+    out = []
+    for pos, tok in enumerate(seq):
+        logits, _ = decode(params, torch.tensor([tok], dtype=torch.int32, device=card), cache,
+                           torch.tensor([pos], dtype=torch.int32, device=card), paged=ctx)
+        out.append(logits[0, :cfg.vocab_size].float())
+    return torch.stack(out)
+
+
+def _assert_near_tie(cfg, params, prompt, got, want, card):
+    """``got`` (the kernel path's tokens) equals ``want`` (the gather
+    path's) except at a near-tie, as ``assert_greedy_matches`` defines one,
+    with the two read paths of the port in place of the two packages: at
+    the first divergence the gather path's top-2 margin is below the largest
+    spread of the two paths' logit difference along the common history,
+    which stays within DEVIATION_LIMIT."""
+    from test_torch_serve_util import DEVIATION_LIMIT
+
+    assert len(got) == len(want)
+    if got == want:
+        return
+    k = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    seq = list(prompt) + list(want[:k])
+    kl = _paged_teacher_forced(cfg, params, seq, "kernel", card)
+    gl = _paged_teacher_forced(cfg, params, seq, "gather", card)
+    top = torch.topk(gl[-1], 2).values
+    margin = float(top[0] - top[1])
+    delta = kl - gl
+    deviation = float((delta.amax(1) - delta.amin(1)).max())
+    assert deviation <= DEVIATION_LIMIT, ("logits deviate", k, deviation)
+    assert margin < deviation, (k, margin, deviation, got, want)
+    print(f"near-tie at token {k}: gather margin {margin:.4g} < deviation {deviation:.4g}")
+
+
+def test_server_mla_kernel_path_matches_gather_on_card(card):
+    """Reduced minicpm3-4b at its full latent widths (kv_lora 256, rope 32):
+    the absorbed decode hands B5 Dk 288 and Dv 256, which take its tiled
+    body, one kernel a call."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.serving import BatchedServer, Request
+
+    cfg = get_reduced_config("minicpm3-4b", kv_lora_rank=256, qk_rope_head_dim=32)
+    params, _ = model_zoo.init_params(cfg, seed=2, device=card)
+    stream = [([5, 6, 7, 8], 9), ([1, 2], 3), ([9, 3, 9, 4], 5), ([2, 7], 4)]
+
+    def serve(impl):
+        srv = BatchedServer(cfg, params, batch_slots=2, max_seq=24, kv="paged",
+                            block_size=4, step_mode="tokens", prefill_chunk=4,
+                            attn_impl=impl, device=card)
+        for i, (p, n) in enumerate(stream):
+            srv.submit(Request(i, list(p), n))
+        return [r.out for r in srv.run()]
+
+    launches = pa_kernel.paged_attention.launches
+    kernel = serve("kernel")
+    assert pa_kernel.paged_attention.launches > launches
+    assert pa_kernel.paged_attention.kernels == 1
+    for (prompt, _), got, want in zip(stream, kernel, serve("gather")):
+        _assert_near_tie(cfg, params, prompt, got, want, card)
+
+
 def test_lm_predict_on_card_matches_generate_greedy(card, tmp_path):
     """LM PREDICT over a token table on the card, one chunk a page: B3 runs
     once a chunk, and the kept prompts' tokens equal generate_greedy's on

@@ -33,6 +33,18 @@ def test_paged_chunked_smoke(capsys, impl):
     assert "kv=paged" in msg and "blocks" in msg and f"attn={impl}" in msg
 
 
+@pytest.mark.parametrize("impl", ["kernel", "gather"])
+def test_mla_arch_serves_paged_tokens(capsys, impl):
+    """minicpm3-4b (MLA): the absorbed-latent decode, on the kernel path
+    through B5's plain version."""
+    argv = ["--arch", "minicpm3-4b"] + BASE[2:] + ["--kv", "paged", "--block-size", "4",
+                                                   "--prefill-chunk", "3", "--attn-impl", impl]
+    done = serve_cli.main(argv)
+    assert len(done) == 3 and all(len(r.out) == 3 for r in done)
+    msg = capsys.readouterr().out
+    assert "[serve] minicpm3-4b on cpu" in msg and f"attn={impl}" in msg
+
+
 def test_paged_outputs_match_dense(capsys):
     dense = [r.out for r in serve_cli.main(BASE)]
     paged = [r.out for r in serve_cli.main(BASE + ["--kv", "paged", "--block-size", "4"])]

@@ -39,6 +39,17 @@ def test_main_trains_on_both_data_paths(tmp_path, capsys, data_path):
         assert (tmp_path / "tokens.heap").exists()
 
 
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "internlm2-20b"])
+def test_main_trains_the_attention_families(tmp_path, capsys, arch):
+    """An MLA and a GQA model through the attention training forward, from
+    token pages with full rematerialisation."""
+    hist = train_cli.main(["--arch", arch] + ARGS[2:] + [
+        "--steps", "2", "--ckpt-dir", str(tmp_path), "--data-path", "pages",
+        "--remat", "full"])
+    assert f"[train] {arch} (reduced)" in capsys.readouterr().out
+    assert len(hist) == 1 and torch.isfinite(torch.tensor(hist[0]["loss"]))
+
+
 def test_main_without_a_card_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--arch", "rwkv6-3b", "--reduced", "--steps", "1"])

@@ -95,8 +95,8 @@ def test_init_params_is_seeded_and_explicit():
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS])
 def test_unported_families_raise_with_their_names(arch):
     cfg = get_reduced_config(arch)
-    served = cfg.attn_kind == "gqa" and {s.kind for s in transformer.segments_for(cfg)} \
-        == {"attn_mlp"} and cfg.family != "encdec"
+    served = {s.kind for s in transformer.segments_for(cfg)} == {"attn_mlp"} \
+        and cfg.family != "encdec"  # GQA or MLA attention
     if served or cfg.family == "ssm":  # the model stack runs RWKV6; the server does not
         params, _ = model_zoo.init_params(cfg, device=CPU)
         logits, _ = model_zoo.decode_fn(cfg)(

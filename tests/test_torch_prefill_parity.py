@@ -1,0 +1,70 @@
+"""Prefill against decode in the port, for every arch whose attention the
+port serves (a port of ``tests/test_prefill_decode_parity.py``'s
+``test_prefill_equals_decode``): the training-form attention over the whole
+sequence and the per-token cache updates must give the same last-position
+logits. Beside it, the port's prefill against ``repro``'s on the same
+weights (``params_from_numpy``) and tokens.
+
+Tolerances: the reference test's 3e-2 on the logits and an equal argmax;
+for the VLM backbone, whose zero patches still take positions, the argmax
+only, as there. Against ``repro``, ``BF16_LOGITS``: both packages run bf16
+activations and round them at other places (``test_torch_models.py``'s
+bound for the decode logits)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced_config as jreduced
+from repro.models import model_zoo as jzoo
+from repro_torch.configs import get_reduced_config
+from repro_torch.models import model_zoo
+from repro_torch.models.params import params_from_numpy
+from test_torch_serve_util import CPU, one_cpu_thread  # noqa: F401
+
+SEQ = 24
+SERVED = ["internlm2-20b", "mistral-nemo-12b", "deepseek-67b", "internvl2-26b",
+          "minicpm3-4b"]
+BF16_LOGITS = dict(rtol=0, atol=5e-2)
+
+
+def _setup(arch):
+    cfg, jcfg = get_reduced_config(arch), jreduced(arch)
+    jp, _ = jzoo.init_params(jcfg, jax.random.PRNGKey(3))
+    tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device=CPU)
+    tokens = np.random.default_rng(7).integers(1, cfg.vocab_size, (2, SEQ)).astype(np.int32)
+    batch = {"tokens": tokens}
+    if cfg.vis_tokens:
+        # the decode path has no patch injection: zero patches stand in
+        batch["patches"] = np.zeros((2, cfg.vis_tokens, cfg.d_model), np.float32)
+    return cfg, jcfg, jp, tp, batch
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_prefill_equals_decode(arch):
+    cfg, _, _, tp, batch = _setup(arch)
+    tokens = torch.from_numpy(batch["tokens"])
+    with torch.no_grad():
+        want = model_zoo.prefill_fn(cfg)(tp, {k: torch.from_numpy(v) for k, v in batch.items()})
+        step = model_zoo.decode_fn(cfg)
+        cache = model_zoo.make_cache(cfg, 2, SEQ + cfg.vis_tokens + 1, CPU)
+        for t in range(SEQ):
+            logits, cache = step(tp, tokens[:, t], cache, cfg.vis_tokens + t)
+    got, ref = logits.float().numpy(), want.float().numpy()
+    assert got.shape == ref.shape == (2, cfg.padded_vocab)
+    if not cfg.vis_tokens:
+        np.testing.assert_allclose(got, ref, rtol=3e-2, atol=3e-2, err_msg=arch)
+    assert np.all(got.argmax(-1) == ref.argmax(-1)), arch
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("arch", SERVED)
+def test_prefill_matches_repro(arch, remat):
+    cfg, jcfg, jp, tp, batch = _setup(arch)
+    want = np.asarray(jzoo.prefill_fn(jcfg, remat=remat)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()}), np.float32)
+    with torch.no_grad():
+        got = model_zoo.prefill_fn(cfg, remat=remat)(
+            tp, {k: torch.from_numpy(v) for k, v in batch.items()}).float().numpy()
+    np.testing.assert_allclose(got, want, **BF16_LOGITS, err_msg=arch)

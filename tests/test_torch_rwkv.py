@@ -43,7 +43,6 @@ def _uncast(monkeypatch):
     monkeypatch.setattr(jzoo, "unembed", lambda p, x, cfg: x @ p["unembed"])
     monkeypatch.setattr(transformer, "embed", lambda p, t, cfg: p["table"][t])
     monkeypatch.setattr(transformer, "unembed", lambda p, x, cfg: x @ p["unembed"])
-    monkeypatch.setattr(model_zoo, "embed", lambda p, t, cfg: p["table"][t])
     monkeypatch.setattr(model_zoo, "unembed", lambda p, x, cfg: x @ p["unembed"])
 
 
@@ -228,11 +227,13 @@ def test_train_step_matches_repro(monkeypatch):
 
 
 def test_attention_families_do_not_train_yet():
+    """Of the attention families, the GQA and MLA ones with dense layers
+    train now (``test_torch_attention.py`` holds them against ``repro``); the
+    MoE ones do not yet."""
     cfg = get_reduced_config("mistral-nemo-12b")
     params, _ = model_zoo.init_params(cfg, device=CPU)
     batch = model_zoo.demo_batch(cfg, 1, 8, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_zoo.loss_fn(cfg, "none")(params, batch)
+    assert torch.isfinite(model_zoo.loss_fn(cfg, "none")(params, batch))
     with pytest.raises(NotImplementedError, match="A14"):
         model_zoo.loss_fn(get_reduced_config("olmoe-1b-7b"))
 

@@ -272,6 +272,30 @@ def test_adamw_update_matches_repro():
     assert int(tstate["step"]) == int(jstate["step"]) == 3
 
 
+def test_adamw_update_in_pieces_is_the_same_update(monkeypatch):
+    """Walking each leaf in pieces along its leading axis (here of 7
+    elements, so stacked leaves split mid-layer)
+    gives the same bits as one piece a leaf: the update is elementwise."""
+    from repro_torch.train import optimizer
+
+    _, _, npt, _ = _rwkv_trees()
+    rng = np.random.default_rng(3)
+    ngrads = jax.tree.map(lambda a: rng.normal(0, 1e-2, a.shape).astype(np.float32), npt)
+    cfg = get_reduced_config("rwkv6-3b")
+    out = []
+    for piece in (1 << 40, 7):
+        monkeypatch.setattr(optimizer, "UPDATE_PIECE", piece)
+        tp = params_from_numpy(cfg, npt, device=CPU, dtype=torch.float32)
+        state = adamw_init(tp, OptConfig(lr=1e-2, warmup_steps=3))
+        for _ in range(2):
+            grads = params_from_numpy(cfg, ngrads, device=CPU, dtype=torch.float32)
+            tp, state, _ = adamw_update(tp, grads, state, OptConfig(lr=1e-2, warmup_steps=3))
+        out.append(list(leaves(tp)) + list(leaves(state["mu"])) + list(leaves(state["nu"])))
+    assert optimizer._pieces(100, 10) == 1 and optimizer._pieces(28, 8) == 2
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
 def test_checkpoints_cross_between_the_packages(tmp_path):
     cfg, jp, npt, tp = _rwkv_trees()
     jstate = {"params": jp, "opt": jopt.adamw_init(jp, jopt.OptConfig())}
