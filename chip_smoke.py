@@ -18,8 +18,11 @@ Phases, one JSON line each:
            tests/test_torch_predict_plan.py's cases (the scan's chunk, ragged
            N, odd and wide D, x off the 16-byte grid, no live row, one dead
            tile; a bool mask bit for bit the f32 one's), and paged attention at rtol=atol=2e-5
-           over the CPU tests' cases, with and without their runs, and the
-           MLA shapes (the reference's own tolerances), the WKV forward and backward at rtol=atol=2e-4 over
+           over the CPU tests' cases, with and without their runs, the
+           MLA shapes through the generic entry (the tiled body) and the
+           latent entry's cases (its latent body; minicpm3-4b's and
+           deepseek-v3's latents among them) (the reference's own
+           tolerances), the WKV forward and backward at rtol=atol=2e-4 over
            the CPU tests' cases and the training shape (bf16 outputs within
            one bf16 step), each deterministic, with the forward's chunk
            states and the backward's state gradients against their plain
@@ -58,14 +61,15 @@ Phases, one JSON line each:
   launch   launch/serve.py's main() at the same full configuration
   serve-mla  minicpm3-4b (62 layers, full width, bf16 weights from seed 0)
            serving the same 48 requests the same way: the absorbed-latent
-           decode is one B5 call a layer at KVH 1, G 40, Dk 288, Dv 256 (the
-           tiled body), K = [c ; kr] concatenated over the pool at each call;
-           every request FINISHED, B5 62 times a fused step, the gather path
-           token for token except at reported near-ties within
-           DEVIATION_LIMIT, one host read per fused step, 5 profiled steps
-           (B5's share and the concatenations' device time); B5's calls at
-           step 100 and at the decode-only step with the most context
-           captured for the kernels line
+           decode is one call a layer of B5's latent entry at G 40, Dc 256,
+           Dr 32 over the cache's c and kr pools (the latent body; no
+           concatenation of a pool, checked on the largest torch.cat of 24
+           steps); every request FINISHED, B5 62 times a fused step, each on
+           the latent body, the gather path token for token except at
+           reported near-ties within DEVIATION_LIMIT, one host read per fused
+           step, 5 profiled steps (B5's share and every torch.cat's device
+           time); B5's calls at step 100 and at the decode-only step with the
+           most context captured for the kernels line
   lm-predict  the same model registered as an LM UDF (register_lm_udf: its
            24.5 GB weights file written beside the catalog, the disk's free
            bytes printed first, loaded back onto the card bit for bit), then
@@ -109,9 +113,12 @@ Phases, one JSON line each:
            rows; B5 at both captured
            calls, with their runs and without, beside its bounds on each
            distinct K/V row, on each run's context and token by token, and
-           under "mla" serve-mla's two calls (the tiled body, which ignores
-           runs), with the bound on the latent's own bytes and the gather
-           path's composite as the library yardstick; B6's
+           under "mla" serve-mla's two calls (the latent body, its CTAs
+           launched and live), with the bound on the latent's own bytes and
+           on q·K and P·V in three parts at the bf16 tensor rate, the
+           tiled body's bound (P·V at the f32 rate) beside it, the [c ; kr]
+           pool concatenation that path made before each call, and the
+           gather path's composite as the library yardstick; B6's
            two kernels and B6-bwd's three a call, each one's time,
            registers and CTAs per SM, beside the bytes its design moves
 
@@ -158,8 +165,8 @@ TEMPLATE_LEN = 256
 TEMPLATE_ONLY = (4, 30)
 # the serve-mla and train-mla phases: minicpm3-4b at full width and depth,
 # (layers, d_model, heads, q_lora, kv_lora, rope, nope, v, d_ff, vocab) of
-# configs/minicpm3_4b.py; its absorbed decode is one B5 call a layer at
-# KVH 1, G 40, Dk 288, Dv 256 (the tiled body)
+# configs/minicpm3_4b.py; its absorbed decode is one call a layer of B5's
+# latent entry at G 40, Dc 256, Dr 32 (the latent body)
 SERVE_MLA_ARCH = "minicpm3-4b"
 MLA_FIELDS = ("n_layers", "d_model", "n_heads", "q_lora_rank", "kv_lora_rank",
               "qk_rope_head_dim", "qk_nope_head_dim", "v_head_dim", "d_ff", "vocab_size")
@@ -168,7 +175,7 @@ MLA_WIDTH = (62, 2560, 40, 768, 256, 32, 64, 64, 6400, 73448)
 # 65.2 GB of master, gradient and moments), 4 steps
 MLA_TRAIN_BATCH, MLA_TRAIN_STEPS = 4, 4
 # torch.cat's kernels in a profile: on the MLA kernel path, each layer's
-# [c ; kr] pool and [q_lat ; qr] queries
+# [q_lat ; qr] queries and rope halves (no pool)
 CAT_KERNELS = "CatArrayBatchedCopy"
 # the most that two sound computations' greedy logits may deviate (largest
 # spread over the vocab of their difference, teacher-forced) before a
@@ -522,6 +529,7 @@ def _wrappers():
             "strider_decode_projected": strider_kernel.strider_decode_projected,
             "glm_predict": glm_kernel.glm_predict,
             "paged_attn": pa_kernel.paged_attention,
+            "paged_latent_attn": pa_kernel.paged_latent_attention,
             "wkv": wkv_kernel.wkv_forward,
             "wkv_bwd": wkv_kernel.wkv_backward}
 
@@ -735,9 +743,10 @@ def phase_e2e():
 
     want = {"strider_decode": EPOCHS * n_chunks, "glm_sgd_chunk": EPOCHS * n_chunks,
             "glm_grad": 0, "strider_decode_projected": 0, "glm_predict": 0, "paged_attn": 0,
-            "wkv": 0, "wkv_bwd": 0}
+            "paged_latent_attn": 0, "wkv": 0, "wkv_bwd": 0}
     if launches != want or want != dict(EXPECT["launches"], strider_decode_projected=0,
-                                        glm_predict=0, paged_attn=0, wkv=0, wkv_bwd=0):
+                                        glm_predict=0, paged_attn=0, paged_latent_attn=0,
+                                        wkv=0, wkv_bwd=0):
         raise AssertionError(f"launches {launches}, expected {want}")
     if res.device_syncs != EPOCHS or res.epochs_run != EPOCHS or len(sync_at) != EPOCHS:
         raise AssertionError(f"device_syncs {res.device_syncs} != {EPOCHS}")
@@ -874,7 +883,7 @@ def _predict_phase(heap, res, db, n_chunks, joins):
             "glm_sgd_chunk": EXPECT["launches"]["glm_sgd_chunk"],
             "glm_grad": EXPECT["launches"]["glm_grad"],
             "strider_decode_projected": 3 * n_chunks, "glm_predict": 3 * n_chunks,
-            "paged_attn": 0, "wkv": 0, "wkv_bwd": 0}
+            "paged_attn": 0, "paged_latent_attn": 0, "wkv": 0, "wkv_bwd": 0}
     if launches != want:
         raise AssertionError(f"predict-path launches {launches}, expected {want}")
     if [n for n, _ in joins] != [n_chunks] * 3:
@@ -1269,35 +1278,55 @@ def phase_parity_paged_attn():
     import numpy as np
     import torch
 
-    from test_torch_paged_attn_cases import CASES, make
+    from test_torch_paged_attn_cases import CASES, LATENT_CASES, make
     from repro_torch.kernels.paged_attn import kernel, ref
 
     cases = {name: fn() for name, fn in CASES.items()}
-    # the absorbed-MLA call shapes a later slice gives the kernel: one kv
-    # head, G = n_heads, Dk = kv_lora + rope, Dv = kv_lora
+    # the absorbed-MLA call shapes through the generic entry (separate K and
+    # V pools): one kv head, G = n_heads, Dk = kv_lora + rope, Dv = kv_lora
     for g, dk, dv in ((40, 288, 256), (128, 576, 512)):
         cases[f"mla_g{g}_dk{dk}_dv{dv}"] = make(t=7, kvh=1, g=g, dk=dk, dv=dv, nb_slot=8, bs=16,
                                                num_blocks=64, seed=g, bf16=True,
                                                scale=1 / np.sqrt(dk))
-    worst = 0.0
-    for name, (q, k, v, table, pos, kw, bf16, runs) in cases.items():
-        dt = torch.bfloat16 if bf16 else torch.float32
-        q, k, v = (torch.from_numpy(a).cuda().to(dt) for a in (q, k, v))
-        table, pos = torch.from_numpy(table).cuda(), torch.from_numpy(pos).cuda()
-        plain = ref.paged_attn_ref(q, k, v, table, pos, **kw)
+    worst, bodies = 0.0, {}
+
+    def check(name, call, plain, args, kw, runs):
         # without runs (every row its own run), then with the case's runs
         for hint in (None, torch.from_numpy(runs).cuda()):
-            got = kernel.paged_attention(q, k, v, table, pos, runs=hint, **kw)
-            again = kernel.paged_attention(q, k, v, table, pos, runs=hint, **kw)
+            got = call(*args, runs=hint, **kw)
+            body = call.body
+            again = call(*args, runs=hint, **kw)
             what = f"{name}, {'no runs' if hint is None else 'runs'}"
             torch.testing.assert_close(got, plain, rtol=2e-5, atol=2e-5, msg=what)
             if not torch.equal(got, again):
                 raise AssertionError(f"paged_attn is not deterministic: {what}")
-            worst = max(worst, float((got - plain).abs().max()))
-    emit({"phase": "parity", "kernel": "paged_attn", "cases": len(cases),
-          "names": sorted(cases), "with_and_without_runs": True, "rtol": 2e-5, "atol": 2e-5,
-          "max_abs_err": worst, "deterministic": True})
+            bodies[what] = body
+        return float((got - plain).abs().max())
 
+    for name, (q, k, v, table, pos, kw, bf16, runs) in cases.items():
+        dt = torch.bfloat16 if bf16 else torch.float32
+        args = [torch.from_numpy(a).cuda().to(dt) for a in (q, k, v)]
+        args += [torch.from_numpy(table).cuda(), torch.from_numpy(pos).cuda()]
+        worst = max(worst, check(name, kernel.paged_attention,
+                                 ref.paged_attn_ref(*args, **kw), args, kw, runs))
+    # the latent entry over the pools c and kr: minicpm3-4b's and
+    # deepseek-v3's shapes among the cases
+    for name, fn in LATENT_CASES.items():
+        q, c, kr, table, pos, kw, _, runs = fn()
+        args = [torch.from_numpy(a).cuda().to(torch.bfloat16) for a in (q, c, kr)]
+        args += [torch.from_numpy(table).cuda(), torch.from_numpy(pos).cuda()]
+        worst = max(worst, check(f"latent_{name}", kernel.paged_latent_attention,
+                                 ref.paged_latent_attn_ref(*args, **kw), args, kw, runs))
+    for what, body in bodies.items():
+        want = "latent" if what.startswith("latent_") else \
+            "tiled" if what.startswith("mla_") else None
+        if want and body != want:
+            raise AssertionError(f"{what} ran the {body} body, not the {want} body")
+    emit({"phase": "parity", "kernel": "paged_attn", "cases": len(cases) + len(LATENT_CASES),
+          "names": sorted(cases) + [f"latent_{n}" for n in sorted(LATENT_CASES)],
+          "with_and_without_runs": True, "rtol": 2e-5, "atol": 2e-5,
+          "max_abs_err": worst, "deterministic": True,
+          "bodies": {b: sum(v == b for v in bodies.values()) for b in set(bodies.values())}})
 
 def _serve_stream(vocab: int):
     """The serve phase's traffic, from seed 0: (rid, prompt, priority, arrival
@@ -1488,7 +1517,8 @@ def phase_serve():
 
 def phase_serve_mla():
     """minicpm3-4b (MLA) served at full width and depth: the absorbed-latent
-    decode through B5's tiled body (Dk 288, Dv 256) and the gather path."""
+    decode through B5's latent entry (Dc 256, Dr 32, the latent body) and
+    the gather path."""
     import gc
 
     import torch
@@ -1502,8 +1532,9 @@ def phase_serve_mla():
 def _serve_phase(arch, phase, compare_chunked):
     """``arch`` at full width and depth, bf16 weights from seed 0, serving
     the 48-request stream on the kernel path (every request FINISHED, B5
-    once a layer a fused step, sharing ran; B5's first call at step 100 and
-    its decode-only call with the most context captured), then the same
+    once a layer a fused step on the body its attention kind takes, sharing
+    ran; B5's first call at step 100 and its decode-only call with the most
+    context captured), then the same
     stream on the gather path token for token up to near-ties, one host read
     per fused step over 24 steps, and 5 profiled steps. With
     ``compare_chunked``, also 8 requests through chunked stepping and the
@@ -1539,31 +1570,40 @@ def _serve_phase(arch, phase, compare_chunked):
     if main.attn_impl != "kernel" or main.step_mode != "tokens" or not main.prefix_cache:
         raise AssertionError("the server did not take the kernel path with token stepping")
     forwards = _count_forwards(main)
-    real = pa_kernel.paged_attention
+    # GQA calls B5's generic entry (the split body), MLA its latent entry
+    # (the latent body, over the cache's c and kr pools)
+    latent = cfg.attn_kind == "mla"
+    entry, want_body = ("paged_latent_attn", "latent") if latent else ("paged_attn", "split")
+    real = pa_kernel.paged_latent_attention if latent else pa_kernel.paged_attention
     captured, decode = {}, {"ctx": -1, "seen": -1}
+    calls = {"bodies": {}, "kernels": {}, "ctas": {}}
 
-    def keep(into, q, k_pool, v_pool, table, pos, kw):
-        into.update(q=q.clone(), k_pool=k_pool.clone(), v_pool=v_pool.clone(),
+    def keep(into, q, pools, table, pos, kw):
+        into.update(q=q.clone(), pools=tuple(x.clone() for x in pools), latent=latent,
                     table=table.clone(), pos=pos.clone(), runs=kw["runs"].clone(),
                     kw={k: v for k, v in kw.items() if k != "runs"}, step=main.step_no)
 
-    def capture(q, k_pool, v_pool, table, pos, **kw):
+    def capture(q, pool_a, pool_b, table, pos, **kw):
         if not captured and main.step_no >= 100:
-            keep(captured, q, k_pool, v_pool, table, pos, kw)
+            keep(captured, q, (pool_a, pool_b), table, pos, kw)
         # the decode-only step (every row a run of one) with the most context,
         # judged on the host at its first call, so the run makes no host read
         if kw["runs"].shape[0] == q.shape[0] and decode["seen"] != main.step_no:
             decode["seen"] = main.step_no
             ctx = sum(int(main._positions[i]) for i, r in enumerate(main.active) if r is not None)
             if ctx > decode["ctx"]:
-                keep(decode, q, k_pool, v_pool, table, pos, kw)
+                keep(decode, q, (pool_a, pool_b), table, pos, kw)
                 decode["ctx"] = ctx
-        return real(q, k_pool, v_pool, table, pos, **kw)
+        out = real(q, pool_a, pool_b, table, pos, **kw)
+        for key, value in (("bodies", real.body), ("kernels", real.kernels)) + (
+                (("ctas", real.grid[0]),) if latent else ()):
+            calls[key][value] = calls[key].get(value, 0) + 1
+        return out
 
     zero_launches()
     # the wrapper counts its launches on itself, so the capture goes between
     # ops and the kernel module rather than in the module's place
-    pa_ops.kernel = types.SimpleNamespace(paged_attention=capture)
+    pa_ops.kernel = types.SimpleNamespace(**{real.__name__: capture})
     try:
         t0 = time.perf_counter()
         done = _Arrivals(main, stream).run()
@@ -1577,11 +1617,13 @@ def _serve_phase(arch, phase, compare_chunked):
     if sorted(done) != list(range(SERVE_REQUESTS)) or \
             any(r.status != sched.FINISHED or len(r.out) != SERVE_MAX_NEW for r in done.values()):
         raise AssertionError("not every request FINISHED with its 64 tokens")
-    if launches["paged_attn"] != cfg.n_layers * forwards[0] or forwards[0] == 0:
-        raise AssertionError(f"paged_attn launched {launches['paged_attn']} times over "
+    if launches[entry] != cfg.n_layers * forwards[0] or forwards[0] == 0:
+        raise AssertionError(f"{entry} launched {launches[entry]} times over "
                              f"{forwards[0]} fused decodes of {cfg.n_layers} layers")
-    if any(v for k, v in launches.items() if k != "paged_attn"):
+    if any(v for k, v in launches.items() if k != entry):
         raise AssertionError(f"the serve path launched other kernels: {launches}")
+    if set(calls["bodies"]) != {want_body}:
+        raise AssertionError(f"B5's calls ran the bodies {calls['bodies']}, not {want_body}")
     if m.prefix_hits == 0 or m.cow_splits == 0:
         raise AssertionError(f"prefix hits {m.prefix_hits}, copy-on-write splits "
                              f"{m.cow_splits}: sharing did not run")
@@ -1625,12 +1667,30 @@ def _serve_phase(arch, phase, compare_chunked):
 
     # one host read per fused step, under the sync debug mode, over the first
     # 24 steps of the stream (admission, shared prefixes, prefill and decode)
+    # (and the largest torch.cat of those steps against a layer's largest
+    # cache pool: no call concatenates a pool)
     synced = _Arrivals(server(), stream)
-    where, _ = _synchronizing_calls(lambda: synced.run(max_steps=24), [])
+    largest_cat, real_cat = [0], torch.cat
+
+    def recording_cat(tensors, *args, **kw):
+        out = real_cat(tensors, *args, **kw)
+        largest_cat[0] = max(largest_cat[0], out.numel() * out.element_size())
+        return out
+
+    torch.cat = recording_cat
+    try:
+        where, _ = _synchronizing_calls(lambda: synced.run(max_steps=24), [])
+    finally:
+        torch.cat = real_cat
     reads = sum(where.values())
     if reads != 24 or len(where) != 1 or \
             not next(iter(where)).startswith("src/repro_torch/serve/serving.py:"):
         raise AssertionError(f"expected one host read per fused step over 24 steps: {where}")
+    pool_bytes = max(x[0].numel() * x.element_size() for seg in synced.server.cache
+                     for x in seg.values())
+    if largest_cat[0] >= pool_bytes:
+        raise AssertionError(f"a torch.cat of {largest_cat[0]} bytes on the serve path: a "
+                             f"layer's largest pool holds {pool_bytes}")
 
     # the card's busy and idle share over 5 steps of the same server, after
     # 5 untraced steps timed alone
@@ -1665,6 +1725,9 @@ def _serve_phase(arch, phase, compare_chunked):
               "rids": sorted(cdone), "near_ties": len(chunked_ties),
               "divergences": chunked_ties, "probe": chunked_probe},
           "syncs": {"steps": 24, "synchronizing_calls": reads, "where": where},
+          "largest_cat_bytes": largest_cat[0], "layer_pool_bytes": pool_bytes,
+          "b5": {"entry": entry, "bodies": calls["bodies"],
+                 "kernels_per_call": calls["kernels"], "ctas_launched": calls["ctas"] or None},
           "captures": {"mixed_step": captured["step"], "decode_only_step": decode["step"],
                        "decode_only_context": decode["ctx"]},
           "profile": {"steps": 5, "traced_s": traced_s, "untraced_s": untraced_s,
@@ -1705,57 +1768,76 @@ def phase_launch_serve():
           "lines": lines[:8], "launches": launches})
 
 
-def _paged_attn_call(cap, latent=False):
+def _paged_attn_call(cap):
     """Kernel, plain and library times of one captured B5 call, with the
     call's runs and without (every row its own run), and its bounds: each
-    distinct K/V row once (the bound), each run's context once (what the
-    kernel reads with runs) and each token's rows (without). ``latent``: an
-    absorbed-MLA call (one kv head, K = [c ; kr], V = c), which takes the
-    tiled body: that body ignores runs, so one time; its library yardstick
-    is the gather path's composite, and beside the bound on the bytes handed
-    to the kernel stands the latent's own (V is K's first Dv columns)."""
+    distinct context row once (the bound), each run's context once (what the
+    kernel reads with runs) and each token's rows (without). A latent call
+    (the absorbed MLA through the latent entry: q (T, H, Dc + Dr) over the
+    cache's pools c and kr, K = [c ; kr], V = c) also gives its body and its
+    CTAs launched and live; its bound is on the latent's own bytes and on
+    q·K plus P·V in three bf16 parts at the bf16 tensor rate (the tiled
+    body's, with P·V at the f32 rate over the bytes of K and V, beside it as
+    ``pv_f32_bound_ms``); its library yardstick is the gather path's
+    composite, and the [c ; kr] concatenation of the pool that the call
+    through the generic entry needed is timed as ``parent_concat_ms``."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attn import kernel, ref
 
     q, table, pos, runs, kw = cap["q"], cap["table"], cap["pos"], cap["runs"], cap["kw"]
-    pools = [(cap["k_pool"], cap["v_pool"])]
+    latent = cap["latent"]
+    call = kernel.paged_latent_attention if latent else kernel.paged_attention
+    plain_fn = ref.paged_latent_attn_ref if latent else ref.paged_attn_ref
+    pools = [cap["pools"]]
     # three more copies of the layer's pools, so each call in turn finds the
     # pools out of the 50 MB L2, as the next layer's call does
-    pools += [(k.clone(), v.clone()) for k, v in pools * 3]
-    plain = ref.paged_attn_ref(q, *pools[0], table, pos, **kw)
-    err, kernels = 0.0, {}
-    for name, hint in (("runs", runs),) + ((("no_runs", None),) if not latent else ()):
-        got = kernel.paged_attention(q, *pools[0], table, pos, runs=hint, **kw)
-        kernels[name] = kernel.paged_attention.kernels
+    pools += [tuple(x.clone() for x in pair) for pair in pools * 3]
+    plain = plain_fn(q, *pools[0], table, pos, **kw)
+    err, kernels, bodies, grids = 0.0, {}, {}, {}
+    for name, hint in (("runs", runs), ("no_runs", None)):
+        got = call(q, *pools[0], table, pos, runs=hint, **kw)
+        kernels[name], bodies[name] = call.kernels, call.body
+        if latent:
+            grids[name] = call.grid
         e = float((got - plain).abs().max())
         if e > 2e-5 + 2e-5 * float(plain.abs().max()):
             raise AssertionError(f"paged_attn ({name}) differs by {e} at the captured call")
         err = max(err, e)
-    t, kvh, g, dk = q.shape
-    dv = pools[0][1].shape[-1]
+    if latent:
+        t, g, dk = q.shape
+        kvh, dv = 1, pools[0][0].shape[-1]
+    else:
+        t, kvh, g, dk = q.shape
+        dv = pools[0][1].shape[-1]
     bs = kw["block_size"]
+    elt = pools[0][0].element_size()
     last = torch.minimum(pos, torch.tensor(kw["max_rows"] - 1, device=pos.device))
     rows = int((last + 1).sum())
-    per_row = kvh * (dk + dv) * pools[0][0].element_size()
+    # bytes a context row costs: K and V of every kv head; the latent's own
+    # c and kr (V is c) for a latent call
+    per_row = dk * elt if latent else kvh * (dk + dv) * elt
     io_bytes = (q.numel() * q.element_size() + t * kvh * g * dv * 4
                 + (table.numel() + pos.numel() + runs.numel()) * 4)
-    # the bound counts each K/V row once: the tokens of one slot, and the
+    # the bound counts each context row once: the tokens of one slot, and the
     # slots that share the template, read the same rows
     tab, lst = table.tolist(), last.tolist()
     unique = {(tab[i][n // bs], n % bs) for i in range(t) for n in range(lst[i] + 1)}
     grouped = sum(max(lst[f:f + n]) + 1 for f, n in runs.tolist())
     unique_bytes = len(unique) * per_row + io_bytes
-    # q·K has bf16 operands (products exact in f32): the bf16 tensor rate;
-    # P·V takes the f32 probabilities: the f32 rate. The two times add
     qk_flops, pv_flops = 2 * rows * kvh * g * dk, 2 * rows * kvh * g * dv
     flops = qk_flops + pv_flops
+    # q·K has bf16 operands (products exact in f32): the bf16 tensor rate.
+    # P·V takes the f32 probabilities: the split body's at the f32 rate; the
+    # latent body's on the tensor cores in three bf16 parts, 3 x its
+    # operations at the bf16 rate. The two times add
+    pv_f32_ops_ms = 1e3 * (qk_flops / BF16_FLOPS + pv_flops / F32_FLOPS)
+    bound_ops_ms = 1e3 * (qk_flops + 3 * pv_flops) / BF16_FLOPS if latent else pv_f32_ops_ms
     bound_bytes_ms = 1e3 * unique_bytes / HBM_BYTES_PER_S
-    bound_ops_ms = 1e3 * (qk_flops / BF16_FLOPS + pv_flops / F32_FLOPS)
 
     def timed(fn):
-        return device_ms([lambda k=k, v=v: fn(k, v) for k, v in pools] * 5)
+        return device_ms([lambda a=a, b=b: fn(a, b) for a, b in pools] * 5)
 
     mask = (torch.arange(table.shape[1] * bs, device=q.device)[None, :] <= last[:, None])
 
@@ -1766,15 +1848,14 @@ def _paged_attn_call(cap, latent=False):
             q.reshape(t, kvh * g, 1, dk), gk, gv, attn_mask=mask[:, None, None, :],
             scale=kw["scale"], enable_gqa=g > 1)
 
-    def latent_library(k, v):
+    def latent_library(c, kr):
         # the gather path's absorbed attention: c and kr gathered through
         # the table, the two score products in bf16, softmax, P·c in f32
         tl = table.long()
-        gc = v[:, :, 0][tl].reshape(t, -1, dv)
-        gkr = k[:, :, 0, dv:][tl].reshape(t, -1, dk - dv)
-        qh = q[:, 0]
-        scores = (torch.einsum("thr,tsr->ths", qh[..., :dv], gc)
-                  + torch.einsum("thk,tsk->ths", qh[..., dv:], gkr))
+        gc = c[tl].reshape(t, -1, dv)
+        gkr = kr[tl].reshape(t, -1, dk - dv)
+        scores = (torch.einsum("thr,tsr->ths", q[..., :dv], gc)
+                  + torch.einsum("thk,tsk->ths", q[..., dv:], gkr))
         scores = scores.float() * kw["scale"] + torch.where(mask, 0.0, -1e9)[:, None]
         return torch.einsum("ths,tsr->thr", torch.softmax(scores, -1), gc.float())
 
@@ -1782,20 +1863,23 @@ def _paged_attn_call(cap, latent=False):
         library = latent_library
     torch.testing.assert_close(library(*pools[0]).float().reshape(plain.shape), plain,
                                rtol=2e-2, atol=2e-2)
-    def with_runs(k, v):
-        return kernel.paged_attention(q, k, v, table, pos, runs=runs, **kw)
 
+    def with_runs(a, b):
+        return call(q, a, b, table, pos, runs=runs, **kw)
+
+    shape = (f"q {tuple(q.shape)}, pools {' and '.join(str(tuple(x.shape)) for x in pools[0])}"
+             f" bf16, table {tuple(table.shape)}, positions {int(pos.min())}-{int(pos.max())}, "
+             f"{runs.shape[0]} runs of {min(runs[:, 1].tolist())}-{max(runs[:, 1].tolist())} "
+             f"rows, captured at step {cap['step']}")
     out = {
-        "shape": (f"q ({t}, {kvh}, {g}, {dk}) bf16, pools {tuple(pools[0][0].shape)} bf16, "
-                  f"table {tuple(table.shape)}, positions {int(pos.min())}-{int(pos.max())}, "
-                  f"{runs.shape[0]} runs of {min(runs[:, 1].tolist())}-"
-                  f"{max(runs[:, 1].tolist())} rows, captured at step {cap['step']}"),
+        "shape": shape,
         "max_abs_err": err,
         "ms": timed(with_runs),
-        "host_ms": eager_ms([lambda k=k, v=v: with_runs(k, v) for k, v in pools] * 5),
-        "plain_ms": timed(lambda k, v: ref.paged_attn_ref(q, k, v, table, pos, **kw)),
+        "no_runs_ms": timed(lambda a, b: call(q, a, b, table, pos, **kw)),
+        "host_ms": eager_ms([lambda a=a, b=b: with_runs(a, b) for a, b in pools] * 5),
+        "plain_ms": timed(lambda a, b: plain_fn(q, a, b, table, pos, **kw)),
         "library_ms": timed(library),
-        "kernels_per_call": kernels,
+        "body": bodies, "kernels_per_call": kernels,
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "bound_bytes": unique_bytes, "unique_rows": len(unique), "flops": flops,
@@ -1809,18 +1893,25 @@ def _paged_attn_call(cap, latent=False):
                                   bound_ops_ms),
     }
     if latent:
-        latent_bytes = len(unique) * kvh * dk * pools[0][0].element_size() + io_bytes
-        # the layer's K pool, [c ; kr] over the whole pool, as the kernel
-        # path builds it before each call
-        lat = [(v[:, :, 0].clone(), k[:, :, 0, dv:].clone()) for k, v in pools]
-        out.update(latent_bound_bytes=latent_bytes,
-                   latent_bound_ms=max(1e3 * latent_bytes / HBM_BYTES_PER_S, bound_ops_ms),
-                   k_pool_concat_ms=device_ms([lambda c=c, r=r: torch.cat([c, r], dim=-1)
-                                               for c, r in lat] * 5),
-                   k_pool_concat_bytes=sum(x.numel() * x.element_size() for x in lat[0]) * 2)
-    else:
-        out["no_runs_ms"] = timed(lambda k, v: kernel.paged_attention(q, k, v, table, pos,
-                                                                        **kw))
+        kv_bytes = len(unique) * (dk + dv) * elt + io_bytes  # K and V handed over apart
+
+        def items(split, groups):
+            # the latent kernel's work: each run's live splits x its passes
+            # of 64 query rows
+            return sum(-(-(max(lst[f:f + n]) + 1) // split) * -(-n * g // 64)
+                       for f, n in groups)
+
+        out.update(
+            pv_f32_bound_ms=max(1e3 * kv_bytes / HBM_BYTES_PER_S, pv_f32_ops_ms),
+            pv_f32_ops_bound_ms=pv_f32_ops_ms, kv_bytes=kv_bytes,
+            ctas={name: {"launched": grids[name][0], "split_rows": grids[name][1],
+                         "items": n_items, "live": min(grids[name][0], n_items)}
+                  for name in grids
+                  for n_items in [items(grids[name][1], runs.tolist() if name == "runs"
+                                        else [(i, 1) for i in range(t)])]},
+            parent_concat_ms=device_ms([lambda c=c, r=r: torch.cat([c, r], dim=-1)
+                                        for c, r in pools] * 5),
+            parent_concat_bytes=sum(x.numel() * x.element_size() for x in pools[0]) * 2)
     return out
 
 
@@ -1828,19 +1919,19 @@ def kernel_row_paged_attn(captured, launches, mla_captured, mla_launches):
     """B5's row of the kernels line: the serve phase's step-100 call (prefill
     runs beside decode rows), and beside it its decode-only call with the
     most context (every row a run of one); under ``mla`` the same two calls
-    of the serve-mla phase (the tiled body). ``launches`` counts both
+    of the serve-mla phase (the latent entry). ``launches`` counts both
     phases' main paths."""
     mixed = _paged_attn_call(captured)
     decode = _paged_attn_call(captured["decode_only"])
-    mla = _paged_attn_call(mla_captured, latent=True)
-    mla["decode_only"] = _paged_attn_call(mla_captured["decode_only"], latent=True)
-    mla["launches"] = mla_launches["paged_attn"]
+    mla = _paged_attn_call(mla_captured)
+    mla["decode_only"] = _paged_attn_call(mla_captured["decode_only"])
+    mla["launches"] = mla_launches["paged_latent_attn"]
     mla["library"] = ("composite, no single call: c and kr gathered through the table, "
                       "the two score einsums in bf16, softmax, P·c")
     return {
         "name": "paged_attn", "route": "cuda", "source": "src/repro_torch/csrc/paged_attn.cu",
         "replaces": "src/repro/kernels/paged_attn/kernel.py:32",
-        "launches": launches["paged_attn"] + mla_launches["paged_attn"],
+        "launches": launches["paged_attn"] + mla_launches["paged_latent_attn"],
         "launches_serve": launches["paged_attn"], **mixed,
         "library": ("composite, no single call: gather k_pool[table], v_pool[table] + "
                     "F.scaled_dot_product_attention(attn_mask=valid rows, enable_gqa)"),

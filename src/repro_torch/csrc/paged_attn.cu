@@ -67,13 +67,48 @@
 //    one split is written by its split-0 CTA directly. No atomics: the same
 //    bits on every run. expf, not __expf, and no fast-math flag.
 //
-// Larger head dims (the MLA absorbed shapes, Dk 288 or 576), or rows that are
-// not whole 16-byte copies: paged_attn_tiled_kernel, per token, runs
-// ignored. Tiles of up to 32 rows of K and V are staged in shared memory as
-// f32 (rows padded by one word so the score loop's row-strided reads miss no
-// bank), each (head, row) score is one thread's fmaf chain over Dk, heads are
-// tiled by 16, and the rows per tile halve until the tile fits the 227 KB of
-// shared memory a block may use.
+// The absorbed-MLA call (paged_latent_attn): one kv head whose K row is
+// the latent [c ; kr] (Dk = Dc + Dr) and whose V row is c (Dv = Dc), from the
+// cache's two pools c (NB, bs, Dc) and kr (NB, bs, Dr) as they are, bf16.
+// At minicpm3-4b's G 40, Dc 256, Dr 32: paged_attn_latent_kernel, which runs
+// the split body's passes in their latent mode (kLatent):
+//  * The K tile is gathered from the two pools (each row's Dc / 8 copies of c
+//    and Dr / 8 of kr, 16 bytes each) into one stage of rows Dk + 8 wide,
+//    and V is read as the first Dv columns of that same stage: no V tile,
+//    no [c ; kr] copy of the pool before the call, each context row's 576
+//    bytes read once a pass.
+//  * The run's query rows (tokens x G heads) take passes of kQRows on the
+//    tensor cores as the kMma pass does (scores over Dk / 16 k-steps, P.V
+//    from the score fragments in three bf16 parts, V through ldmatrix.trans
+//    on the c columns), 8 warps: 4 row groups of 16 x 2 halves of Dv; a row
+//    group with no live row in the pass (a decode token's 40 rows leave the
+//    fourth idle) skips the tile's arithmetic. The pass's queries arrive by
+//    cp.async with its first tile.
+//  * Work: one item is one pass of one run against one context split.
+//    Persistent CTAs (as many as the card holds) take the items in turn, so
+//    a 16-token prefill run's 10 passes and its splits spread over the card
+//    rather than queueing in one CTA, whose passes would set the call's
+//    time at a mixed step.
+//  * The context split is the host's choice (split_rows: 32, 64 or 128), made
+//    from the table's width and the number of runs without reading the
+//    device, so that a decode step of a few slots still has an item for
+//    most CTAs; the merge takes 128 / (Dv / 4) heads a CTA.
+// Dc up to 512 (deepseek-v3's latent: Dc 512, Dr 64, G 128) takes the same
+// body with each warp's half of Dv 256 columns wide. Bound: at G 40 a run of
+// n tokens does 2 * n * 40 * (Dk + 3 Dv) tensor-core operations (P.V in three
+// parts) per 576-byte row it reads, about 147 n a byte against the card's 295
+// bf16 operations a byte: bytes at decode (n = 1), operations for longer
+// runs. So the least time is the larger of the latent's own bytes (each
+// distinct row's c and kr once) at 3.35 TB/s and those operations at 989
+// TFLOP/s.
+//
+// Generic calls with head dims past 256 and separate K and V pools, or rows
+// that are not whole 16-byte copies: paged_attn_tiled_kernel, per
+// token, runs ignored (on no model's path). Tiles of up to 32 rows of K and V
+// are staged in shared memory as f32 (rows padded by one word so the score
+// loop's row-strided reads miss no bank), each (head, row) score is one
+// thread's fmaf chain over Dk, heads are tiled by 16, and the rows per tile
+// halve until the tile fits the 227 KB of shared memory a block may use.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -92,8 +127,11 @@ static_assert(kTile == 32, "the narrow pass scores a tile's rows on a warp's lan
 static_assert(kNarrowRows == kSplitThreads / 32, "the narrow pass gives each warp a row");
 // the split body's passes, and its launches: every run narrow (kNarrow), or
 // runs of either kind with the wide pass on the tensor cores (kMma) or in
-// f32 FMAs (kFma)
-constexpr int kNarrow = 0, kMma = 1, kFma = 2;
+// f32 FMAs (kFma); kLatent: the absorbed-MLA call, K from the two latent
+// pools and V its first Dv columns, every pass on the tensor cores
+constexpr int kNarrow = 0, kMma = 1, kFma = 2, kLatent = 3;
+// the body a call ran, as the C entries report it
+constexpr int kBodySplit = 0, kBodyLatent = 1, kBodyTiled = 2;
 
 constexpr int kThreads = 128;  // threads of the tiled body
 constexpr int kMaxHeadsPerCta = 16;
@@ -288,10 +326,12 @@ struct SplitSmem {
 
 // narrow_only: the layout of a launch whose runs are all single rows of at
 // most kNarrowRows query rows (queries of one warp each, no P); mma: the
-// wide layout's scores on the tensor cores (bf16 queries, no P). The ring
-// has three stages where they fit, else two.
+// wide layout's scores on the tensor cores (bf16 queries, no P); latent: the
+// mma layout whose stages hold the K tile alone (V is its first Dv columns).
+// The ring has three stages where they fit, else two.
 template <typename KVT>
-__host__ __device__ SplitSmem split_smem(int dk, int dv, bool narrow_only, bool mma) {
+__host__ __device__ SplitSmem split_smem(int dk, int dv, bool narrow_only, bool mma,
+                                         bool latent = false) {
   const int rows = narrow_only ? kNarrowRows : kQRows;  // query rows of a pass
   SplitSmem s;
   int off = 0;
@@ -310,8 +350,9 @@ __host__ __device__ SplitSmem split_smem(int dk, int dv, bool narrow_only, bool 
   off += narrow_only || !mma ? q_f32 : max(q_bf16, kNarrowRows * f32_stride(dk) * 4);
   s.p = off;  // [kTile][kQRows + 4] the tile's probabilities (wide, f32 scores)
   if (!narrow_only && !mma) off += kTile * (kQRows + 4) * 4;
-  s.ring = off;  // [stages][K tile, V tile] as stored in the pools
-  const int stage = kTile * (raw_stride<KVT>(dk) + raw_stride<KVT>(dv)) * (int)sizeof(KVT);
+  s.ring = off;  // [stages][K tile, V tile] as stored in the pools (latent: K tile)
+  const int stage =
+      kTile * (raw_stride<KVT>(dk) + (latent ? 0 : raw_stride<KVT>(dv))) * (int)sizeof(KVT);
   s.stages = off + 3 * stage + kStaticSmem <= kMaxSmem ? 3 : 2;
   off += s.stages * stage;
   s.bytes = off;
@@ -328,7 +369,9 @@ __device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
 }
 
 // The work of one CTA of the split body: the run's rows against the split's
-// context rows, for one kv head.
+// context rows (split_rows of them from split * split_rows on), for one kv
+// head. In the latent mode kpool is the c pool (rows of Dv) and vpool the kr
+// pool (rows of Dk - Dv).
 template <typename KVT>
 struct SplitCta {
   const void* q;
@@ -340,17 +383,33 @@ struct SplitCta {
   float* part;
   int t_rows, kvh, g, dk, dv, bs, nb_slot, ring_width, max_rows, nsplit;
   float scale;
-  int first, cnt, split, h, n_begin, nrows, ntiles;
+  int first, cnt, split, h, n_begin, nrows, ntiles, split_rows;
   unsigned char* smem;
   SplitSmem lay;
 };
 
 // tile `tile` of the split into ring stage `st`, one commit group (empty
-// past the last tile); rows past the split are zero-filled, not read
-template <typename KVT>
+// past the last tile); rows past the split are zero-filled, not read. LAT:
+// each K row is its c row (Dv values) then its kr row, and no V tile.
+template <typename KVT, bool LAT>
 __device__ __forceinline__ void fetch_tile(const SplitCta<KVT>& c, int tile, int st) {
   constexpr int kVec = 16 / (int)sizeof(KVT);  // values per 16-byte copy
-  if (tile < c.ntiles) {
+  if constexpr (LAT) {
+    if (tile < c.ntiles) {
+      const int rk = raw_stride<KVT>(c.dk), dr = c.dk - c.dv;
+      const int cc = c.dv / kVec, per = c.dk / kVec;  // copies per c row and per K row
+      const int* rowidx = (const int*)(c.smem + c.lay.rowidx);
+      KVT* kst = (KVT*)(c.smem + c.lay.ring) + (size_t)st * kTile * rk;
+      for (int e = threadIdx.x; e < kTile * per; e += kSplitThreads) {
+        const int r = e / per, i = e - r * per, lr = tile * kTile + r;
+        const bool ok = lr < c.nrows;
+        const size_t prow = ok ? (size_t)rowidx[lr] : 0;
+        const KVT* src = i < cc ? c.kpool + prow * c.dv + i * kVec
+                                : c.vpool + prow * dr + (i - cc) * kVec;
+        cp_async16(kst + r * rk + i * kVec, src, ok ? 16 : 0);
+      }
+    }
+  } else if (tile < c.ntiles) {
     const int rk = raw_stride<KVT>(c.dk), rv = raw_stride<KVT>(c.dv);
     const int ck = c.dk / kVec, cv = c.dv / kVec;  // copies per K and V row
     const int* rowidx = (const int*)(c.smem + c.lay.rowidx);
@@ -382,7 +441,7 @@ __device__ __forceinline__ void store_row(const SplitCta<KVT>& c, int f, int lq,
   const size_t rows = (size_t)c.t_rows * c.kvh * c.g;
   const int ti = c.first + f / c.g, gi = f - (f / c.g) * c.g;
   const size_t row = ((size_t)ti * c.kvh + c.h) * c.g + gi;
-  const bool direct = lq < kSplitRows;
+  const bool direct = lq < c.split_rows;
   float* dst = direct ? c.out + row * c.dv : c.part + ((size_t)c.split * rows + row) * c.dv;
 #pragma unroll
   for (int jj = 0; jj < COLS; ++jj) {
@@ -425,9 +484,12 @@ __device__ __forceinline__ void store_row(const SplitCta<KVT>& c, int f, int lq,
 //    2 tq + 1 against K rows tr + 8 j, the 8 lanes of one tq sharing its
 //    rows' state; P goes through shared memory, and thread (pq, pd)
 //    accumulates rows 4 pq .. + 3 x columns 4 pd + 64 jj.
+//  * kLatent: kMma's arithmetic on the latent tile, V its first Dv columns;
+//    a row group with no live row in the pass skips each tile's arithmetic.
 template <typename KVT, int VJ, int PASS>
 __device__ __forceinline__ void split_pass(const SplitCta<KVT>& c, int c0) {
-  constexpr bool NARROW = PASS == kNarrow, use_mma = PASS == kMma;
+  constexpr bool NARROW = PASS == kNarrow, LAT = PASS == kLatent;
+  constexpr bool use_mma = PASS == kMma || LAT;
   constexpr int kRows = NARROW ? kNarrowRows : kQRows;
   constexpr int kVn = (VJ + 1) / 2;  // 128-column groups of Dv (narrow)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -440,15 +502,29 @@ __device__ __forceinline__ void split_pass(const SplitCta<KVT>& c, int c0) {
   const KVT* ring = (const KVT*)(c.smem + c.lay.ring);
   const int stages = c.lay.stages;
   const int qs = f32_stride(c.dk), ps = kQRows + 4, qbs = c.dk + 8;
-  const int rk = raw_stride<KVT>(c.dk), rv = raw_stride<KVT>(c.dv);
+  const int rk = raw_stride<KVT>(c.dk), rv = LAT ? rk : raw_stride<KVT>(c.dv);
+  const int stage = kTile * (LAT ? rk : rk + rv);  // values of a ring stage
   const int qrows = c.cnt * c.g;
 
   __syncthreads();  // rowidx is written; the previous pass is done
-  for (int s = 0; s < stages - 1; ++s) fetch_tile(c, s, s);
+  if constexpr (LAT) {
+    // the pass's queries are consecutive rows of q (one kv head): 16-byte
+    // copies that join the first tile's commit group, zero past the run
+    constexpr int kVec = 16 / (int)sizeof(KVT);
+    const int per = c.dk / kVec;
+    const KVT* qg = (const KVT*)c.q + ((size_t)c.first * c.g + c0) * c.dk;
+    for (int e = tid; e < kQRows * per; e += kSplitThreads) {
+      const int r = e / per, i = e - r * per;
+      const bool ok = c0 + r < qrows;
+      cp_async16((KVT*)qsm + r * qbs + i * kVec, ok ? qg + (size_t)r * c.dk + i * kVec : qg,
+                 ok ? 16 : 0);
+    }
+  }
+  for (int s = 0; s < stages - 1; ++s) fetch_tile<KVT, LAT>(c, s, s);
   // the pass's queries, 4 values a load, 4 loads in flight a thread, while
   // the first tiles arrive; rows past the run stay as they are (a query row
   // without rows in the split is never scored into a result)
-  const int qn = min(kRows, qrows - c0), dq = c.dk / 4;
+  const int qn = LAT ? 0 : min(kRows, qrows - c0), dq = c.dk / 4;
   for (int e0 = tid; e0 < qn * dq; e0 += 4 * kSplitThreads) {
     float4 x[4];
 #pragma unroll
@@ -517,9 +593,9 @@ __device__ __forceinline__ void split_pass(const SplitCta<KVT>& c, int c0) {
     else
       cp_async_wait<0>();
     __syncthreads();  // ... for every thread; the last tile's readers are done
-    fetch_tile(c, it + stages - 1, (it + stages - 1) % stages);  // into the last tile's stage
-    const KVT* kt = ring + (size_t)(it % stages) * kTile * (rk + rv);
-    const KVT* vt = kt + kTile * rk;
+    fetch_tile<KVT, LAT>(c, it + stages - 1, (it + stages - 1) % stages);  // the last tile's stage
+    const KVT* kt = ring + (size_t)(it % stages) * stage;
+    const KVT* vt = LAT ? kt : kt + kTile * rk;
     const int n0 = c.n_begin + it * kTile;
     const int rn = min(kTile, c.nrows - it * kTile);
 
@@ -570,6 +646,8 @@ __device__ __forceinline__ void split_pass(const SplitCta<KVT>& c, int c0) {
       }
     } else if constexpr (use_mma) {
       if constexpr (std::is_same<KVT, __nv_bfloat16>::value) {
+        // (latent) a row group with no live row in the pass skips the tile
+        if (LAT && !__any_sync(0xffffffffu, lastq[16 * mt + (lane & 15)] >= 0)) continue;
         // score n, element e: K row 8 n + 2 (lane % 4) + e % 2 of query row
         // 16 mt + lane / 4 + 8 (e / 2)
         const __nv_bfloat16* qb = (const __nv_bfloat16*)qsm;
@@ -813,6 +891,7 @@ __global__ void __launch_bounds__(kSplitThreads,
                   nb_slot, ring_width, max_rows, nsplit, scale};
   c.smem = smem_split;
   c.lay = split_smem<KVT>(dk, dv, MODE == kNarrow, MODE == kMma);
+  c.split_rows = kSplitRows;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int run = blockIdx.x / nsplit;
   c.split = blockIdx.x - run * nsplit;
@@ -851,21 +930,109 @@ __global__ void __launch_bounds__(kSplitThreads,
   }
 }
 
-// One CTA per (token, kv head) of a token that spans more than one split:
-// the splits' states merged in split order, 4 columns a thread.
+// The latent mode: persistent CTAs (as many as the card holds at once) walk
+// the call's items, an item being one pass of kQRows query rows of one run
+// against one context split of it, in the order (run, split, pass): item i
+// goes to CTA i % grid. So the passes of a long run (a 16-token prefill run
+// is 10 at G 40) and its splits spread over the card instead of queueing in
+// one CTA, and a decode step's few runs still put a split on every CTA.
+// Every CTA first counts each run's items (its last row, so its live
+// splits, times its passes) and their prefix sums in shared memory, past the
+// split layout: [n_runs + 1] items before each run, [n_runs] last rows.
+template <int VJ>
+__global__ void __launch_bounds__(kSplitThreads, VJ > 4 ? 1 : 2)
+    paged_attn_latent_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ cpool,
+                             const __nv_bfloat16* __restrict__ krpool,
+                             const int* __restrict__ table, const int* __restrict__ pos,
+                             const int* __restrict__ runs, float* __restrict__ out,
+                             float* __restrict__ part, int t_rows, int n_runs, int g, int dk,
+                             int dv, int bs, int nb_slot, int max_rows, float scale,
+                             int nsplit, int split_rows) {
+  using KVT = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_split[];
+  __shared__ int warp_sum[kSplitThreads / 32];
+  SplitCta<KVT> c{q, 1, cpool, krpool, pos, out, part, t_rows, 1, g, dk, dv, bs,
+                  nb_slot, 0, max_rows, nsplit, scale};
+  c.smem = smem_split;
+  c.lay = split_smem<KVT>(dk, dv, false, true, true);
+  c.split_rows = split_rows;
+  c.h = 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int* before = (int*)(smem_split + c.lay.bytes);  // [n_runs + 1]
+  int* run_last = before + n_runs + 1;             // [n_runs]
+
+  // each run's items, and their prefix sums, kSplitThreads runs at a time
+  int carry = 0;
+  if (tid == 0) before[0] = 0;
+  for (int r0 = 0; r0 < n_runs; r0 += kSplitThreads) {
+    const int r = r0 + tid;
+    int items = 0;
+    if (r < n_runs) {
+      const int first = runs ? runs[2 * r] : r, cnt = runs ? runs[2 * r + 1] : 1;
+      int last = 0;
+      for (int i = 0; i < cnt; ++i)
+        last = max(last, last_row(pos[first + i], 0, max_rows, nb_slot, bs));
+      run_last[r] = last;
+      items = (last / split_rows + 1) * ((cnt * g + kQRows - 1) / kQRows);
+    }
+    int incl = items;  // inclusive scan over the warp, then over the warps
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    int below = carry;
+    for (int w = 0; w < warp; ++w) below += warp_sum[w];
+    if (r < n_runs) before[r + 1] = below + incl;
+    for (int w = 0; w < kSplitThreads / 32; ++w) carry += warp_sum[w];
+    __syncthreads();
+  }
+  const int total = carry;
+
+  for (int item = blockIdx.x; item < total; item += gridDim.x) {
+    int lo = 0, hi = n_runs - 1;  // the run: the last r with before[r] <= item
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (before[mid] <= item) lo = mid; else hi = mid - 1;
+    }
+    const int r = lo;
+    c.first = runs ? runs[2 * r] : r;
+    c.cnt = runs ? runs[2 * r + 1] : 1;
+    const int passes = (c.cnt * g + kQRows - 1) / kQRows, local = item - before[r];
+    c.split = local / passes;
+    c.n_begin = c.split * split_rows;
+    c.nrows = min(split_rows, run_last[r] + 1 - c.n_begin);
+    c.ntiles = (c.nrows + kTile - 1) / kTile;
+    __syncthreads();  // the last item's readers of rowidx are done
+    const int* trow = table + (size_t)c.first * nb_slot;
+    int* rowidx = (int*)(smem_split + c.lay.rowidx);
+    for (int i = tid; i < c.nrows; i += kSplitThreads) {
+      const int n = c.n_begin + i;
+      rowidx[i] = trow[n / bs] * bs + n % bs;
+    }
+    split_pass<KVT, VJ, kLatent>(c, (local - c.split * passes) * kQRows);
+  }
+}
+
+// One CTA per (token, kv head, gh heads) of a token that spans more than one
+// split of split_rows rows: the splits' states merged in split order, 4
+// columns a thread.
 __global__ void __launch_bounds__(128) paged_attn_merge_kernel(
     const float* __restrict__ part, const int* __restrict__ pos, float* __restrict__ out,
     int t_rows, int kvh, int g, int dv, int bs, int nb_slot, int ring_width, int max_rows,
-    int nsplit) {
-  const int t = blockIdx.x, h = blockIdx.y;
-  const int ns = last_row(pos[t], ring_width, max_rows, nb_slot, bs) / kSplitRows + 1;
+    int nsplit, int split_rows, int gh) {
+  const int t = blockIdx.x, h = blockIdx.y, g0 = blockIdx.z * gh, ng = min(gh, g - g0);
+  const int ns = last_row(pos[t], ring_width, max_rows, nb_slot, bs) / split_rows + 1;
   if (ns == 1) return;
   const size_t rows = (size_t)t_rows * kvh * g;
   const float* pm = part + (size_t)nsplit * rows * dv;
   const float* pl = pm + (size_t)nsplit * rows;
-  const size_t row0 = ((size_t)t * kvh + h) * g;
+  const size_t row0 = ((size_t)t * kvh + h) * g + g0;
   const int dq = dv / 4;
-  for (int e = threadIdx.x; e < g * dq; e += 128) {
+  for (int e = threadIdx.x; e < ng * dq; e += 128) {
     const int gi = e / dq, d = (e - gi * dq) * 4;
     const size_t row = row0 + gi;
     float big = pm[row];
@@ -939,7 +1106,7 @@ int launch_split(const void* q, int q_bf16, const void* k, const void* v, const 
   if (err != cudaSuccess || nsplit == 1) return (int)err;
   paged_attn_merge_kernel<<<dim3(t, kvh), 128, 0, stream>>>(
       (const float*)scratch, (const int*)pos, (float*)out, t, kvh, g, dv, bs, nb_slot,
-      ring_width, max_rows, nsplit);
+      ring_width, max_rows, nsplit, kSplitRows, g);
   *kernels = 2;
   return (int)cudaGetLastError();
 }
@@ -980,6 +1147,55 @@ int launch_split_for(const void* q, int q_bf16, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// the latent mode: bf16, Dc whole pairs of 16-column tiles up to 512, Dr
+// whole k-steps, 16-byte aligned pools, a split of whole tiles up to
+// kSplitRows, in the shared memory of one block
+bool latent_takes(const void* c, const void* kr, int dc, int dr, int split_rows) {
+  return dc % 32 == 0 && dc <= 512 && dr % 16 == 0 && dr > 0 && split_rows % kTile == 0 &&
+         split_rows >= kTile && split_rows <= kSplitRows && (uintptr_t)c % 16 == 0 &&
+         (uintptr_t)kr % 16 == 0 &&
+         split_smem<__nv_bfloat16>(dc + dr, dc, false, true, true).bytes + kStaticSmem <=
+             kMaxSmem;
+}
+
+template <int VJ>
+int launch_latent(const void* q, const void* c, const void* kr, const void* table,
+                  const void* pos, const void* runs, void* out, void* scratch, int t,
+                  int n_runs, int nsplit, int split_rows, int g, int dc, int dr, int bs,
+                  int nb_slot, int max_rows, float scale, cudaStream_t stream, int* kernels,
+                  int* ctas) {
+  const int dk = dc + dr;
+  const int bytes = split_smem<__nv_bfloat16>(dk, dc, false, true, true).bytes +
+                    (2 * n_runs + 1) * (int)sizeof(int);
+  if (bytes + kStaticSmem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(paged_attn_latent_kernel<VJ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  // as many CTAs as the card holds at once, and no more than there can be
+  // items: at most nsplit x (T G / kQRows + n_runs) passes
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, paged_attn_latent_kernel<VJ>,
+                                                           kSplitThreads, bytes)) != cudaSuccess)
+    return (int)err;
+  const long most = (long)nsplit * ((long)t * g / kQRows + n_runs);
+  *ctas = (int)max(1L, min((long)sms * max(per_sm, 1), most));
+  paged_attn_latent_kernel<VJ><<<*ctas, kSplitThreads, bytes, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)c, (const __nv_bfloat16*)kr,
+      (const int*)table, (const int*)pos, (const int*)runs, (float*)out, (float*)scratch, t,
+      n_runs, g, dk, dc, bs, nb_slot, max_rows, scale, nsplit, split_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return (int)err;
+  // 128 threads of 4 columns: 128 / (Dv / 4) heads a CTA (at least one)
+  const int gh = max(1, 128 / (dc / 4));
+  paged_attn_merge_kernel<<<dim3(t, 1, (g + gh - 1) / gh), 128, 0, stream>>>(
+      (const float*)scratch, (const int*)pos, (float*)out, t, 1, g, dc, bs, nb_slot, 0,
+      max_rows, nsplit, split_rows, gh);
+  *kernels = 2;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -995,16 +1211,18 @@ int paged_attn_split_rows() { return kSplitRows; }
 // precondition above; nsplit = ceil(min(nb_slot * bs, ring_width or
 // max_rows) / kSplitRows), and `scratch` holds nsplit * t * kvh * g *
 // (dv + 2) floats when nsplit > 1. *kernels receives the kernels launched.
-// Returns cudaGetLastError() after the launches (0 when they were accepted),
-// or cudaErrorInvalidValue when one row of the head dims cannot fit in
-// shared memory.
+// *body receives the body that ran (kBodySplit or kBodyTiled). Returns
+// cudaGetLastError() after the launches (0 when they were accepted), or
+// cudaErrorInvalidValue when one row of the head dims cannot fit in shared
+// memory.
 int paged_attn(const void* q, const void* k, const void* v, const void* table,
                const void* pos, const void* runs, void* out, void* scratch, int t, int n_runs,
                int nsplit, int kvh, int g, int dk, int dv, int bs, int nb_slot,
                int ring_width, int max_rows, float scale, int q_bf16, int kv_bf16,
-               void* stream, int* kernels) {
+               void* stream, int* kernels, int* body) {
   cudaStream_t s = (cudaStream_t)stream;
   *kernels = 1;
+  *body = kBodySplit;
   if (nsplit < 1 || (nsplit > 1 && scratch == nullptr)) return (int)cudaErrorInvalidValue;
   if (kv_bf16 ? split_takes<__nv_bfloat16>(k, v, dk, dv) : split_takes<float>(k, v, dk, dv))
     return kv_bf16
@@ -1014,6 +1232,7 @@ int paged_attn(const void* q, const void* k, const void* v, const void* table,
         : launch_split_for<float>(q, q_bf16, k, v, table, pos, runs, out, scratch, t, n_runs,
                                   nsplit, kvh, g, dk, dv, bs, nb_slot, ring_width, max_rows,
                                   scale, s, kernels);
+  *body = kBodyTiled;
   if (q_bf16 && kv_bf16)
     return launch_tiled<__nv_bfloat16, __nv_bfloat16>(q, k, v, table, pos, out, t, kvh, g,
                                                       dk, dv, bs, nb_slot, ring_width,
@@ -1026,6 +1245,35 @@ int paged_attn(const void* q, const void* k, const void* v, const void* table,
                                               bs, nb_slot, ring_width, max_rows, scale, s);
   return launch_tiled<float, float>(q, k, v, table, pos, out, t, kvh, g, dk, dv, bs,
                                     nb_slot, ring_width, max_rows, scale, s);
+}
+
+// The absorbed-MLA call: out (t, g, dc) f32 = paged attention of q (t, g, dc
+// + dr) bf16 over K rows [c ; kr] and V rows c, the pools c (NB, bs, dc) and
+// kr (NB, bs, dr) bf16 as the cache holds them, through `table`, on
+// `stream`, the split body's latent mode. `runs` as for paged_attn; nsplit =
+// ceil(min(nb_slot * bs, max_rows) / split_rows), split_rows one of 32, 64,
+// 128, and `scratch` holds nsplit * t * g * (dc + 2) floats when nsplit > 1.
+// *kernels receives the kernels launched, *body kBodyLatent, *ctas the
+// latent kernel's grid. Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for a shape the latent mode does not take
+// (latent_takes).
+int paged_latent_attn(const void* q, const void* c, const void* kr, const void* table,
+                      const void* pos, const void* runs, void* out, void* scratch, int t,
+                      int n_runs, int nsplit, int split_rows, int g, int dc, int dr, int bs,
+                      int nb_slot, int max_rows, float scale, void* stream, int* kernels,
+                      int* body, int* ctas) {
+  cudaStream_t s = (cudaStream_t)stream;
+  *kernels = 1;
+  *body = kBodyLatent;
+  *ctas = 0;
+  if (nsplit < 1 || (nsplit > 1 && scratch == nullptr) || !latent_takes(c, kr, dc, dr, split_rows))
+    return (int)cudaErrorInvalidValue;
+  if (dc <= 256)
+    return launch_latent<4>(q, c, kr, table, pos, runs, out, scratch, t, n_runs, nsplit,
+                            split_rows, g, dc, dr, bs, nb_slot, max_rows, scale, s, kernels,
+                            ctas);
+  return launch_latent<8>(q, c, kr, table, pos, runs, out, scratch, t, n_runs, nsplit,
+                          split_rows, g, dc, dr, bs, nb_slot, max_rows, scale, s, kernels, ctas);
 }
 
 const char* cuda_error_string(int err) {

@@ -47,3 +47,29 @@ def paged_attention(q, k_pool, v_pool, table, pos, *, block_size: int,
         runs = runs.to(torch.int32).contiguous()
     return kernel.paged_attention(q.contiguous(), k_pool.contiguous(),
                                   v_pool.contiguous(), table, pos, runs=runs, **kw)
+
+
+def paged_latent_attention(q, c_pool, kr_pool, table, pos, *, block_size: int,
+                           max_rows: int, scale: float, runs=None) -> torch.Tensor:
+    """The absorbed-MLA call of block-table paged decode attention, over the
+    latent pools as the cache holds them.
+
+    q (T, H, Dc + Dr) queries ([q_lat ; qr] of H heads); c_pool (NB, bs, Dc)
+    and kr_pool (NB, bs, Dr) the latent pools: K's row is [c row ; kr row]
+    and V's the c row, one kv head shared by every query head. table, pos,
+    max_rows and ``runs`` as in ``paged_attention`` (no SWA ring). Returns
+    (T, H, Dc) float32 on q's device: ``paged_attention(q[:, None], cat(c,
+    kr)[:, :, None], c[:, :, None], ...)[:, 0]`` without building the
+    concatenated pool. On CUDA tensors it launches the kernel's latent mode,
+    which takes bf16 q and pools, Dc a multiple of 32 up to 512 and Dr a
+    multiple of 16, and raises on anything else.
+    """
+    table = table.to(torch.int32).contiguous()
+    pos = pos.to(torch.int32).contiguous()
+    kw = dict(block_size=int(block_size), max_rows=int(max_rows), scale=float(scale))
+    if q.device.type == "cpu":
+        return ref.paged_latent_attn_ref(q, c_pool, kr_pool, table, pos, runs=runs, **kw)
+    if runs is not None:
+        runs = runs.to(torch.int32).contiguous()
+    return kernel.paged_latent_attention(q.contiguous(), c_pool.contiguous(),
+                                         kr_pool.contiguous(), table, pos, runs=runs, **kw)

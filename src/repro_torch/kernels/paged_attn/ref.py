@@ -7,6 +7,8 @@ mask invalid rows with NEG (which softmaxes to exactly 0.0 in f32), and run
 a plain softmax attention in f32. The kernel B5 must match it on every
 mapped-block pattern: partial trailing blocks, recycled (stale) blocks,
 unmapped entries clamped to 0, ``max_rows`` clipping and SWA rings.
+``paged_latent_attn_ref`` is the same function at the absorbed-MLA layout:
+one kv head whose K row is the latent [c ; kr] and whose V row is c.
 """
 from __future__ import annotations
 
@@ -43,3 +45,24 @@ def paged_attn_ref(q, k_pool, v_pool, table, pos, *, block_size: int,
     scores = scores + torch.where(valid, 0.0, NEG)[:, None, None, :]
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("tkgs,tskd->tkgd", probs, gv)
+
+
+def paged_latent_attn_ref(q, c_pool, kr_pool, table, pos, *, block_size: int,
+                          max_rows: int, scale: float, runs=None):
+    """q (T, H, Dc + Dr); c_pool (NB, bs, Dc); kr_pool (NB, bs, Dr); table
+    and pos as ``paged_attn_ref``'s. K's row is [c row ; kr row], V's the c
+    row: ``paged_attn_ref(q[:, None], cat(c, kr)[:, :, None], c[:, :, None],
+    ...)[:, 0]``, with the score q·K summed as q's c part against the
+    gathered c rows plus its kr part against the kr rows (nothing is
+    concatenated). Returns (T, H, Dc) float32."""
+    del block_size, runs
+    t, dc = q.shape[0], c_pool.shape[-1]
+    table = table.long()
+    gc = c_pool[table].reshape(t, -1, dc).to(torch.float32)
+    gkr = kr_pool[table].reshape(t, -1, kr_pool.shape[-1]).to(torch.float32)
+    q = q.to(torch.float32)
+    scores = (torch.einsum("thd,tsd->ths", q[..., :dc], gc)
+              + torch.einsum("thd,tsd->ths", q[..., dc:], gkr)) * scale
+    valid = paged_valid(pos, gc.shape[1], 0, max_rows)
+    scores = scores + torch.where(valid, 0.0, NEG)[:, None, :]
+    return torch.einsum("ths,tsd->thd", torch.softmax(scores, dim=-1), gc)

@@ -435,12 +435,13 @@ def mla_decode_paged(p, x, cache, pos, cfg: ModelConfig, table, block_size, max_
     """Paged variant of ``mla_decode``: cache {c (NB+1, bs, kv_lora),
     kr (NB+1, bs, rope)} block pools, block NB the landing block; ``table``
     (B, nb_slot) int32. ``impl="kernel"`` runs the absorbed attention as one
-    MQA call of B5 (the reference's ``"pallas"``): q = [q_lat ; qr] as
-    (B, 1, H, kv_lora + rope), K the latent [c ; kr] shared by every head
-    (built over the whole pool at every call, as the reference builds it), V
-    the latent c; ``runs`` reaches the kernel. ``"gather"`` reads the
-    padded (B, nb_slot*bs) view with the reference's bf16 score products.
-    Returns (out, cache)."""
+    MQA call of B5 (the reference's ``"pallas"``) through its latent entry:
+    q = [q_lat ; qr] as (B, H, kv_lora + rope), K the latent [c ; kr] shared
+    by every head and V the latent c, read from the cache's own c and kr
+    pools (the reference concatenates the pool at every call; the kernel
+    joins each row as it loads it); ``runs`` reaches the kernel.
+    ``"gather"`` reads the padded (B, nb_slot*bs) view with the reference's
+    bf16 score products. Returns (out, cache)."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"impl must be one of {ATTN_IMPLS}, got {impl!r}")
     b = x.shape[0]
@@ -456,11 +457,10 @@ def mla_decode_paged(p, x, cache, pos, cfg: ModelConfig, table, block_size, max_
     q_lat = _mla_absorb(p, qn, cfg)
     max_rows = max_seq if max_seq is not None else table.shape[1] * block_size
     if impl == "kernel":
-        out_lat = paged_attn_ops.paged_attention(
-            torch.cat([q_lat, qr], dim=-1), torch.cat([c, kr], dim=-1)[:, :, None],
-            c[:, :, None], table, pos_b, block_size=block_size, ring_width=0,
+        out_lat = paged_attn_ops.paged_latent_attention(
+            torch.cat([q_lat, qr], dim=-1)[:, 0], c, kr, table, pos_b, block_size=block_size,
             max_rows=max_rows, scale=_mla_scale(cfg), runs=runs,
-        )[:, 0].to(x.dtype)
+        ).to(x.dtype)
     else:
         tl = table.long()
         gc = c[tl].reshape(b, -1, cfg.kv_lora_rank)

@@ -30,6 +30,7 @@ from repro_torch.kernels.wkv import kernel as wkv_kernel
 from repro_torch.kernels.wkv import ops as wkv_ops
 from repro_torch.kernels.wkv import ref as wkv_ref
 from test_torch_paged_attn_cases import CASES as PA_CASES
+from test_torch_paged_attn_cases import LATENT_CASES as PA_LATENT_CASES
 from test_torch_paged_attn_cases import make as pa_case
 from test_torch_predict_plan import CASES as PREDICT_CASES
 from test_torch_predict_plan import make as predict_case
@@ -316,6 +317,31 @@ def test_paged_attn_kernel_mla_shapes(card, g, dk, dv):
     _paged_attn_on_card(card, pa_case(t=7, kvh=1, g=g, dk=dk, dv=dv, nb_slot=8, bs=16,
                                       num_blocks=64, seed=g, bf16=True,
                                       scale=1 / np.sqrt(dk)))
+    assert pa_kernel.paged_attention.body == "tiled"
+
+
+@pytest.mark.parametrize("split_rows", [None, 32, 64, 128], ids=["host", "s32", "s64", "s128"])
+@pytest.mark.parametrize("with_runs", [False, True], ids=["no_runs", "runs"])
+@pytest.mark.parametrize("name", sorted(PA_LATENT_CASES))
+def test_paged_latent_kernel_matches_plain(card, name, with_runs, split_rows):
+    """The latent entry (the absorbed-MLA call over the pools c and kr) on
+    its body against its plain version, with and without the case's runs, at
+    the host's context split and at each one the kernel takes: minicpm3-4b's
+    (H 40, Dc 256, Dr 32) and deepseek-v3's (H 128, Dc 512, Dr 64) shapes
+    among the cases; the same bits on a second call."""
+    q, c, kr, table, pos, kw, _, runs = PA_LATENT_CASES[name]()
+    q, c, kr = (torch.from_numpy(a).to(card, torch.bfloat16) for a in (q, c, kr))
+    table, pos = torch.from_numpy(table).to(card), torch.from_numpy(pos).to(card)
+    runs = torch.from_numpy(runs).to(card) if with_runs else None
+    launches = pa_kernel.paged_latent_attention.launches
+    got = pa_kernel.paged_latent_attention(q, c, kr, table, pos, runs=runs,
+                                           split_rows=split_rows, **kw)
+    assert pa_kernel.paged_latent_attention.launches == launches + 1
+    assert pa_kernel.paged_latent_attention.body == "latent"
+    torch.testing.assert_close(got, pa_ref.paged_latent_attn_ref(q, c, kr, table, pos, **kw),
+                               rtol=2e-5, atol=2e-5)
+    assert torch.equal(got, pa_kernel.paged_latent_attention(q, c, kr, table, pos, runs=runs,
+                                                             split_rows=split_rows, **kw))
 
 
 def test_server_kernel_path_matches_gather_on_card(card):
@@ -386,8 +412,10 @@ def _assert_near_tie(cfg, params, prompt, got, want, card):
 
 def test_server_mla_kernel_path_matches_gather_on_card(card):
     """Reduced minicpm3-4b at its full latent widths (kv_lora 256, rope 32):
-    the absorbed decode hands B5 Dk 288 and Dv 256, which take its tiled
-    body, one kernel a call."""
+    the absorbed decode hands B5's latent entry the cache's c and kr pools
+    (Dk 288, Dv 256), which take the latent body, one kernel a call (a table
+    of 24 rows is one context split, so no merge), and never the generic
+    entry."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.models import model_zoo
     from repro_torch.serve.serving import BatchedServer, Request
@@ -404,10 +432,13 @@ def test_server_mla_kernel_path_matches_gather_on_card(card):
             srv.submit(Request(i, list(p), n))
         return [r.out for r in srv.run()]
 
-    launches = pa_kernel.paged_attention.launches
+    launches = pa_kernel.paged_latent_attention.launches
+    generic = pa_kernel.paged_attention.launches
     kernel = serve("kernel")
-    assert pa_kernel.paged_attention.launches > launches
-    assert pa_kernel.paged_attention.kernels == 1
+    assert pa_kernel.paged_latent_attention.launches > launches
+    assert pa_kernel.paged_attention.launches == generic
+    assert pa_kernel.paged_latent_attention.body == "latent"
+    assert pa_kernel.paged_latent_attention.kernels == 1
     for (prompt, _), got, want in zip(stream, kernel, serve("gather")):
         _assert_near_tie(cfg, params, prompt, got, want, card)
 

@@ -153,20 +153,24 @@ def test_mla_decode_paged_matches_repro(impl, precision):
 
 
 def test_mla_kernel_path_is_one_mqa_call_of_b5(monkeypatch):
-    """The kernel path hands B5 one kv head of the latent: q (T, 1, H,
-    kv_lora + rope), K = [c ; kr] and V = c over the whole pool, the step's
-    runs passed on."""
+    """The kernel path hands B5's latent entry one kv head of the latent: q
+    (T, H, kv_lora + rope), and the cache's own c and kr pools (the same
+    storage: no concatenation of the pool), the step's runs passed on."""
     from repro_torch.kernels.paged_attn import ops
 
     cfg, _, _, tp = _attn(torch.bfloat16)
     seen = []
-    real = ops.paged_attention
+    real = ops.paged_latent_attention
 
-    def spy(q, k_pool, v_pool, table, pos, **kw):
-        seen.append((q.shape, k_pool.shape, v_pool.shape, kw["runs"]))
-        return real(q, k_pool, v_pool, table, pos, **kw)
+    def spy(q, c_pool, kr_pool, table, pos, **kw):
+        seen.append((q.shape, c_pool, kr_pool, kw["runs"]))
+        return real(q, c_pool, kr_pool, table, pos, **kw)
 
-    monkeypatch.setattr(ops, "paged_attention", spy)
+    def concatenated(*a, **kw):
+        raise AssertionError("the kernel path reached the generic entry")
+
+    monkeypatch.setattr(ops, "paged_latent_attention", spy)
+    monkeypatch.setattr(ops, "paged_attention", concatenated)
     cache = attention.init_mla_cache_paged(cfg, 6, 4)
     runs = torch.tensor([[0, 2]], dtype=torch.int32)
     x = torch.zeros((2, 1, cfg.d_model), dtype=torch.bfloat16)
@@ -174,8 +178,10 @@ def test_mla_kernel_path_is_one_mqa_call_of_b5(monkeypatch):
                                table=torch.zeros((2, 2), dtype=torch.int32), block_size=4,
                                impl="kernel", runs=runs)
     dk = cfg.kv_lora_rank + cfg.qk_rope_head_dim
-    (q, k, v, passed), = seen
-    assert (q, k, v) == ((2, 1, cfg.n_heads, dk), (7, 4, 1, dk), (7, 4, 1, cfg.kv_lora_rank))
+    (q, c, kr, passed), = seen
+    assert q == (2, cfg.n_heads, dk)
+    assert c is cache["c"] and kr is cache["kr"]
+    assert c.data_ptr() == cache["c"].data_ptr() and kr.data_ptr() == cache["kr"].data_ptr()
     assert passed is runs
 
 

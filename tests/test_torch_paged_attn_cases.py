@@ -15,13 +15,20 @@ decode rows, mixed run lengths, runs across and up to the kernel's split
 boundary of ``SPLIT_ROWS`` context rows, ``max_rows`` clipping and SWA
 rings within a run, runs of 8 query rows or fewer and of more than 64).
 Every pool holds random rows everywhere, so each unread row stands for a
-recycled block's stale content.
+recycled block's stale content. ``LATENT_CASES`` hold the same patterns at
+the absorbed-MLA layout of the kernel's latent entry (q (T, H, Dc + Dr), the
+pools c and kr; K = [c ; kr], V = c), with runs on both sides of its context
+splits of ``LATENT_SPLIT_ROWS``, and the shapes of minicpm3-4b (H 40, Dc 256,
+Dr 32) and deepseek-v3 (H 128, Dc 512, Dr 64).
 """
 import numpy as np
 
 # context rows per CTA of the kernel's split body (kSplitRows in
 # src/repro_torch/csrc/paged_attn.cu): the split cases sit on its boundary
 SPLIT_ROWS = 128
+# the context splits the latent entry may take (LATENT_SPLITS in
+# src/repro_torch/kernels/paged_attn/kernel.py)
+LATENT_SPLIT_ROWS = (32, 64, 128)
 
 
 def make(t=5, kvh=2, g=3, dk=8, dv=8, nb_slot=4, bs=4, num_blocks=32,
@@ -76,12 +83,16 @@ def _runs_case(lengths, positions, t_extra_pos=(), nb_slot=8, bs=4, num_blocks=N
                 table=np.array(table), pos=np.array(pos), runs=runs, **kw)
 
 
-def _unmapped():
+def _unmapped_at(**kw):
     # each token maps a prefix of its row; the rest is clamped to block 0,
     # which holds another token's rows: reads through it must stay masked
     table = np.array([[3, 0, 0, 0], [5, 6, 0, 0], [7, 8, 9, 0], [1, 2, 4, 10]])
     return make(t=4, nb_slot=4, bs=4, num_blocks=12, table=table,
-                pos=np.array([2, 5, 11, 15]), seed=8)
+                pos=np.array([2, 5, 11, 15]), seed=8, **kw)
+
+
+def _unmapped():
+    return _unmapped_at()
 
 
 CASES = {
@@ -172,6 +183,62 @@ CASES = {
 }
 
 
+def latent(case, dc):
+    """A one-kv-head case at the latent layout: q (T, H, Dc + Dr), c_pool
+    (NB, bs, Dc) the K pool's first Dc columns and kr_pool (NB, bs, Dr) the
+    rest (V is c, so the case's own V pool goes unused); the keyword
+    arguments without a ring. Returns q, c_pool, kr_pool, table, pos, kw,
+    the bf16 flag and the runs."""
+    q, k, _, table, pos, kw, bf16, runs = case
+    assert q.shape[1] == 1 and not kw["ring_width"]
+    kw = {n: v for n, v in kw.items() if n != "ring_width"}
+    return (q[:, 0], np.ascontiguousarray(k[:, :, 0, :dc]),
+            np.ascontiguousarray(k[:, :, 0, dc:]), table, pos, kw, bf16, runs)
+
+
+def _latent(dc, dr, g, fn=make, **kw):
+    return latent(fn(kvh=1, g=g, dk=dc + dr, dv=dc, bf16=True, **kw), dc)
+
+
+LATENT_CASES = {
+    # recycled (permuted) blocks, positions on and inside block edges
+    "recycled": lambda: _latent(32, 16, 4, seed=30),
+    # a partial last block of 5-row blocks
+    "bs5_partial": lambda: _latent(32, 16, 3, t=6, bs=5, nb_slot=4, seed=31),
+    # rows past max_rows are dead even when mapped and pos points past them
+    "max_rows": lambda: _latent(32, 16, 3, t=4, bs=4, nb_slot=3, seed=32, max_rows=10,
+                                pos=np.array([9, 10, 11, 11])),
+    # unmapped entries clamped to block 0, which holds another token's rows
+    "unmapped": lambda: latent(_unmapped_at(kvh=1, g=2, dk=48, dv=32, bf16=True), 32),
+    # runs across and up to the 32-, 64- and 128-row splits, and single rows
+    # whose contexts end on either side of them
+    "runs_split_edges": lambda: _latent(
+        32, 16, 4, _runs_case, lengths=[16, 16, 4, 16], positions=[20, 48, 126, 100],
+        t_extra_pos=(31, 32, 63, 64, 65, 129), nb_slot=20, bs=8, seed=33),
+    # max_rows clips a run's later rows to one last row past a split
+    "runs_max_rows": lambda: _latent(32, 16, 3, _runs_case, lengths=[16, 4],
+                                     positions=[120, 126], t_extra_pos=(140,), nb_slot=10,
+                                     bs=16, max_rows=130, seed=34),
+    # the runs declared one (shared_blocks_run's layout)
+    "shared_blocks_run": lambda: _latent(32, 16, 4, t=6, seed=35,
+                                         table=np.tile([[7, 3, 11, 0]], (6, 1)),
+                                         pos=np.array([0, 3, 4, 7, 12, 15]), runs=[(0, 6)]),
+    # minicpm3-4b's latent call: a 16-token prefill run past several splits,
+    # a 5-token tail, decode rows and a padding row
+    "minicpm3": lambda: _latent(256, 32, 40, _runs_case, lengths=[16, 5],
+                                positions=[600, 300], t_extra_pos=(1087, 130, 64, 0),
+                                nb_slot=68, bs=16, seed=36, scale=96 ** -0.5),
+    # its decode-only step: 8 slots, one row each
+    "minicpm3_decode": lambda: _latent(256, 32, 40, _runs_case, lengths=[], positions=[],
+                                       t_extra_pos=(700, 650, 680, 500, 1000, 900, 3, 40),
+                                       nb_slot=68, bs=16, seed=37, scale=96 ** -0.5),
+    # deepseek-v3's latent (Dc 512, Dr 64, 128 heads)
+    "deepseek": lambda: _latent(512, 64, 128, _runs_case, lengths=[6], positions=[200],
+                                t_extra_pos=(300, 33), nb_slot=24, bs=16, seed=38,
+                                scale=192 ** -0.5),
+}
+
+
 def test_cases_are_well_formed():
     """Every case's table names blocks of its pools and its shapes agree, so
     a failure of a parity test is the kernel's, not the case's."""
@@ -187,5 +254,15 @@ def test_cases_are_well_formed():
         assert runs.dtype == np.int32 and runs.shape[1] == 2 and runs[:, 1].min() >= 1, name
         assert runs[0, 0] == 0 and runs[-1].sum() == t, name
         assert np.array_equal(runs[1:, 0], runs[:-1].sum(1)), name
+        for first, n in runs:
+            assert (table[first:first + n] == table[first]).all(), name
+
+    for name, fn in LATENT_CASES.items():
+        q, c, kr, table, pos, kw, bf16, runs = fn()
+        assert bf16 and "ring_width" not in kw, name
+        assert c.shape[:2] == kr.shape[:2] == (c.shape[0], kw["block_size"]), name
+        assert q.shape[2] == c.shape[2] + kr.shape[2] and table.shape[0] == q.shape[0], name
+        assert 0 <= table.min() and table.max() < c.shape[0], name
+        assert runs[0, 0] == 0 and runs[-1].sum() == q.shape[0], name
         for first, n in runs:
             assert (table[first:first + n] == table[first]).all(), name
