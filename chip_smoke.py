@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card: DAnA's TRAIN path and
 its in-database scoring (SQL PREDICT) at full size, LM serving of
-mistral-nemo-12b (GQA) and minicpm3-4b (MLA) and LM training of rwkv6-3b and
-minicpm3-4b at full width and depth, through the port's hand-written CUDA
-kernels, and LM PREDICT of mistral-nemo-12b from SQL over a token table.
+mistral-nemo-12b (GQA), minicpm3-4b (MLA), hymba-1.5b (hybrid) and rwkv6-3b
+and LM training of rwkv6-3b, minicpm3-4b and hymba-1.5b at full width and
+depth, through the port's hand-written CUDA kernels, and LM PREDICT of
+mistral-nemo-12b from SQL over a token table.
 
 Phases, one JSON line each:
 
@@ -70,6 +71,35 @@ Phases, one JSON line each:
            step, 5 profiled steps (B5's share and every torch.cat's device
            time); B5's calls at step 100 and at the decode-only step with the
            most context captured for the kernels line
+  serve-hybrid  hymba-1.5b (32 layers, d_model 1,600, 25/5 heads of 64,
+           Mamba state 16, window 1,024, global layers 0, 16 and 31; bf16
+           weights from seed 0) serving 20 greedy requests of 64-1,056
+           prompt tokens (4 of 1,000-1,056, whose ring rows wrap), 32 new
+           tokens each, through BatchedServer with the serve phase's
+           settings: token stepping falls back to chunked stepping
+           (recorded), prefix sharing is off, every request FINISHED, B5 32
+           times a sub-step on the split body (29 calls on the ring table,
+           3 on the full table); 2 wrapping and the 2 shortest requests
+           through the gather path (in a process of its own, started with
+           --hybrid-gather, beside the main run and waited for) token for
+           token except at reported
+           near-ties (measured along the two runs' own logits, the limit
+           twice what a 1e-6 noise on the gather path's attention outputs
+           moves copies of the same requests, as hymba's logits move far
+           under it); every B5 call of each fused step's first sub-step
+           against its plain version; one host read per fused step; one
+           profiled step (B5's and the Mamba mixer's shares of busy time,
+           launches a step); a sliding-window
+           and a global layer's B5 call of the first sub-step past position
+           1,040 captured for the kernels line
+  serve-rwkv  (in a process of its own, started with --serve-rwkv beside
+           serve-hybrid and waited for; its line printed after it)
+           rwkv6-3b (full width and depth, bf16 from seed 0) asked for
+           paged KV and token stepping, served dense and chunked: 16
+           requests of 32-256 prompt tokens, every request FINISHED, no
+           kernel launched (decode runs the per-token recurrence), one host
+           read per fused step, every request against generate_greedy token
+           for token except at reported near-ties
   lm-predict  the same model registered as an LM UDF (register_lm_udf: its
            24.5 GB weights file written beside the catalog, the disk's free
            bytes printed first, loaded back onto the card bit for bit), then
@@ -103,6 +133,15 @@ Phases, one JSON line each:
            read a step) and measured the same way; then a
            2-layer full-width model's prefill against 32 decode steps
            (argmax equal, logits within 3e-2)
+  train-hybrid  hymba-1.5b (full width and depth, f32 masters from seed 0)
+           trained for 4 steps of 8 x 512 tokens as the train-mla phase is
+           (B1 once a step, no other kernel: the sliding-window attention
+           and the Mamba scan are plain PyTorch), with the Mamba mixer's
+           share of the profiled step; then a 2-layer full-width model (one
+           global, one sliding-window layer) prefills 1,100 tokens, past the
+           window, against 1,100 decode steps on the dense ring cache
+           (argmax equal, logits within 3e-2 or twice what a 1e-6 noise on
+           the decode's attention outputs moves them, where that is larger)
   launch-train  launch/train.py's main() at full width for 2 steps
   kernels  each kernel's launches on the main path (B3's: the GLM scans' and
            the LM statements'), error, time, bound,
@@ -118,12 +157,17 @@ Phases, one JSON line each:
            on q·K and P·V in three parts at the bf16 tensor rate, the
            tiled body's bound (P·V at the f32 rate) beside it, the [c ; kr]
            pool concatenation that path made before each call, and the
-           gather path's composite as the library yardstick; B6's
+           gather path's composite as the library yardstick; under "hybrid"
+           serve-hybrid's two calls (a sliding-window layer's on the ring
+           table, bound on the ring's distinct valid rows, and a global
+           layer's), with and without runs, and their launches; B6's
            two kernels and B6-bwd's three a call, each one's time,
            registers and CTAs per SM, beside the bytes its design moves
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, exits
 non-zero and prints no such line. Without a CUDA card the script exits 1.
+The two processes it starts (serve-hybrid's gather run, and serve-rwkv
+beside serve-hybrid) are waited for, or killed when a phase fails.
 
     python3 chip_smoke.py
 """
@@ -602,17 +646,22 @@ def _device_busy(events):
     return busy_us / 1e6, by_name
 
 
-def _device_profile(run, kernels=()):
+def _device_profile(run, kernels=(), ranges=(), cpu=True):
     """Run ``run()`` under torch.profiler: (traced seconds, the card's busy
     seconds, the top device and host-self entries in ms totals). Only the
     device's own events are read for device time: an op's
     ``self_device_time_total`` holds the kernels it launched, which are also
     entries of their own. ``kernels`` names substrings whose device ms are
-    reported under ``device_ms_of``."""
+    reported under ``device_ms_of``; ``ranges`` names record_function ranges
+    whose kernels' device ms (those launched inside them) are reported
+    under ``device_ms_in``. ``cpu=False`` traces the device and the CUDA
+    runtime only (no operator events, which the parse of a step of tens of
+    thousands of launches spends most of its time on; no ``ranges``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         traced_s = time.perf_counter() - t0
@@ -631,6 +680,10 @@ def _device_profile(run, kernels=()):
                                for k in kernels}
         top["launches_of"] = {k: sum(n for name, (_, n) in by_name.items() if k in name)
                               for k in kernels}
+    if ranges:
+        top["device_ms_in"] = {r: sum(e.device_time_total for e in prof.events()
+                                      if e.name == r and e.device_type == DeviceType.CPU) / 1e3
+                               for r in ranges}
     return traced_s, busy_s, top
 
 
@@ -1358,10 +1411,11 @@ class _Arrivals:
     """A stream replayed against a server's step clock: each request is
     submitted at its arrival step."""
 
-    def __init__(self, server, stream):
+    def __init__(self, server, stream, max_new=SERVE_MAX_NEW):
         self.server = server
         self.pending = sorted(stream, key=lambda r: (r[3], r[0]))
         self.i = 0
+        self.max_new = max_new
 
     def run(self, max_steps=None):
         """Step until everything is terminal (or ``max_steps`` steps):
@@ -1374,7 +1428,7 @@ class _Arrivals:
                 and (max_steps is None or steps < max_steps):
             while self.i < len(self.pending) and self.pending[self.i][3] <= srv.step_no:
                 rid, prompt, prio, _ = self.pending[self.i]
-                srv.submit(Request(rid, list(prompt), SERVE_MAX_NEW, priority=prio))
+                srv.submit(Request(rid, list(prompt), self.max_new, priority=prio))
                 self.i += 1
             srv.step()
             steps += 1
@@ -1813,7 +1867,9 @@ def _paged_attn_call(cap):
         dv = pools[0][1].shape[-1]
     bs = kw["block_size"]
     elt = pools[0][0].element_size()
-    last = torch.minimum(pos, torch.tensor(kw["max_rows"] - 1, device=pos.device))
+    # a ring's valid rows: rows <= pos while cold, all of its rows once warm
+    cap_rows = kw.get("ring_width") or kw["max_rows"]
+    last = torch.minimum(pos, torch.tensor(cap_rows - 1, device=pos.device))
     rows = int((last + 1).sum())
     # bytes a context row costs: K and V of every kv head; the latent's own
     # c and kr (V is c) for a latent call
@@ -1915,12 +1971,16 @@ def _paged_attn_call(cap):
     return out
 
 
-def kernel_row_paged_attn(captured, launches, mla_captured, mla_launches):
+def kernel_row_paged_attn(captured, launches, mla_captured, mla_launches, hybrid_captured,
+                          hybrid_launches):
     """B5's row of the kernels line: the serve phase's step-100 call (prefill
     runs beside decode rows), and beside it its decode-only call with the
     most context (every row a run of one); under ``mla`` the same two calls
-    of the serve-mla phase (the latent entry). ``launches`` counts both
-    phases' main paths."""
+    of the serve-mla phase (the latent entry); under ``hybrid`` the
+    serve-hybrid phase's two calls of one sub-step past position 1,040, a
+    sliding-window layer's on the ring table (the bound on the ring's rows)
+    and a global layer's. ``launches`` counts the three phases' main
+    paths."""
     mixed = _paged_attn_call(captured)
     decode = _paged_attn_call(captured["decode_only"])
     mla = _paged_attn_call(mla_captured)
@@ -1928,15 +1988,760 @@ def kernel_row_paged_attn(captured, launches, mla_captured, mla_launches):
     mla["launches"] = mla_launches["paged_latent_attn"]
     mla["library"] = ("composite, no single call: c and kr gathered through the table, "
                       "the two score einsums in bf16, softmax, P·c")
+    hybrid = _paged_attn_call(hybrid_captured["swa"])
+    hybrid["global"] = _paged_attn_call(hybrid_captured["global"])
+    hybrid["launches"] = hybrid_launches["paged_attn"]
+    hybrid["launches_per_sub_step"] = HYBRID_WIDTH[0]
+    hybrid["launches_per_fused_step"] = HYBRID_WIDTH[0] * SERVE["prefill_chunk"]
+    hybrid["library"] = ("composite, no single call: gather k_pool[table], v_pool[table] + "
+                         "F.scaled_dot_product_attention(attn_mask=valid ring rows, enable_gqa)")
     return {
         "name": "paged_attn", "route": "cuda", "source": "src/repro_torch/csrc/paged_attn.cu",
         "replaces": "src/repro/kernels/paged_attn/kernel.py:32",
-        "launches": launches["paged_attn"] + mla_launches["paged_latent_attn"],
+        "launches": (launches["paged_attn"] + mla_launches["paged_latent_attn"]
+                     + hybrid_launches["paged_attn"]),
         "launches_serve": launches["paged_attn"], **mixed,
         "library": ("composite, no single call: gather k_pool[table], v_pool[table] + "
                     "F.scaled_dot_product_attention(attn_mask=valid rows, enable_gqa)"),
-        "decode_only": decode, "mla": mla,
+        "decode_only": decode, "mla": mla, "hybrid": hybrid,
     }
+
+
+# the serve-hybrid, serve-rwkv and train-hybrid phases. hymba-1.5b at full
+# width and depth: (layers, d_model, heads, kv heads, head dim, d_ff, vocab,
+# ssm state, expand, window) of configs/hymba_1_5b.py, global layers 0, 16
+# and 31; its 29 sliding-window layers read a ring of 1,024 rows through B5.
+# It serves with SERVE's settings (token stepping asked for, chunked taken)
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_FIELDS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
+                 "vocab_size", "ssm_state", "ssm_expand", "swa_window")
+HYBRID_WIDTH = (32, 1600, 25, 5, 64, 5504, 32001, 16, 2, 1024)
+HYBRID_GLOBALS = (0, 16, 31)
+# 20 requests, 32 new tokens each: 4 prompts of 1,000-1,056 tokens (their
+# positions pass 1,024, so their ring rows wrap), 12 of 64-1,056 and, queued
+# behind them, 4 of 64-256; B5's calls captured at the first sub-step where a
+# slot's position reaches HYBRID_CAPTURE_POS; the gather path on 2 wrapping
+# and the 2 shortest requests; the sync debug mode over HYBRID_SYNC_STEPS
+HYBRID_REQUESTS, HYBRID_LONG, HYBRID_MAX_NEW = 20, 4, 32
+HYBRID_CAPTURE_POS = 1040
+HYBRID_SYNC_STEPS = 4
+# fused steps profiled (and timed untraced beside them): one, where the
+# other serve phases profile 5, because a hybrid step launches about 74,000
+# kernels and the profiler's parse of several such steps takes minutes
+HYBRID_PROFILED_STEPS = 1
+# hymba's greedy logits at random weights move far under perturbations that
+# change nothing of substance (a 1e-6 relative noise on the attention
+# outputs moves them by several units within a few tokens), so the deviation
+# limit for its kernel-vs-gather comparison is measured in the run: the
+# gather path serves each compared request twice, the copy (rid +
+# HYBRID_COPY) with its attention outputs perturbed by HYBRID_NOISE
+# (relative, above B5's error against its plain version), and the limit is
+# HYBRID_SOUND_FACTOR times the largest spread that perturbation causes, or
+# DEVIATION_LIMIT where that is larger
+HYBRID_COPY, HYBRID_NOISE, HYBRID_SOUND_FACTOR = 100, 1e-6, 2.0
+# the Mamba mixer in the training profile: a record_function range around
+# each call
+MAMBA_RANGE = "mamba_mix"
+# serve-rwkv: rwkv6-3b (TRAIN_WIDTH) asked for paged KV and token stepping,
+# served dense and chunked; 16 requests of 32-256 prompt tokens, 32 new
+# tokens, each against generate_greedy (16 slots too, one-token prefill)
+RWKV_SERVE = {"batch_slots": 16, "kv": "paged", "step_mode": "tokens", "prefill_chunk": 16}
+RWKV_REQUESTS, RWKV_LENGTHS, RWKV_MAX_NEW = 16, (32, 256), 32
+# train-hybrid: batch 8 x TRAIN_SEQ, 4 steps; then a 2-layer full-width
+# model (one global, one sliding-window layer) prefills WINDOW_CHECK_TOKENS
+# tokens, past the window, against as many decode steps
+HYBRID_TRAIN_BATCH, HYBRID_TRAIN_STEPS = 8, 4
+WINDOW_CHECK_TOKENS = 1100
+
+
+def _hybrid_stream(vocab: int):
+    """serve-hybrid's traffic from seed 0: (rid, prompt, priority, arrival
+    step), every request at step 0 and of one priority (FIFO)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lengths = ([int(rng.integers(1000, 1057)) for _ in range(HYBRID_LONG)]
+               + [int(rng.integers(64, 1057)) for _ in range(HYBRID_REQUESTS - HYBRID_LONG - 4)]
+               + [int(rng.integers(64, 257)) for _ in range(4)])
+    return [(rid, rng.integers(1, vocab, n).tolist(), 1, 0) for rid, n in enumerate(lengths)]
+
+
+class _LogitTap:
+    """Keeps the logits of every decode a chunked-stepping server makes and
+    which request and position each row held, so that two runs of the same
+    requests compare position by position along their common history, as a
+    teacher-forced run would give them, without a second pass (a recurrent
+    model decodes one token a call)."""
+
+    def __init__(self, server, rids):
+        self.calls, self.where = [], {}
+        real_decode, real_program = server._decode, server._chunked_program
+
+        def program():
+            pos = server._positions.copy()
+            rows = [(i, r.rid) for i, r in enumerate(server.active)
+                    if r is not None and r.rid in rids]
+            first = len(self.calls)
+            out = real_program()
+            for j in range(server.prefill_chunk):
+                for i, rid in rows:
+                    if pos[i] + j < server.max_seq:
+                        self.where[(rid, int(pos[i]) + j)] = (first + j, i)
+            return out
+
+        def decode(*args, **kw):
+            logits, cache = real_decode(*args, **kw)
+            self.calls.append(logits)  # a fresh tensor each call: no copy
+            return logits, cache
+
+        server._decode, server._chunked_program = decode, program
+        self.vocab = server.cfg.vocab_size
+
+    def logits(self, rid, n):
+        """(n, vocab) f32: the logits at positions 0..n-1 of request ``rid``."""
+        import torch
+
+        return torch.stack([self.calls[c][i] for c, i in
+                            (self.where[(rid, p)] for p in range(n))])[:, :self.vocab].float()
+
+
+def _common(prompt, got, want):
+    """(index of the first differing token, or the last one; the positions
+    of the common history up to it)."""
+    k = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), len(want) - 1)
+    return k, len(prompt) + k
+
+
+def _tap_spread(tap, ref_tap, rid, n, ref_rid=None):
+    """The largest spread (max minus min over the vocab) of the two runs'
+    logit difference over positions 0..n-1."""
+    d = tap.logits(rid, n) - ref_tap.logits(rid if ref_rid is None else ref_rid, n)
+    return float((d.amax(1) - d.amin(1)).max())
+
+
+def _tap_ties(prompts, got, want, tap, ref_tap, what, limit=DEVIATION_LIMIT):
+    """``_near_ties`` on two tapped runs: at each divergence the reference's
+    top-2 margin against the largest spread of the logits' difference along
+    the common history, which must stay within ``limit``; the probe is the
+    longest compared request's whole common history. Returns (divergences,
+    probe)."""
+    import torch
+
+    def common(rid):
+        return _common(prompts[rid], got[rid], want[rid])
+
+    def spread(rid, n):
+        return _tap_spread(tap, ref_tap, rid, n)
+
+    ties = []
+    for rid in sorted(got):
+        if len(got[rid]) != len(want[rid]):
+            raise AssertionError(f"{what}: request {rid} generated {len(got[rid])} tokens, "
+                                 f"the reference {len(want[rid])}")
+        if got[rid] == want[rid]:
+            continue
+        k, n = common(rid)
+        top = torch.topk(ref_tap.logits(rid, n)[-1], 2).values
+        margin, deviation = float(top[0] - top[1]), spread(rid, n)
+        ties.append({"rid": rid, "index": k, "margin": margin, "deviation": deviation,
+                     "near_tie": margin < deviation})
+    rid = max(got, key=lambda r: (len(prompts[r]), r))
+    probe = {"rid": rid, "positions": common(rid)[1], "deviation": spread(rid, common(rid)[1])}
+    wide = [t for t in ties + [probe] if t["deviation"] > limit]
+    if wide:
+        raise AssertionError(f"{what}: logits deviate by more than {limit}: {wide}")
+    bad = [t for t in ties if not t["near_tie"]]
+    if bad:
+        raise AssertionError(f"{what}: divergences that are not near-ties: {bad}")
+    return ties, probe
+
+
+class _AttentionNoise:
+    """Within ``with``, the attention outputs of the gather and dense decode
+    paths (``attention._sdpa``) carry a relative Gaussian noise of
+    HYBRID_NOISE from a seeded generator, on the batch rows where ``rows``
+    ((B,) of 0 and 1; None: every row) is 1: a perturbation of the size of
+    B5's own error against its plain version, to measure how far a model's
+    logits move under a change of no substance."""
+
+    def __init__(self, device):
+        import torch
+
+        self.rows = None
+        self.gen = torch.Generator(device=device).manual_seed(11)
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import attention
+
+        self.real = real = attention._sdpa
+
+        def noisy(q, k, v, mask, scale):
+            out = real(q, k, v, mask, scale)
+            eps = HYBRID_NOISE * torch.randn(out.shape, generator=self.gen, device=out.device)
+            if self.rows is not None:
+                eps = eps * self.rows.view(-1, *[1] * (out.dim() - 1))
+            return out * (1 + eps)
+
+        attention._sdpa = noisy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+
+        attention._sdpa = self.real
+
+
+def _fallback_recorded(kind):
+    from repro_torch.dist import meshes
+
+    return any(t == kind for t, _, _ in meshes.fallbacks())
+
+
+def _mamba_decode_ms(server):
+    """Device ms of one layer's Mamba mixer at the server's decode shape (its
+    slots, one token, bf16), replayed in a CUDA graph over 4 layers' weights
+    in turn, so that each call finds its weights out of the 50 MB L2 as the
+    next layer's call does."""
+    import torch
+
+    from repro_torch.models import ssm, transformer
+
+    cfg, dev = server.cfg, server.device
+    layers = [transformer._layer(sp, i)["mamba"]
+              for sp, seg in zip(server.params["segments"], transformer.segments_for(cfg))
+              if seg.kind in transformer.HYBRID for i in range(seg.n_layers)][:4]
+    di = cfg.ssm_expand * cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h = torch.randn((server.slots, 1, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    state = torch.zeros((server.slots, di, cfg.ssm_state), device=dev)
+    conv = torch.zeros((server.slots, cfg.ssm_conv - 1, di), dtype=torch.bfloat16, device=dev)
+    return device_ms([lambda p=p: ssm.mamba_mix(p, h, cfg, state=state, conv_prev=conv)
+                      for p in layers] * 5)
+
+
+def _chunked_profile(server, arrivals, steps, kernels):
+    """One host read a fused step under the sync debug mode over HYBRID_SYNC_STEPS
+    steps, then ``steps`` steps untraced and ``steps`` under the profiler
+    (the device and the CUDA runtime), and the Mamba mixer's share of the
+    busy time from its device time at the decode shape (``_mamba_decode_ms``)
+    times its calls a step. Returns (the sync record, the profile record)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    t0 = time.perf_counter()
+    where, _ = _synchronizing_calls(lambda: arrivals.run(max_steps=HYBRID_SYNC_STEPS), [])
+    sync_s = time.perf_counter() - t0
+    reads = sum(where.values())
+    if reads != HYBRID_SYNC_STEPS or len(where) != 1 or \
+            not next(iter(where)).startswith("src/repro_torch/serve/serving.py:"):
+        raise AssertionError(f"expected one host read per fused step over "
+                             f"{HYBRID_SYNC_STEPS} steps: {where}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrivals.run(max_steps=steps)
+    torch.cuda.synchronize()
+    untraced_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    traced_s, busy_s, top = _device_profile(lambda: arrivals.run(max_steps=steps),
+                                            kernels=kernels, cpu=False)
+    profile_s = time.perf_counter() - t0  # the traced run and the profiler's parse
+    shares = {f"{k}_share_of_busy": (top["device_ms_of"][k] / 1e3 / busy_s if busy_s else None)
+              for k in kernels}
+    mamba_ms = _mamba_decode_ms(server)
+    calls = sum(s.n_layers for s in transformer.segments_for(server.cfg)
+                if s.kind in transformer.HYBRID) * server.prefill_chunk * steps
+    return ({"steps": HYBRID_SYNC_STEPS, "synchronizing_calls": reads, "where": where,
+             "seconds": sync_s},
+            {"steps": steps, "traced_s": traced_s, "untraced_s": untraced_s,
+             "profile_s": profile_s,
+             "device_busy_s": busy_s if busy_s else None,
+             "device_idle_share": 1.0 - busy_s / untraced_s if busy_s else None,
+             "launches_per_step": top["launch_calls"] / steps, **shares,
+             "mamba_ms_per_call": mamba_ms, "mamba_calls": calls,
+             "mamba_share_of_busy": mamba_ms * calls / 1e3 / busy_s if busy_s else None,
+             **top, "units": f"ms totals over the {steps} steps"})
+
+
+def _hybrid_setup(device="cuda"):
+    """serve-hybrid's model and traffic: (config, bf16 weights from seed 0,
+    stream, prompts by rid, the rids whose positions wrap the ring, the
+    compared rids: 2 wrapping and the 2 shortest)."""
+    from repro_torch.models import model_zoo
+
+    cfg = _published(HYBRID_ARCH, HYBRID_FIELDS, HYBRID_WIDTH)
+    if tuple(cfg.global_layer_ids()) != HYBRID_GLOBALS:
+        raise AssertionError(f"global layers {cfg.global_layer_ids()}, not {HYBRID_GLOBALS}")
+    params, _ = model_zoo.init_params(cfg, seed=0, device=device)
+    stream = _hybrid_stream(cfg.vocab_size)
+    prompts = {rid: p for rid, p, _, _ in stream}
+    wrapping = [rid for rid, p in prompts.items() if len(p) + HYBRID_MAX_NEW - 2 >= cfg.swa_window]
+    by_len = sorted(prompts, key=lambda r: (len(prompts[r]), r))
+    return cfg, params, stream, prompts, wrapping, sorted(wrapping[:2] + by_len[:2])
+
+
+def hybrid_gather_child(path):
+    """serve-hybrid's gather run, in a process of its own beside the main
+    run (both are bound by their host's launches, and the card idles most
+    of the time): the compared requests on the gather path, and a copy of
+    each (rid + HYBRID_COPY) with its attention outputs perturbed
+    (``_AttentionNoise``). Saves to ``path`` each request's tokens, its
+    logits at every position it ran (bf16, as the model gives them) and the
+    run's seconds."""
+    import torch
+
+    from repro_torch.serve.serving import BatchedServer
+
+    cfg, params, stream, prompts, _, compared = _hybrid_setup()
+    gather = BatchedServer(cfg, params, max_seq=SERVE_MAX_SEQ, device="cuda",
+                           **dict(SERVE, attn_impl="gather"))
+    copies = {r + HYBRID_COPY: r for r in compared}
+    tap = _LogitTap(gather, set(compared) | set(copies))
+    real_program = gather._chunked_program
+    with _AttentionNoise(gather.device) as noise:
+        def program():
+            noise.rows = torch.tensor([float(r is not None and r.rid in copies)
+                                       for r in gather.active], device=gather.device)
+            return real_program()
+
+        gather._chunked_program = program
+        t0 = time.perf_counter()
+        done = _Arrivals(gather, [r for r in stream if r[0] in compared] +
+                         [(c, prompts[r], 1, 0) for c, r in copies.items()],
+                         HYBRID_MAX_NEW).run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    outs = {rid: r.out for rid, r in done.items()}
+    n = {rid: len(prompts[copies.get(rid, rid)]) + len(out) - 1 for rid, out in outs.items()}
+    torch.save({"outs": outs, "seconds": seconds,
+                "logits": {rid: tap.logits(rid, n[rid]).to(torch.bfloat16).cpu() for rid in outs}},
+               path)
+    return 0
+
+
+def phase_serve_hybrid():
+    """hymba-1.5b at full width and depth, bf16 weights from seed 0, serving
+    HYBRID_REQUESTS greedy requests through BatchedServer(SERVE): token
+    stepping falls back to chunked stepping (recorded), prefix sharing is
+    off, every request FINISHED, B5 32 times a sub-step (29 calls on the
+    ring table, 3 on the full table) on the split body, rings that wrap;
+    every B5 call of each fused step's first sub-step held against its
+    plain version at rtol=atol=2e-5; the gather path on 4 requests token for
+    token except at reported near-ties, within a deviation limit measured
+    in the run (HYBRID_NOISE); one host read per fused step; a profiled
+    fused step (HYBRID_PROFILED_STEPS) with B5's and the Mamba mixer's
+    shares. The gather run goes on beside the main run in a process of its
+    own (``hybrid_gather_child``). Returns (the captured calls, the
+    launches)."""
+    import gc
+
+    import torch
+
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the gather run starts first, in its own process, and runs beside the
+    # main run
+    gather_path = os.path.join(SCRATCH, "hybrid_gather.pt")
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--hybrid-gather",
+                              gather_path], stdout=subprocess.DEVNULL)
+    try:
+        return _serve_hybrid(phase_t0, child, gather_path)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+
+
+def _serve_hybrid(phase_t0, child, gather_path):
+    """phase_serve_hybrid's body, beside the gather run in ``child``."""
+    import gc
+
+    import torch
+
+    from repro_torch.dist import meshes
+    from repro_torch.kernels.paged_attn import kernel as pa_kernel
+    from repro_torch.kernels.paged_attn import ops as pa_ops
+    from repro_torch.kernels.paged_attn import ref as pa_ref
+    from repro_torch.models.params import leaves
+    from repro_torch.serve import scheduler as sched
+    from repro_torch.serve.serving import BatchedServer
+
+    t0 = time.perf_counter()
+    cfg, params, stream, prompts, wrapping, compared = _hybrid_setup()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+
+    def server(**kw):
+        return BatchedServer(cfg, params, max_seq=SERVE_MAX_SEQ, device="cuda",
+                             **dict(SERVE, **kw))
+
+    meshes.clear_fallbacks()
+    main = server()
+    if main.step_mode != "chunked" or not _fallback_recorded("serve_step") or \
+            main.prefix_cache or main.attn_impl != "kernel" or \
+            main._paged.ring_width != cfg.swa_window:
+        raise AssertionError("the hybrid server did not fall back to chunked stepping on the "
+                             "kernel path with the ring pool and no prefix sharing")
+    forwards = _count_forwards(main)
+    tap = _LogitTap(main, set(compared))
+    real = pa_kernel.paged_attention
+    sub = {"step": -1, "calls": 0}
+    captured, calls = {}, {"bodies": {}, "kernels": {}, "ring": 0, "full": 0}
+    checked = []  # device scalars: (|kernel - plain| - 2e-5 - 2e-5 |plain|).max(), |err|
+
+    def capture(q, k_pool, v_pool, table, pos, **kw):
+        if sub["step"] != main.step_no:
+            sub.update(step=main.step_no, calls=0)
+        j = sub["calls"] // cfg.n_layers  # the sub-step of this call
+        sub["calls"] += 1
+        ring = kw["ring_width"] > 0
+        calls["ring" if ring else "full"] += 1
+        name = "swa" if ring else "global"
+        # the first sub-step where a running slot's position (its position
+        # at the step's start, plus the sub-step) reaches the capture point,
+        # judged on the host: a global layer's call (layer 0 comes first),
+        # then a sliding-window layer's of the same sub-step
+        if name not in captured and captured.get("global", {}).get(
+                "step", (main.step_no, j)) == (main.step_no, j) and any(
+                r is not None and HYBRID_CAPTURE_POS <= main._positions[i] + j < main.max_seq
+                for i, r in enumerate(main.active)):
+            t = q.shape[0]  # every row its own run, as chunked stepping calls it
+            runs = torch.stack([torch.arange(t, device=q.device),
+                                torch.ones(t, dtype=torch.long, device=q.device)], 1)
+            captured[name] = dict(q=q.clone(), pools=(k_pool.clone(), v_pool.clone()),
+                                  latent=False, table=table.clone(), pos=pos.clone(),
+                                  runs=runs.to(torch.int32),
+                                  kw={k: v for k, v in kw.items() if k != "runs"},
+                                  step=(main.step_no, j))
+        out = real(q, k_pool, v_pool, table, pos, **kw)
+        for key, value in (("bodies", real.body), ("kernels", real.kernels)):
+            calls[key][value] = calls[key].get(value, 0) + 1
+        if j == 0:  # read after the run: no host read here
+            plain = pa_ref.paged_attn_ref(q, k_pool, v_pool, table, pos, **kw)
+            err = (out - plain).abs()
+            checked.append(torch.stack([(err - 2e-5 - 2e-5 * plain.abs()).max(), err.max()]))
+        return out
+
+    zero_launches()
+    pa_ops.kernel = types.SimpleNamespace(paged_attention=capture)
+    try:
+        t0 = time.perf_counter()
+        done = _Arrivals(main, stream, HYBRID_MAX_NEW).run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        pa_ops.kernel = pa_kernel
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    m = main.metrics
+    if sorted(done) != list(range(HYBRID_REQUESTS)) or any(
+            r.status != sched.FINISHED or len(r.out) != HYBRID_MAX_NEW for r in done.values()):
+        raise AssertionError(f"not every request FINISHED with its {HYBRID_MAX_NEW} tokens")
+    per_substep = cfg.n_layers
+    if forwards[0] != m.steps * SERVE["prefill_chunk"] or \
+            launches["paged_attn"] != per_substep * forwards[0] or \
+            calls["ring"] != (cfg.n_layers - len(HYBRID_GLOBALS)) * forwards[0]:
+        raise AssertionError(f"B5 launched {launches['paged_attn']} times ({calls['ring']} on "
+                             f"the ring) over {forwards[0]} sub-steps of {m.steps} fused steps")
+    if any(v for k, v in launches.items() if k != "paged_attn"):
+        raise AssertionError(f"the serve path launched other kernels: {launches}")
+    if set(calls["bodies"]) != {"split"}:
+        raise AssertionError(f"B5's calls ran the bodies {calls['bodies']}, not the split body")
+    checked = torch.stack(checked).amax(0).tolist() + [len(checked)]
+    if checked[0] > 0 or checked[2] != cfg.n_layers * m.steps:
+        raise AssertionError(f"B5 against its plain version on the main path: {checked}")
+    if len(wrapping) < 2 or set(captured) != {"swa", "global"} or \
+            captured["swa"]["step"] != captured["global"]["step"]:
+        raise AssertionError(f"requests that wrap: {wrapping}; captures "
+                             f"{ {k: v['step'] for k, v in captured.items()} }")
+    outs = {rid: r.out for rid, r in done.items()}
+    if not all(0 <= t < cfg.vocab_size for out in outs.values() for t in out):
+        raise AssertionError("a token outside the true vocab")
+    del main
+
+    # the gather path on 2 wrapping and the 2 shortest requests, and on a
+    # copy of each whose attention outputs are perturbed (the child's run):
+    # token for token except at near-ties, compared along the runs' own
+    # logits, within the deviation the perturbation causes
+    if child.wait(timeout=900) != 0:
+        raise AssertionError(f"the gather run's process failed ({child.returncode})")
+    gres = torch.load(gather_path)
+    gouts = gres["outs"]
+    gtap = types.SimpleNamespace(logits=lambda rid, n: gres["logits"][rid][:n].cuda().float())
+    copies = {r + HYBRID_COPY: r for r in compared}
+    sensitivity = {r: _tap_spread(gtap, gtap, c, _common(prompts[r], gouts[c], gouts[r])[1],
+                                  ref_rid=r)
+                   for c, r in copies.items()}
+    limit = max(DEVIATION_LIMIT, HYBRID_SOUND_FACTOR * max(sensitivity.values()))
+    gather_ties, gather_probe = _tap_ties(prompts, {r: outs[r] for r in compared},
+                                          {r: gouts[r] for r in compared}, tap, gtap,
+                                          "kernel vs gather", limit=limit)
+    copy_diverged = {r: _common(prompts[r], gouts[c], gouts[r])[0]
+                     for c, r in copies.items() if gouts[c] != gouts[r]}
+    gather_s = gres["seconds"]
+    del gres, gtap, tap
+    gc.collect()
+
+    synced = _Arrivals(server(), stream, HYBRID_MAX_NEW)
+    syncs, profile = _chunked_profile(synced.server, synced, HYBRID_PROFILED_STEPS,
+                                      kernels=("paged_attn",))
+    del synced
+
+    emit({"phase": "serve-hybrid", "seconds": time.perf_counter() - phase_t0,
+          "arch": HYBRID_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "global_layers": list(HYBRID_GLOBALS),
+          "window": cfg.swa_window, "weights": "bf16 from seed 0, drawn on the card",
+          "weight_bytes": weight_bytes, "init_s": init_s, "server": SERVE,
+          "step_mode": "chunked (token stepping asked for; serve_step fallback recorded)",
+          "prefix_cache": False, "max_seq": SERVE_MAX_SEQ, "requests": HYBRID_REQUESTS,
+          "max_new_tokens": HYBRID_MAX_NEW,
+          "prompt_lengths": [len(p) for _, p, _, _ in stream], "wrapping": wrapping,
+          "finished": len(done), "wall_s": wall_s, "steps": m.steps,
+          "sub_steps": forwards[0], "launches": launches,
+          "b5": {"per_sub_step": per_substep, "ring_calls": calls["ring"],
+                 "full_calls": calls["full"], "bodies": calls["bodies"],
+                 "kernels_per_call": calls["kernels"]},
+          "tokens_per_s": m.tokens_generated / wall_s, "metrics_tok_per_s": m.tok_per_s,
+          "mean_ttft_s": m.mean_ttft_s, "mean_ttft_steps": m.mean_ttft_steps,
+          "occupancy_pct": m.occupancy_pct, "mean_step_s": m.wall_s / m.steps,
+          "batched_tokens": m.batched_tokens, "kv_blocks_peak": m.kv_blocks_peak,
+          "kv_blocks_total": m.kv_blocks_total, "peak_memory_bytes": peak,
+          "b5_against_plain_on_path": {"calls": checked[2], "max_abs_err": checked[1],
+                                       "rtol": 2e-5, "atol": 2e-5,
+                                       "which": "every call of each fused step's first "
+                                                "sub-step"},
+          "gather": {"rids": compared, "wall_s": gather_s, "near_ties": len(gather_ties),
+                     "ran": "in a process of its own, beside the main run",
+                     "divergences": gather_ties, "probe": gather_probe,
+                     "deviation_limit": limit, "noise": HYBRID_NOISE,
+                     "perturbed_copy_spread": sensitivity,
+                     "perturbed_copy_diverged_at": copy_diverged},
+          "captures": {k: v["step"] for k, v in captured.items()},
+          "syncs": syncs, "profile": profile})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return captured, launches
+
+
+def _phase_beside(flag):
+    """Start ``chip_smoke.py flag`` in a process of its own, its standard
+    output to a file under SCRATCH: a host-bound phase that runs beside
+    another one (the card idles most of the time in both). Returns (the
+    process, the open file, its path) for ``_join_beside``."""
+    path = os.path.join(SCRATCH, flag.strip("-") + ".out")
+    out = open(path, "w")
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), flag], stdout=out), out, path
+
+
+def _join_beside(child, out, path, timeout=900):
+    """Wait for a phase started by ``_phase_beside``, print its lines, and
+    fail where it failed."""
+    try:
+        rc = child.wait(timeout=timeout)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        out.close()
+    with open(path) as f:
+        sys.stdout.write(f.read())
+    sys.stdout.flush()
+    if rc != 0:
+        raise AssertionError(f"the phase in its own process ({child.args[2:]}) failed: {rc}")
+
+
+def phase_serve_rwkv():
+    """rwkv6-3b at full width and depth, bf16 weights from seed 0, asked for
+    paged KV and token stepping: served dense and chunked (both recorded or
+    checked), every request FINISHED, no WKV kernel launched (decode runs
+    the per-token recurrence), one host read per fused step, and every
+    request against generate_greedy (dense, one-token prefill) token for
+    token except at reported near-ties."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import meshes
+    from repro_torch.models import model_zoo
+    from repro_torch.serve import scheduler as sched
+    from repro_torch.serve import serving
+
+    cfg = _published(TRAIN_ARCH, TRAIN_FIELDS, TRAIN_WIDTH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, _ = model_zoo.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(1)
+    stream = [(rid, rng.integers(1, cfg.vocab_size, int(rng.integers(*RWKV_LENGTHS) + 1))
+               .tolist(), 1, 0) for rid in range(RWKV_REQUESTS)]
+    prompts = {rid: p for rid, p, _, _ in stream}
+    max_seq = RWKV_LENGTHS[1] + RWKV_MAX_NEW + 1
+    compared = sorted(prompts)
+
+    meshes.clear_fallbacks()
+    main = serving.BatchedServer(cfg, params, max_seq=max_seq, device="cuda", **RWKV_SERVE)
+    if main.kv_mode != "dense" or main.step_mode != "chunked" or \
+            not _fallback_recorded("serve_step"):
+        raise AssertionError(f"kv_mode {main.kv_mode}, step_mode {main.step_mode}: rwkv6-3b "
+                             "must serve dense and chunked")
+    tap = _LogitTap(main, set(compared))
+    zero_launches()
+    t0 = time.perf_counter()
+    done = _Arrivals(main, stream, RWKV_MAX_NEW).run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    m = main.metrics
+    if sorted(done) != list(range(RWKV_REQUESTS)) or any(
+            r.status != sched.FINISHED or len(r.out) != RWKV_MAX_NEW for r in done.values()):
+        raise AssertionError(f"not every request FINISHED with its {RWKV_MAX_NEW} tokens")
+    if any(launches.values()):
+        raise AssertionError(f"the rwkv serve path launched kernels: {launches}")
+    del main
+
+    # generate_greedy on the compared prompts (its own server: dense,
+    # one-token prefill), tapped
+    taps = []
+
+    class Tapped(serving.BatchedServer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            taps.append(_LogitTap(self, set(range(len(compared)))))
+
+    real_server = serving.BatchedServer
+    serving.BatchedServer = Tapped
+    try:
+        t0 = time.perf_counter()
+        greedy = serving.generate_greedy(cfg, params, [prompts[r] for r in compared],
+                                         RWKV_MAX_NEW, device="cuda")
+        torch.cuda.synchronize()
+        greedy_s = time.perf_counter() - t0
+    finally:
+        serving.BatchedServer = real_server
+    # the greedy run's rids are the compared requests' indices
+    idx = {rid: i for i, rid in enumerate(compared)}
+    ref_tap = types.SimpleNamespace(logits=lambda rid, n: taps[0].logits(idx[rid], n))
+    ties, probe = _tap_ties(prompts, {r: done[r].out for r in compared},
+                            {r: greedy[idx[r]] for r in compared}, tap, ref_tap,
+                            "chunked vs generate_greedy")
+    del taps, tap
+
+    synced = _Arrivals(serving.BatchedServer(cfg, params, max_seq=max_seq, device="cuda",
+                                             **RWKV_SERVE), stream, RWKV_MAX_NEW)
+    where, _ = _synchronizing_calls(lambda: synced.run(max_steps=HYBRID_SYNC_STEPS), [])
+    reads = sum(where.values())
+    if reads != HYBRID_SYNC_STEPS or len(where) != 1:
+        raise AssertionError(f"expected one host read per fused step: {where}")
+    del synced, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve-rwkv", "arch": TRAIN_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "weights": "bf16 from seed 0, drawn on the card",
+          "server": RWKV_SERVE, "kv_mode": "dense (paged asked for)",
+          "step_mode": "chunked (token stepping asked for; serve_step fallback recorded)",
+          "max_seq": max_seq, "requests": RWKV_REQUESTS, "max_new_tokens": RWKV_MAX_NEW,
+          "prompt_tokens_submitted": sum(len(p) for p in prompts.values()),
+          "finished": len(done), "wall_s": wall_s, "steps": m.steps,
+          "tokens_per_s": m.tokens_generated / wall_s, "mean_step_s": m.wall_s / m.steps,
+          "mean_ttft_steps": m.mean_ttft_steps, "launches": launches,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "generate_greedy": {"rids": compared, "wall_s": greedy_s, "near_ties": len(ties),
+                              "divergences": ties, "probe": probe},
+          "syncs": {"steps": HYBRID_SYNC_STEPS, "synchronizing_calls": reads, "where": where}})
+
+
+def phase_train_hybrid():
+    """hymba-1.5b at full width and depth trained for HYBRID_TRAIN_STEPS
+    steps of HYBRID_TRAIN_BATCH x TRAIN_SEQ tokens by ``_train_phase`` (B1
+    the one kernel: the sliding-window attention and the Mamba scan are
+    plain PyTorch, as in the reference), with the Mamba mixer's share of the
+    profiled step; then a 2-layer full-width model (one global, one
+    sliding-window layer) prefills WINDOW_CHECK_TOKENS tokens, past the
+    window, against as many decode steps on the dense ring cache."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import record_function
+
+    from repro_torch.models import model_zoo, ssm
+
+    cfg = _published(HYBRID_ARCH, HYBRID_FIELDS, HYBRID_WIDTH)
+    real = ssm.mamba_mix
+
+    def ranged(*args, **kw):
+        with record_function(MAMBA_RANGE):
+            return real(*args, **kw)
+
+    # the range costs one host call a layer and launches nothing
+    ssm.mamba_mix = ranged
+    try:
+            record, run = _train_phase(cfg, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_STEPS,
+                                   {"strider_decode": 1}, "hymba_tokens.heap",
+                                   kernels=("strider_decode",), ranges=(MAMBA_RANGE,))
+    finally:
+        ssm.mamba_mix = real
+    prof = record["profile"]
+    prof["mamba_ms"] = prof["device_ms_in"][MAMBA_RANGE]
+    prof["mamba_share_of_busy"] = (prof["mamba_ms"] / 1e3 / prof["device_busy_s"]
+                                   if prof["device_busy_s"] else None)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # prefill (gqa_train over the window, the chunked Mamba scan) against
+    # WINDOW_CHECK_TOKENS dense decode steps (the ring of 1,024 rows wraps,
+    # the Mamba state carried token by token), bf16 weights; beside it the
+    # same decode with its attention outputs perturbed (HYBRID_NOISE): the
+    # logits' deviation must stay within 3e-2, or within HYBRID_SOUND_FACTOR
+    # times what that perturbation moves where that is larger
+    small = dataclasses.replace(cfg, n_layers=2, n_global_layers=1)
+    params, _ = model_zoo.init_params(small, seed=1, device="cuda")
+    rng = np.random.default_rng(3)
+    n = WINDOW_CHECK_TOKENS
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, n)).astype(np.int32)).cuda()
+    step = model_zoo.decode_fn(small)
+
+    def decode():
+        cache = model_zoo.make_cache(small, 2, n + 1, "cuda")
+        for t in range(n):
+            logits, cache = step(params, tokens[:, t], cache, t)
+        return logits.float(), cache
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pre = model_zoo.prefill_fn(small)(params, {"tokens": tokens}).float()
+        dec, cache = decode()
+        with _AttentionNoise(tokens.device):
+            noisy, _ = decode()
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    ring_rows = int(cache[1]["k"].shape[2])
+    dev = float((pre - dec).abs().max())
+    floor = float((noisy - dec).abs().max())
+    tol = max(3e-2, HYBRID_SOUND_FACTOR * floor)
+    agree = int((pre.argmax(-1) == dec.argmax(-1)).sum())
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train-hybrid", "arch": HYBRID_ARCH, "global_layers": list(HYBRID_GLOBALS),
+          "window": cfg.swa_window, **record,
+          "prefill_vs_decode": {"layers": 2, "kinds": ["hybrid_global", "hybrid_swa"],
+                                "tokens": [2, n], "ring_rows": ring_rows, "seconds": check_s,
+                                "max_abs_dev": dev, "perturbed_decode_dev": floor,
+                                "noise": HYBRID_NOISE, "tolerance": tol,
+                                "argmax_agree": agree}})
+    _check_train(record)
+    if ring_rows != cfg.swa_window or dev > tol or agree != 2:
+        raise AssertionError(f"prefill vs decode: ring {ring_rows}, deviation {dev}, "
+                             f"argmax agree {agree} of 2")
 
 
 # the lm-predict phase: mistral-nemo-12b (SERVE_ARCH) registered as an LM UDF
@@ -2495,13 +3300,14 @@ def _published(arch, fields, width):
     return cfg
 
 
-def _train_phase(cfg, batch, steps, per_step, heap, kernels=(), around=None):
+def _train_phase(cfg, batch, steps, per_step, heap, kernels=(), around=None, ranges=()):
     """``cfg`` trained from f32 masters drawn on the card from seed 0 by
     train_loop.run for ``steps`` steps of ``batch`` x TRAIN_SEQ tokens from
     the page data path (B1 each step), full rematerialisation, AdamW (lr
     3e-4, warmup steps // 4 + 1, as launch/train.py), with the sync debug
     mode on; then one step untraced, one under the profiler (device ms of
-    ``kernels``) and the AdamW update alone. ``per_step`` gives the launches
+    ``kernels`` and of the record_function ``ranges``) and the AdamW update
+    alone. ``per_step`` gives the launches
     a step of each kernel; ``around`` wraps the training run (a context
     manager). Returns (the record, the run: params, optimizer state, loss
     function, dataset, loop and optimizer configs). ``_check_train`` holds
@@ -2574,7 +3380,7 @@ def _train_phase(cfg, batch, steps, per_step, heap, kernels=(), around=None):
     untraced_s = time.perf_counter() - t0
     b = ds.batch(steps + 1, batch)
     traced_s, busy_s, top = _device_profile(
-        lambda: float(step_fn(p, o, b)[2]["loss"]), kernels=kernels)
+        lambda: float(step_fn(p, o, b)[2]["loss"]), kernels=kernels, ranges=ranges)
 
     # the AdamW update alone: in pieces of UPDATE_PIECE elements, as the step
     # runs it, and each leaf in one pass. The parameters stand in for the
@@ -3047,6 +3853,12 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "tests"))  # the paged-attention parity cases
     import repro_torch  # noqa: F401  (fails where the repository is absent)
 
+    if sys.argv[1:2] == ["--hybrid-gather"]:  # serve-hybrid's gather run
+        return hybrid_gather_child(sys.argv[2])
+    if sys.argv[1:2] == ["--serve-rwkv"]:  # the serve-rwkv phase, beside serve-hybrid
+        phase_serve_rwkv()
+        return 0
+
     smi = nvidia_smi()
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
@@ -3070,8 +3882,17 @@ def main() -> int:
         captured, serve_launches = phase_serve()
         phase_launch_serve()
         mla_captured, mla_launches = phase_serve_mla()
-        rows.append(kernel_row_paged_attn(captured, serve_launches, mla_captured, mla_launches))
-        del captured, mla_captured
+        rwkv = _phase_beside("--serve-rwkv")
+        try:
+            hybrid_captured, hybrid_launches = phase_serve_hybrid()
+        except BaseException:
+            rwkv[0].kill()
+            rwkv[0].wait()
+            raise
+        _join_beside(*rwkv)
+        rows.append(kernel_row_paged_attn(captured, serve_launches, mla_captured, mla_launches,
+                                          hybrid_captured, hybrid_launches))
+        del captured, mla_captured, hybrid_captured
         lm_launches, lm_b3 = phase_lm_predict()
         b3_row = next(r for r in rows if r["name"] == "strider_decode_projected")
         b3_row["launches"] += lm_launches
@@ -3079,6 +3900,7 @@ def main() -> int:
         wkv_calls, train_launches = phase_train()
         phase_train_parity()
         phase_train_mla()
+        phase_train_hybrid()
         phase_launch_train()
         rows.extend(kernel_rows_wkv(wkv_calls, train_launches, *wkv_kernels))
         emit({"kernels": rows})

@@ -7,7 +7,8 @@
   decode_fn(cfg)                        -> f(params, tokens, cache, pos)
                                            (pos: scalar or (B,) per-slot vector)
   make_cache(cfg, batch, seq, device)   -> dense decode cache
-  make_paged_cache(cfg, num_blocks, block_size, device) -> block-pool cache
+  make_paged_cache(cfg, num_blocks, block_size, device, *, slots,
+                   ring_num_blocks, ring_width) -> block-pool cache
   demo_batch(cfg, batch, seq, rng, device) -> a random training batch
 
 The shape cells and the dry-run input specs wait for the tooling slice
@@ -71,12 +72,16 @@ def make_cache(cfg: ModelConfig, batch: int, seq: int, device=None):
     return transformer.init_cache(cfg, batch, seq, resolve_device(device))
 
 
-def make_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device=None):
+def make_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device=None, *,
+                     slots: int = 0, ring_num_blocks: int = 0, ring_width: int = 0):
     """Paged decode cache: attention leaves are block pools
     ``(num_blocks + 1, block_size, ...)`` shared across slots
-    (serve/kv_pool.py allocates the first ``num_blocks``)."""
-    return transformer.init_paged_cache(cfg, num_blocks, block_size,
-                                        resolve_device(device))
+    (serve/kv_pool.py allocates the first ``num_blocks``); sliding-window
+    layers' pools hold ``ring_num_blocks`` when ``ring_width`` is set, and
+    recurrent state ``slots`` dense rows."""
+    return transformer.init_paged_cache(cfg, num_blocks, block_size, resolve_device(device),
+                                        slots=slots, ring_num_blocks=ring_num_blocks,
+                                        ring_width=ring_width)
 
 
 def demo_batch(cfg: ModelConfig, batch: int, seq: int, rng=None, device=None) -> dict:

@@ -1,5 +1,6 @@
-"""RWKV6 (Finch) time mix and channel mix (counterpart of
-``repro.models.ssm``, lines 25-188, which it is held against).
+"""RWKV6 (Finch) time mix and channel mix, and the Mamba mixer of the
+hybrid family (counterpart of ``repro.models.ssm``, which it is held
+against).
 
 Training and prefill run the chunkwise-parallel WKV core through
 ``kernels.wkv.ops.wkv`` (the kernels B6 and B6-bwd on the card, the plain
@@ -7,8 +8,16 @@ chunked form on the CPU) under exactly the reference's condition; decode
 runs the per-token recurrence ``wkv_scan``. Every cast of the reference is
 kept where it is: the projections run in the activation type with the
 weights cast at each use, and the log-decay is computed in f32 and clipped
-to [-8, -1e-4]. The Mamba mixer of the hybrid family waits for ROADMAP
-queue item 3.
+to [-8, -1e-4].
+
+The Mamba mixer (``mamba_mix``) is plain PyTorch, as the reference's is
+plain ``jnp``: the selective scan runs in f32, chunk by chunk, each chunk a
+log-step (Hillis-Steele) scan of (decay, drive) pairs with the reference's
+``combine`` and the state carried from chunk to chunk in order. The decay
+and drive tensors, (B, C, d_inner, N), exist one chunk at a time. The chunk
+boundaries are the reference's wherever it runs a length; where its reshape
+fails (its chunk count does not divide the length) the port adds one ragged
+last chunk.
 """
 from __future__ import annotations
 
@@ -126,3 +135,105 @@ def rwkv_cmix(p, x, cfg: ModelConfig, shift_prev=None):
     v = k @ p["wv"].to(dt)
     r = torch.sigmoid(xr @ p["wr"].to(dt))
     return r * v, x[:, -1:]
+
+
+# ============================== Mamba (hybrid) =================================
+def make_mamba(m: Maker, cfg: ModelConfig):
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    n = cfg.ssm_state
+    return {
+        "w_in": m.param((d, 2 * di), ("embed", "inner")),
+        "conv": m.param((cfg.ssm_conv, di), ("conv", "inner"), scale=0.2),
+        "w_dt": m.param((di, di), ("inner", "inner"), scale=0.01),
+        "dt_bias": m.param((di,), ("inner",), scale=0.02),
+        "w_b": m.param((di, n), ("inner", "state"), scale=0.05),
+        "w_c": m.param((di, n), ("inner", "state"), scale=0.05),
+        "a_log": m.param((di, n), ("inner", "state"), scale=0.02),
+        "d_skip": m.param((di,), ("inner",), scale=0.02),
+        "w_out": m.param((di, d), ("inner", "embed")),
+    }
+
+
+def chunk_bounds(t: int, chunk: int) -> list[tuple[int, int]]:
+    """(start, end) of the scan's chunks over ``t`` tokens: the reference's
+    ``nc = max(t // chunk, 1)`` chunks of ``t // nc`` tokens, and one more,
+    ragged, for the tokens they leave over (where the reference raises)."""
+    nc = max(t // chunk, 1)
+    c = t // nc
+    bounds = [(i * c, (i + 1) * c) for i in range(nc)]
+    if nc * c < t:
+        bounds.append((nc * c, t))
+    return bounds
+
+
+def _scan_pairs(a, b):
+    """Inclusive scan along axis 1 of the pairs (a, b) under the reference's
+    ``combine(e1, e2) = (a1 a2, b1 a2 + b2)``, in log2(C) steps: step d
+    combines each element with the one d before it."""
+    d, c = 1, a.shape[1]
+    while d < c:
+        a, b = (torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1),
+                torch.cat([b[:, :d], torch.addcmul(b[:, d:], b[:, :-d], a[:, d:])], dim=1))
+        d *= 2
+    return a, b
+
+
+def _mamba_core(p, xc, cfg: ModelConfig, h0, chunk: int):
+    """xc: (B, T, di) post-conv activations; h0: (B, di, N) state. Returns
+    (y (B, T, di) in xc's type, the state after the last token, f32)."""
+    f32 = torch.float32
+    x = xc.to(f32)
+    dt = F.softplus(x @ p["w_dt"].to(f32) + p["dt_bias"].to(f32))  # (B,T,di)
+    bm = x @ p["w_b"].to(f32)  # (B,T,N)
+    cm = x @ p["w_c"].to(f32)
+    a = -torch.exp(p["a_log"].to(f32))  # (di,N)
+    u = dt * x
+    h = h0.to(f32)
+    ys = []
+    for s, e in chunk_bounds(x.shape[1], chunk):
+        decay = torch.exp(dt[:, s:e, :, None] * a)  # (B,C,di,N)
+        drive = u[:, s:e, :, None] * bm[:, s:e, None, :]
+        aa, bb = _scan_pairs(decay, drive)  # one token (decode): the pair itself
+        hs = torch.addcmul(bb, aa, h[:, None])
+        ys.append((hs @ cm[:, s:e, :, None])[..., 0])
+        h = hs[:, -1]
+    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+    y = y + p["d_skip"].to(f32) * x
+    return y.to(xc.dtype), h
+
+
+def _silu(x):
+    """SiLU rounded as the reference rounds it: in bf16, ``jax.nn.silu``
+    lowers to x * (1 / (1 + exp(-x))) with each step rounded to bf16, which
+    the fused ``F.silu`` (one rounding) misses by an ulp on many elements,
+    and the Mamba scan's exponentials carry such an ulp far. In
+    f32 the two agree within an ulp and ``F.silu`` keeps its stable
+    gradient."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def mamba_mix(p, x, cfg: ModelConfig, state=None, conv_prev=None, chunk=256):
+    """Returns (out, (ssm_state (B,di,N) f32, conv_state (B,conv-1,di) in
+    x's type))."""
+    b, t, d = x.shape
+    di = cfg.ssm_expand * d
+    dt_ = x.dtype
+    xi = x @ p["w_in"].to(dt_)
+    xz, z = xi[..., :di], xi[..., di:]
+    kw = cfg.ssm_conv
+    if conv_prev is None:
+        conv_prev = x.new_zeros((b, kw - 1, di))
+    xpad = torch.cat([conv_prev.to(dt_), xz], dim=1)
+    w = p["conv"].to(dt_)
+    xc = xpad[:, :t] * w[0]
+    for i in range(1, kw):
+        xc = xc + xpad[:, i:i + t] * w[i]
+    xc = _silu(xc)
+    if state is None:
+        state = torch.zeros((b, di, cfg.ssm_state), dtype=torch.float32, device=x.device)
+    y, state = _mamba_core(p, xc, cfg, state, chunk=min(chunk, t))
+    out = (y * _silu(z)) @ p["w_out"].to(dt_)
+    return out, (state, xpad[:, t:][:, -(kw - 1):] if kw > 1 else xpad[:, :0])

@@ -9,12 +9,18 @@ the autograd leaves and nothing is copied.
 
 ``segments_for`` covers every family. The port runs the families whose
 segments are all ``attn_mlp`` (dense and VLM backbones with GQA attention:
-internlm2, mistral-nemo, deepseek-67b, internvl2; and MLA: minicpm3) and the
-``rwkv`` family (rwkv6-3b): training, prefill and ``lm_decode_step``, and the
-attention families in the server. The others raise
-``NotImplementedError`` naming the ROADMAP item that ports them:
-``check_supported`` for the model stack, ``check_servable`` for the
-server, which does not hold RWKV's per-slot state yet.
+internlm2, mistral-nemo, deepseek-67b, internvl2; and MLA: minicpm3), the
+``rwkv`` family (rwkv6-3b) and the hybrid family (hymba-1.5b: attention,
+sliding-window or global, beside a Mamba mixer in every layer): training,
+prefill, ``lm_decode_step`` and the server. MoE, encoder-decoder and
+multi-token prediction raise ``NotImplementedError`` naming the ROADMAP
+item that ports them (``check_supported``, ``check_servable``).
+
+Recurrent state (RWKV's ``wkv``/``shift_t``/``shift_c``, Mamba's
+``ssm``/``conv``) is per slot, dense ``(L, B, ...)`` under paged KV too, and
+written in place only on the rows whose ``write_ok`` is set: the port's
+form of the reference's ``select_rows``, so a row that does not run a
+sub-step keeps its state.
 
 ``remat`` follows the reference: ``"none"`` keeps every activation,
 ``"full"`` keeps each layer's input only (``torch.utils.checkpoint``, one
@@ -87,13 +93,14 @@ def segments_for(cfg: ModelConfig) -> list[Segment]:
     return [Segment("attn_mlp", cfg.n_layers)]
 
 
+HYBRID = ("hybrid_swa", "hybrid_global")
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port's model stack
     cannot run yet, naming the ROADMAP item that ports it."""
     if cfg.family == "encdec":
         why = "encoder-decoder models wait for ROADMAP A15 (encdec)"
-    elif cfg.family == "hybrid":
-        why = "Mamba and sliding-window layers wait for ROADMAP A14 (ssm.py, SWA rings)"
     elif cfg.is_moe:
         why = "MoE layers wait for ROADMAP A14 (moe.py)"
     elif cfg.mtp:
@@ -104,13 +111,9 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_servable(cfg: ModelConfig) -> None:
-    """``check_supported``, and the server's own limit: RWKV's per-slot
-    recurrent state is not held by the server or the paged cache yet."""
+    """What the server can serve: every family ``check_supported`` lets
+    through."""
     check_supported(cfg)
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: serving RWKV6 waits for ROADMAP A14 (per-slot recurrent "
-            "state in the server, queue item 3)")
 
 
 # --------------------------------------------------------------------------
@@ -124,12 +127,17 @@ def _make_layer(m: Maker, cfg: ModelConfig, kind: str):
             "tmix": ssm.make_rwkv_tmix(m, cfg),
             "cmix": ssm.make_rwkv_cmix(m, cfg),
         }
-    return {
+    p = {
         "ln1": make_norm(m, cfg.d_model),
         "ln2": make_norm(m, cfg.d_model),
         "attn": attn.kind_of(cfg).make(m, cfg),
-        "mlp": make_mlp(m, cfg.d_model, cfg.d_ff),
     }
+    if kind in HYBRID:
+        p["mamba"] = ssm.make_mamba(m, cfg)
+        p["ln_attn_out"] = make_norm(m, cfg.d_model)
+        p["ln_mamba_out"] = make_norm(m, cfg.d_model)
+    p["mlp"] = make_mlp(m, cfg.d_model, cfg.d_ff)
+    return p
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device,
@@ -162,9 +170,23 @@ def _layer_train(p, x, positions, cfg: ModelConfig, kind: str, wkv_impl: str = "
         h, _ = ssm.rwkv_cmix(p["cmix"], apply_norm(p["ln_c"], x, cfg.norm_eps), cfg)
         return x + h
     h = apply_norm(p["ln1"], x, cfg.norm_eps)
-    x = x + attn.kind_of(cfg).train(p["attn"], h, cfg, positions)
+    if kind in HYBRID:
+        akind = "causal" if kind == "hybrid_global" else "swa"
+        a = attn.kind_of(cfg).train(p["attn"], h, cfg, positions, kind=akind,
+                                    window=cfg.swa_window)
+        s, _ = ssm.mamba_mix(p["mamba"], h, cfg)
+        x = x + _hybrid_mix(p, a, s, cfg)
+    else:
+        x = x + attn.kind_of(cfg).train(p["attn"], h, cfg, positions)
     h = apply_norm(p["ln2"], x, cfg.norm_eps)
     return x + apply_mlp(p["mlp"], h)
+
+
+def _hybrid_mix(p, a, s, cfg: ModelConfig):
+    """The hybrid layer's merge of its attention (``a``) and Mamba (``s``)
+    outputs: the mean of the two, each normed."""
+    return 0.5 * (apply_norm(p["ln_attn_out"], a, cfg.norm_eps)
+                  + apply_norm(p["ln_mamba_out"], s, cfg.norm_eps))
 
 
 # the outputs a "dots" rematerialisation keeps: matrix products
@@ -245,32 +267,59 @@ def _rwkv_cache(cfg: ModelConfig, batch: int, device):
     }
 
 
+def _mamba_cache(cfg: ModelConfig, batch: int, device):
+    di = cfg.ssm_expand * cfg.d_model
+    return {
+        "ssm": torch.zeros((batch, di, cfg.ssm_state), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, di), dtype=torch.bfloat16, device=device),
+    }
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device):
     """Dense caches, one dict per segment of layer-stacked tensors: GQA
-    ``k``/``v`` (L, batch + 1, seq, KVH, D) (see attention: the spare row);
+    ``k``/``v`` (L, batch + 1, seq, KVH, D) (see attention: the spare row;
+    a sliding-window layer's ring holds ``min(swa_window, seq)`` rows);
     MLA the latent ``c`` (L, batch + 1, seq, kv_lora) and ``kr``
     (L, batch + 1, seq, rope); RWKV the per-row state, ``wkv``
     (L, batch, H, hs, hs) f32 and the token shifts ``shift_t``/``shift_c``
-    (L, batch, 1, d_model) bf16."""
+    (L, batch, 1, d_model) bf16; a hybrid layer its attention's and Mamba's
+    ``ssm`` (L, batch, d_inner, N) f32 and ``conv`` (L, batch, conv - 1,
+    d_inner) bf16."""
     check_supported(cfg)
     caches = []
     for s in segments_for(cfg):
         if s.kind == "rwkv":
             layer = _rwkv_cache(cfg, batch, device)
         else:
-            layer = attn.kind_of(cfg).init_cache(cfg, batch, seq, device=device)
+            window = cfg.swa_window if s.kind == "hybrid_swa" else 0
+            layer = (attn.init_gqa_cache(cfg, batch, seq, window=window, device=device)
+                     if window else attn.kind_of(cfg).init_cache(cfg, batch, seq, device=device))
+            if s.kind in HYBRID:
+                layer.update(_mamba_cache(cfg, batch, device))
         caches.append(_stacked(layer, s.n_layers))
     return caches
 
 
-def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device):
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device, *,
+                     slots: int = 0, ring_num_blocks: int = 0, ring_width: int = 0):
     """Paged caches: block pools (L, num_blocks + 1, block_size, ...) shared
     by all slots (see attention: the spare block), GQA's ``k``/``v`` or
-    MLA's ``c``/``kr``. The reference's per-slot recurrent state and SWA ring
-    pools belong to families the port does not serve yet."""
+    MLA's ``c``/``kr``. Sliding-window layers draw theirs from the ring
+    pool, ``ring_num_blocks`` blocks, when ``ring_width`` is set. Recurrent
+    state keeps its dense per-slot rows, ``slots`` of them: it is O(1) a
+    slot, not a token, so there is nothing to page."""
     check_servable(cfg)
-    layer = attn.kind_of(cfg).init_cache_paged(cfg, num_blocks, block_size, device=device)
-    return [_stacked(layer, s.n_layers) for s in segments_for(cfg)]
+    caches = []
+    for s in segments_for(cfg):
+        if s.kind == "rwkv":
+            layer = _rwkv_cache(cfg, slots, device)
+        else:
+            n = ring_num_blocks if s.kind == "hybrid_swa" and ring_width else num_blocks
+            layer = attn.kind_of(cfg).init_cache_paged(cfg, n, block_size, device=device)
+            if s.kind in HYBRID:
+                layer.update(_mamba_cache(cfg, slots, device))
+        caches.append(_stacked(layer, s.n_layers))
+    return caches
 
 
 def _stacked(layer_cache, n_layers):
@@ -281,7 +330,16 @@ def _layer(tree, i):
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
-def _layer_decode_rwkv(p, x, cache, cfg: ModelConfig):
+def _write_state(leaf, new, write_ok):
+    """Write a recurrent state leaf (B, ...) in place: every row, or only the
+    rows whose ``write_ok`` (B,) is set (the others keep their state)."""
+    new = new.to(leaf.dtype)
+    if write_ok is not None:
+        new = torch.where(write_ok.view(-1, *([1] * (leaf.dim() - 1))), new, leaf)
+    leaf.copy_(new)
+
+
+def _layer_decode_rwkv(p, x, cache, cfg: ModelConfig, write_ok=None):
     h = apply_norm(p["ln_t"], x, cfg.norm_eps)
     h, (wkv_s, shift_t) = ssm.rwkv_tmix(
         p["tmix"], h, cfg, state=cache["wkv"],
@@ -289,31 +347,47 @@ def _layer_decode_rwkv(p, x, cache, cfg: ModelConfig):
     x = x + h
     h = apply_norm(p["ln_c"], x, cfg.norm_eps)
     h, shift_c = ssm.rwkv_cmix(p["cmix"], h, cfg, shift_prev=cache["shift_c"].to(h.dtype))
-    cache["wkv"].copy_(wkv_s)
-    cache["shift_t"].copy_(shift_t)
-    cache["shift_c"].copy_(shift_c)
+    _write_state(cache["wkv"], wkv_s, write_ok)
+    _write_state(cache["shift_t"], shift_t, write_ok)
+    _write_state(cache["shift_c"], shift_c, write_ok)
     return x + h
 
 
 def _layer_decode(p, x, cache, pos, cfg: ModelConfig, kind: str = "attn_mlp", paged=None,
                   slot=None, write_ok=None):
+    if slot is not None and kind not in ("attn_mlp", "attn_moe"):
+        raise ValueError(
+            f"token-batched decode (slot mapping) needs per-token caches; segment kind "
+            f"{kind!r} carries per-slot recurrent state")
+    state_ok = write_ok if paged is None else paged["write_ok"]
     if kind == "rwkv":
-        if paged is not None or slot is not None:
-            raise ValueError("RWKV layers carry per-row recurrent state: no paged "
-                             "cache and no token-batched slot mapping")
-        return _layer_decode_rwkv(p, x, cache, cfg)
+        if paged is not None:
+            raise ValueError("RWKV layers carry per-row recurrent state: no paged cache")
+        return _layer_decode_rwkv(p, x, cache, cfg, state_ok)
     h = apply_norm(p["ln1"], x, cfg.norm_eps)
     ops = attn.kind_of(cfg)
+    window = cfg.swa_window if kind == "hybrid_swa" else 0
     if paged is None:
-        a, _ = ops.decode(p["attn"], h, cache, pos, cfg, slot=slot, write_ok=write_ok)
+        kw = {"window": window} if window else {}
+        a, _ = ops.decode(p["attn"], h, cache, pos, cfg, slot=slot, write_ok=write_ok, **kw)
     else:
+        ring = bool(window and paged.get("ring_width"))
+        kw = {"ring_width": paged["ring_width"]} if ring else {}
         a, _ = ops.decode_paged(
-            p["attn"], h, cache, pos, cfg, table=paged["table"],
+            p["attn"], h, cache, pos, cfg,
+            table=paged["ring_table"] if ring else paged["table"],
             block_size=paged["block_size"], max_seq=paged["max_seq"],
             write_ok=paged["write_ok"], impl=paged.get("impl", "gather"),
-            runs=paged.get("runs"),
+            runs=paged.get("runs"), **kw,
         )
-    x = x + a
+    if kind in HYBRID:
+        s, (ssm_s, conv_s) = ssm.mamba_mix(p["mamba"], h, cfg, state=cache["ssm"],
+                                           conv_prev=cache["conv"].to(h.dtype))
+        _write_state(cache["ssm"], ssm_s, state_ok)
+        _write_state(cache["conv"], conv_s, state_ok)
+        x = x + _hybrid_mix(p, a, s, cfg)
+    else:
+        x = x + a
     h = apply_norm(p["ln2"], x, cfg.norm_eps)
     return x + apply_mlp(p["mlp"], h)
 
@@ -326,7 +400,9 @@ def lm_decode_step(params, tokens, caches, pos, cfg: ModelConfig, paged=None,
     ``paged`` switches the attention caches to the block-pool layout
     (init_paged_cache): a dict with ``table`` ((B, nb) int32, or per-token
     (T, nb) when ``slot`` is given), ``write_ok`` (B,) bool (or None),
-    ``block_size``/``max_seq``, and optional ``impl`` (``"gather"`` |
+    ``block_size``/``max_seq``, for sliding-window layers ``ring_table``
+    ((B, nb_ring) int32, the ring pool's) and ``ring_width`` (0: they read
+    the full table), and optional ``impl`` (``"gather"`` |
     ``"kernel"`` paged-attention read path) and ``runs`` ((R, 2) int32 rows
     that share one table row, a hint for the kernel path; see
     ``kernels.paged_attn.ops``). ``slot``/``write_ok`` enable

@@ -88,12 +88,21 @@ Where the port differs from ``repro``:
   * **Temperature sampling** is Gumbel-max, as ``jax.random.categorical``
     is, on a ``torch.Generator`` seeded with ``seed``: the same distribution,
     not the same numbers.
-  * **Families.** The port serves the families whose segments are all
-    ``attn_mlp``, with GQA or MLA attention (MLA's caches are the latent
-    ``c``/``kr`` leaves, which every cache walk here reaches as it reaches
-    ``k``/``v``); the others raise ``NotImplementedError``
-    (models/transformer.py), so no step-mode or prefix-sharing fallback for
-    recurrent or MoE segments is needed. ``mesh=`` raises until ROADMAP A19.
+  * **Families.** The port serves the dense attention families (GQA or
+    MLA: MLA's caches are the latent ``c``/``kr`` leaves, which every cache
+    walk here reaches as it reaches ``k``/``v``), RWKV6 and the hybrid
+    family (hymba: sliding-window layers read a ring of ``swa_window`` rows,
+    paged from the ring pool through its own block table, beside a Mamba
+    mixer). Recurrent state (``_PER_SLOT_KEYS``) stays per slot under paged
+    KV too: it is zeroed on admission, written only on the rows that run a
+    sub-step, and left out of block copies and KV byte counts. As in
+    ``repro``: a pure recurrent model (``ssm``) serves dense under
+    ``kv="paged"``; token stepping on segments that are not all
+    ``attn_mlp`` falls back to chunked stepping (``serve_step``), and an
+    explicit ``prefix_cache=True`` without paged attention-only segments
+    falls back to unshared serving (``serve_prefix``), both recorded in
+    ``meshes.fallbacks()``. MoE raises ``NotImplementedError``
+    (models/transformer.py); ``mesh=`` raises until ROADMAP A19.
 """
 from __future__ import annotations
 
@@ -109,10 +118,15 @@ from repro_torch.dist import meshes
 from repro_torch.models import model_zoo
 from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import check_servable
+from repro_torch.models.transformer import check_servable, segments_for
 from repro_torch.serve import scheduler as sched
 from repro_torch.serve.kv_pool import PagedKV, PoolExhausted, prefix_keys
 from repro_torch.serve.metrics import ServeMetrics
+
+
+# cache leaves that stay per slot ((L, B, ...)) under paged KV too: recurrent
+# state is O(1) a slot, not a token
+_PER_SLOT_KEYS = frozenset({"wkv", "shift_t", "shift_c", "ssm", "conv"})
 
 
 @dataclasses.dataclass
@@ -153,11 +167,26 @@ class Request:
 
 
 def _cache_row_bytes(cache) -> int:
-    """Bytes of cache one written position costs, summed over every leaf and
-    all layers: leaves are layer-stacked ``(L, B_or_NB, S_or_bs, tail...)``,
-    so one row is ``L * prod(tail)`` elements per leaf."""
+    """Bytes of cache one written position costs, summed over every leaf but
+    the per-slot recurrent state (an O(1) update, not a token's KV; a pure
+    recurrent family reports 0) and all layers: leaves are layer-stacked
+    ``(L, B_or_NB, S_or_bs, tail...)``, so one row is ``L * prod(tail)``
+    elements per leaf."""
     return sum(int(c.shape[0]) * int(np.prod(c.shape[3:], dtype=np.int64)) * c.element_size()
-               for seg in cache for c in seg.values())
+               for seg in cache for k, c in seg.items() if k not in _PER_SLOT_KEYS)
+
+
+def _reset_slot_rows(cache, idx, paged: bool) -> None:
+    """Zero the slot rows ``idx`` (a device index tensor) of the cache
+    leaves in place, with no host read (``index_fill_``, where indexed
+    assignment would synchronise); leaves are layer-stacked (L, B, ...).
+    Under paged KV only the per-slot recurrent leaves have slot rows: block
+    pools need no reset, recycled blocks are hidden by the validity masks
+    alone."""
+    for seg in cache:
+        for k, c in seg.items():
+            if not paged or k in _PER_SLOT_KEYS:
+                c.index_fill_(1, idx, 0)
 
 
 def token_runs(counts, t_pad: int) -> np.ndarray:
@@ -282,25 +311,34 @@ class BatchedServer:
         self.temperature = float(temperature)
         self.admission = admission
         self.prefill_chunk = int(prefill_chunk)
-        self.kv_mode = kv
-        # prefix sharing needs a paged pool (every family the port serves is
-        # attention-only, the reference's other condition). None = on
-        # wherever eligible; an explicit True on a dense layout records a
+        # a pure recurrent model has no per-token cache to page
+        self.kv_mode = "dense" if kv == "paged" and cfg.family == "ssm" else kv
+        # prefix sharing needs (a) a paged pool without a SWA ring (ring rows
+        # wrap: a sharer skipping prefill would miss the skipped positions'
+        # window writes) and (b) attention-only segments (skipped positions
+        # carry recurrent state that blocks don't hold). None = on wherever
+        # eligible; an explicit True on an ineligible shape records a
         # fallback instead of serving wrong KV.
+        kinds = {s.kind for s in segments_for(cfg)}
+        prefix_ok = self.kv_mode == "paged" and kinds == {"attn_mlp"}
         if prefix_cache is None:
-            prefix_cache = kv == "paged"
-        elif prefix_cache and kv != "paged":
+            prefix_cache = prefix_ok
+        elif prefix_cache and not prefix_ok:
             meshes.record_fallback(
                 "serve_prefix", "prefix_cache", 0,
-                "prefix sharing needs paged KV (kv='dense'); serving unshared",
+                f"prefix sharing needs paged KV over attention-only segments "
+                f"(kv={self.kv_mode!r}, kinds={sorted(kinds)}); serving unshared",
             )
             prefix_cache = False
         self.prefix_cache = bool(prefix_cache)
-        if kv == "paged":
+        if self.kv_mode == "paged":
             self._paged = PagedKV.for_model(cfg, batch_slots, max_seq, block_size,
                                             kv_blocks, prefix_cache=self.prefix_cache)
+            ring = self._paged.ring
             self.cache = model_zoo.make_paged_cache(
-                cfg, self._paged.pool.num_blocks, block_size, self.device)
+                cfg, self._paged.pool.num_blocks, block_size, self.device,
+                slots=batch_slots, ring_num_blocks=ring.num_blocks if ring is not None else 0,
+                ring_width=self._paged.ring_width)
         else:
             self._paged = None
             self.cache = model_zoo.make_cache(cfg, batch_slots, max_seq, self.device)
@@ -311,6 +349,14 @@ class BatchedServer:
                 "tables); dense layout falls back to gather attention",
             )
             attn_impl = "gather"
+        if step_mode == "tokens" and kinds != {"attn_mlp"}:
+            meshes.record_fallback(
+                "serve_step", "token_batch", 0,
+                f"token-level stepping needs attention-only segments, got "
+                f"{sorted(kinds)}: recurrent state is per slot; falling back to "
+                "chunked stepping",
+            )
+            step_mode = "chunked"
         self.attn_impl = attn_impl
         self.step_mode = step_mode
         self._decode = model_zoo.decode_fn(cfg)
@@ -362,16 +408,17 @@ class BatchedServer:
         # the prompt buffer is the one per-slot array that is not O(slots):
         # its device copy is refreshed only on admission
         self._prompt_buf_dev = self._upload(self._prompt_buf)
-        # the slot block table, refreshed only when the allocator maps or
+        # the slot block tables (the full pool's and, with sliding-window
+        # layers, the ring pool's), refreshed only when the allocator maps or
         # releases blocks
-        self._table_dev = None
+        self._table_dev = self._ring_dev = None
         self._tables_fresh = False
         # prefix-sharing bookkeeping: each occupied slot's feed-block content
         # keys and the watermark of blocks already registered in the index
         self._slot_keys: list[list | None] = [None] * batch_slots
         self._reg_upto = np.zeros(batch_slots, np.int32)
-        # bytes one written cache row costs across every leaf and layer: the
-        # unit behind metrics.kv_bytes_written
+        # bytes one written cache row costs across every leaf but the per-slot
+        # state, and every layer: the unit behind metrics.kv_bytes_written
         self._kv_row_bytes = _cache_row_bytes(self.cache)
 
     # -- host <-> device ------------------------------------------------------
@@ -385,7 +432,9 @@ class BatchedServer:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _refresh_tables(self):
-        self._table_dev = self._upload(self._paged.tables()[0])
+        full, ring = self._paged.tables()
+        self._table_dev = self._upload(full)
+        self._ring_dev = self._upload(ring) if ring is not None else None
         self._tables_fresh = True
 
     # -- admission -----------------------------------------------------------
@@ -620,23 +669,21 @@ class BatchedServer:
             self._admit_into(free, req, now)
             newly.append(free)
         if newly:
-            if self._paged is None:
-                # dense rows of the admitted slots start from zeros, on top of
-                # the per-row validity masks (block pools need no reset:
-                # recycled blocks are hidden by the masks alone)
-                idx = self._upload(np.asarray(newly, np.int64))
-                for seg in self.cache:
-                    for c in seg.values():
-                        c[:, idx] = 0
+            # the admitted slots' rows start from zeros (recurrent state on
+            # either layout, dense KV rows on top of the validity masks)
+            _reset_slot_rows(self.cache, self._upload(np.asarray(newly, np.int64)),
+                             paged=self._paged is not None)
             self._prompt_buf_dev = self._upload(self._prompt_buf)
 
     # -- the fused device step -------------------------------------------------
     def _forward(self, tok, pos, write_ok, table=None, slot=None, runs=None):
-        """One decode over the caches, gated by ``write_ok``, then sampling
-        over the true vocab: (T,) int32 next tokens on the device. ``runs``
-        reaches the paged-attention kernel (the kernel path only)."""
+        """One decode over the caches, gated by ``write_ok`` (KV rows and
+        recurrent state alike), then sampling over the true vocab: (T,) int32
+        next tokens on the device. ``runs`` reaches the paged-attention
+        kernel (the kernel path only)."""
         if self._paged is not None:
-            ctx = {"table": table, "write_ok": write_ok,
+            ctx = {"table": table, "ring_table": self._ring_dev,
+                   "ring_width": self._paged.ring_width, "write_ok": write_ok,
                    "block_size": self._paged.block_size, "max_seq": self.max_seq,
                    "impl": self.attn_impl,
                    "runs": runs if self.attn_impl == "kernel" else None}
@@ -655,7 +702,8 @@ class BatchedServer:
     def _chunked_program(self) -> np.ndarray:
         """C masked sub-steps, each a full one-token decode for every running
         slot (prefill feeds the prompt buffer, decode the last sample). Rows
-        at the ``max_seq`` horizon idle with caches and positions frozen, so
+        that do not run a sub-step (empty slots, rows at the ``max_seq``
+        horizon) idle with KV rows, recurrent state and positions frozen, so
         C=1 is the one-token engine and any C is token-exact against it.
         Returns the (2C + 2, B) host array: sampled tokens (C, B), emit flags
         (C, B), then the advanced positions and last tokens."""
@@ -767,8 +815,9 @@ class BatchedServer:
         src = self._upload(np.asarray([p[0] for p in pairs], np.int64))
         dst = self._upload(np.asarray([p[1] for p in pairs], np.int64))
         for seg in self.cache:
-            for c in seg.values():
-                c[:, dst] = c[:, src]
+            for k, c in seg.items():
+                if k not in _PER_SLOT_KEYS:
+                    c[:, dst] = c[:, src]
 
     def _register_prefix(self, slot: int):
         """Advance ``slot``'s prefix-index registration watermark: feed

@@ -292,7 +292,7 @@ def test_remat_modes_give_the_same_loss_and_gradients(arch):
             assert torch.equal(grads_r[path], g), (remat, path)
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "internlm2-20b"])
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "internlm2-20b", "hymba-1.5b"])
 def test_model_loss_invariant_to_attn_chunking(arch):
     cfg = get_reduced_config(arch)
     params, _ = model_zoo.init_params(cfg, seed=0, device=CPU,

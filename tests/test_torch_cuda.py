@@ -366,6 +366,48 @@ def test_server_kernel_path_matches_gather_on_card(card):
     assert pa_kernel.paged_attention.launches > launches
 
 
+def test_paged_attn_kernel_on_hymbas_wrapped_ring(card):
+    """One of hymba-1.5b's sliding-window calls as its server makes them: 16
+    slots, one row each (chunked stepping), KVH 5, G 5, D 64, bf16 pools of
+    16-row blocks, a ring of 1,024 rows (64 blocks a slot) that every slot
+    has passed (positions 1,024-1,087), with and without runs."""
+    pos = np.array([1024, 1025, 1030, 1039, 1040, 1041, 1047, 1050, 1055, 1060, 1064, 1070,
+                    1075, 1080, 1086, 1087])
+    case = pa_case(t=16, kvh=5, g=5, dk=64, dv=64, bs=16, nb_slot=64, num_blocks=16 * 64 + 8,
+                   ring_width=1024, seed=41, bf16=True, scale=64 ** -0.5, pos=pos)
+    _paged_attn_on_card(card, case)
+    _paged_attn_on_card(card, case, with_runs=True)
+    assert pa_kernel.paged_attention.body == "split"
+
+
+def test_server_hybrid_kernel_path_matches_gather_on_card(card):
+    """Reduced hymba with one global layer (the other a sliding-window layer
+    of window 16, on the ring pool): the kernel path's tokens equal the
+    gather path's on a stream whose positions pass the window; B5 runs
+    every layer of every sub-step."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.serving import BatchedServer, Request
+
+    cfg = get_reduced_config("hymba-1.5b", n_global_layers=1)
+    params, _ = model_zoo.init_params(cfg, seed=2, device=card)
+    stream = [([5, 6, 7, 8], 9), ([1, 2], 3), ([3, 1, 4, 1, 5, 9, 2, 6, 5, 3], 12), ([2, 7], 4)]
+
+    def serve(impl):
+        srv = BatchedServer(cfg, params, batch_slots=2, max_seq=24, kv="paged",
+                            block_size=4, step_mode="tokens", prefill_chunk=4,
+                            attn_impl=impl, device=card)
+        assert srv.step_mode == "chunked" and srv._paged.ring_width == 16
+        for i, (p, n) in enumerate(stream):
+            srv.submit(Request(i, list(p), n))
+        return [r.out for r in srv.run()], srv.metrics.steps
+
+    launches = pa_kernel.paged_attention.launches
+    (kernel, steps), (gather, _) = serve("kernel"), serve("gather")
+    assert kernel == gather
+    assert pa_kernel.paged_attention.launches - launches == steps * 4 * cfg.n_layers
+
+
 def _paged_teacher_forced(cfg, params, seq, impl, card, bs=4):
     """Logits (f32, true vocab) of ``seq`` teacher-forced one token a call
     through one slot's paged decode on ``impl``'s read path."""

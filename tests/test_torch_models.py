@@ -95,18 +95,23 @@ def test_init_params_is_seeded_and_explicit():
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS])
 def test_unported_families_raise_with_their_names(arch):
     cfg = get_reduced_config(arch)
-    served = {s.kind for s in transformer.segments_for(cfg)} == {"attn_mlp"} \
-        and cfg.family != "encdec"  # GQA or MLA attention
-    if served or cfg.family == "ssm":  # the model stack runs RWKV6; the server does not
+    kinds = {s.kind for s in transformer.segments_for(cfg)}
+    # GQA or MLA attention, RWKV6, and the hybrid layers
+    served = kinds <= {"attn_mlp", "rwkv", "hybrid_swa", "hybrid_global"} \
+        and cfg.family != "encdec"
+    if served:
         params, _ = model_zoo.init_params(cfg, device=CPU)
         logits, _ = model_zoo.decode_fn(cfg)(
             params, torch.tensor([1, 2], dtype=torch.int32),
             model_zoo.make_cache(cfg, 2, 4, CPU), 0)
         assert logits.shape == (2, cfg.padded_vocab)
-        if served:
-            return
-        with pytest.raises(NotImplementedError, match=f"{cfg.name}.*ROADMAP A14"):
-            model_zoo.make_paged_cache(cfg, 4, 4, CPU)
+        # paged caches: block pools, and the recurrent state's 2 slot rows
+        paged = model_zoo.make_paged_cache(cfg, 4, 4, CPU, slots=2)
+        for seg, s in zip(paged, transformer.segments_for(cfg)):
+            for k, c in seg.items():
+                assert c.shape[:2] == ((s.n_layers, 2) if k in ("wkv", "shift_t", "shift_c",
+                                                                "ssm", "conv")
+                                       else (s.n_layers, 5)), (k, c.shape)
         return
     for call in (lambda: model_zoo.init_params(cfg, device=CPU),
                  lambda: model_zoo.make_cache(cfg, 2, 4, CPU),

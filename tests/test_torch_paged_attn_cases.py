@@ -8,7 +8,8 @@ shared blocks, plus unmapped table entries clamped to 0, G of 1, 4 and 5 and
 block sizes of 1, 4 and 16, and the shapes that pick each of the kernel's
 bodies and layouts (Dv in 1 to 4 groups of 64 columns or leaving columns
 idle, rows of 8 query heads or fewer and of 12, f32 and tensor-core scores,
-head dims of 256 and past it, a serving shape at a context of 1,088 rows),
+head dims of 256 and past it, a serving shape at a context of 1,088 rows,
+hymba's sliding-window heads on a ring that has wrapped),
 and runs: rows that share one table row, given to the kernel as (first row,
 count) pairs so that it reads their context once (prefill runs of 16 beside
 decode rows, mixed run lengths, runs across and up to the kernel's split
@@ -177,6 +178,13 @@ CASES = {
     "runs_small_bf16": lambda: _runs_case([2, 4, 5], [300, 17, 129], (200,), nb_slot=20,
                                           bs=16, kvh=2, g=4, dk=128, dv=128, seed=28,
                                           bf16=True, scale=128 ** -0.5),
+    # hymba-1.5b's sliding-window call (KVH 5, G 5, D 64, bf16, blocks of 16)
+    # on a CPU-sized ring of 64 rows: positions cold, at the wrap and far past
+    # it, one row per slot as chunked stepping calls it
+    "hymba_ring": lambda: make(t=8, kvh=5, g=5, dk=64, dv=64, bs=16, nb_slot=4,
+                               num_blocks=40, ring_width=64, seed=29, bf16=True,
+                               scale=64 ** -0.5, pos=np.array([0, 17, 63, 64, 65, 100, 1087,
+                                                               1040])),
     # the shared_blocks case with its six rows declared one run
     "shared_blocks_run": lambda: make(t=6, seed=6, table=np.tile([[7, 3, 11, 0]], (6, 1)),
                                       pos=np.array([0, 3, 4, 7, 12, 15]), runs=[(0, 6)]),
