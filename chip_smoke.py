@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card: DAnA's TRAIN path and
 its in-database scoring (SQL PREDICT) at full size, LM serving of
-mistral-nemo-12b (GQA), minicpm3-4b (MLA), hymba-1.5b (hybrid) and rwkv6-3b
-and LM training of rwkv6-3b, minicpm3-4b and hymba-1.5b at full width and
-depth, through the port's hand-written CUDA kernels, and LM PREDICT of
-mistral-nemo-12b from SQL over a token table.
+hymba-1.5b (hybrid), olmoe-1b-7b (MoE) and rwkv6-3b and LM training of
+rwkv6-3b, minicpm3-4b and hymba-1.5b at full width and depth, LM serving of
+mistral-nemo-12b (GQA) and minicpm3-4b (MLA) and LM training of olmoe-1b-7b
+at full width and cut depth, through the port's hand-written CUDA kernels,
+and LM PREDICT of mistral-nemo-12b from SQL over a token table.
 
 Phases, one JSON line each:
 
@@ -46,8 +47,8 @@ Phases, one JSON line each:
            the serial run byte for byte, and one scan under the sync debug
            mode; B4's share of the scan's busy time and one chunk
            program's cudaLaunchKernel calls
-  serve    mistral-nemo-12b (40 layers, full width, bf16 weights from seed
-           0 on the card) serving 48 greedy requests through
+  serve    mistral-nemo-12b (full width, 20 of its 40 layers, bf16 weights
+           from seed 0 on the card) serving 48 greedy requests through
            BatchedServer(kv="paged", step_mode="tokens", attn_impl="kernel"):
            every request FINISHED, the kernel's launches against the fused
            steps, the same stream through the gather path and 8 requests
@@ -59,8 +60,9 @@ Phases, one JSON line each:
            device's own events); B5's first calls at step 100 (a mixed
            step) and at the decode-only step with the most context are
            captured for the kernels line
-  launch   launch/serve.py's main() at the same full configuration
-  serve-mla  minicpm3-4b (62 layers, full width, bf16 weights from seed 0)
+  launch   launch/serve.py's main() at full width and depth (40 layers)
+  serve-mla  minicpm3-4b (full width, 31 of its 62 layers, bf16 weights
+           from seed 0)
            serving the same 48 requests the same way: the absorbed-latent
            decode is one call a layer of B5's latent entry at G 40, Dc 256,
            Dr 32 over the cache's c and kr pools (the latent body; no
@@ -71,9 +73,30 @@ Phases, one JSON line each:
            step, 5 profiled steps (B5's share and every torch.cat's device
            time); B5's calls at step 100 and at the decode-only step with the
            most context captured for the kernels line
-  serve-hybrid  hymba-1.5b (32 layers, d_model 1,600, 25/5 heads of 64,
-           Mamba state 16, window 1,024, global layers 0, 16 and 31; bf16
-           weights from seed 0) serving 20 greedy requests of 64-1,056
+  serve-moe  (in a process of its own, beside serve)
+           olmoe-1b-7b (16 layers, d_model 2,048, 16/16 heads of 128, 64
+           experts, top-8, expert d_ff 1,024; bf16 weights from seed 0,
+           13.8 GB) serving 24 greedy requests of 64-1,024 prompt tokens
+           (16 at step 0, the rest one every 4 steps), 32 new tokens each,
+           through BatchedServer with the serve phase's settings: token
+           stepping falls back to chunked stepping (recorded), prefix
+           sharing is off, every request FINISHED, B5 16 times a sub-step
+           on the split body (KVH 16, G 1, D 128), every call of each fused
+           step's first sub-step against its plain version at 2e-5; the
+           share of (token, expert) choices capacity dropped in the sub-step
+           of the capture, from the port's routing on each layer's captured
+           input; the kernel and the gather path (and the gather path under
+           a 1e-6 noise on its attention outputs, the noise floor) each
+           serving the 4 shortest requests on 4 slots, compared row by row:
+           each request's first divergence a near-tie or a route flip (a
+           router margin below 1e-3), with its margins; one host read per
+           fused step; one profiled step (B5's share, and the MoE block's
+           from the device time of its decode call); B5's call of the
+           first sub-step past position 1,040 for the kernels line
+  serve-hybrid  (in a process of its own, beside serve) hymba-1.5b (32
+           layers, d_model 1,600, 25/5 heads of 64, Mamba state 16, window
+           1,024, global layers 0, 16 and 31; bf16 weights from seed 0)
+           serving 20 greedy requests of 64-1,056
            prompt tokens (4 of 1,000-1,056, whose ring rows wrap), 32 new
            tokens each, through BatchedServer with the serve phase's
            settings: token stepping falls back to chunked stepping
@@ -92,17 +115,18 @@ Phases, one JSON line each:
            launches a step); a sliding-window
            and a global layer's B5 call of the first sub-step past position
            1,040 captured for the kernels line
-  serve-rwkv  (in a process of its own, started with --serve-rwkv beside
-           serve-hybrid and waited for; its line printed after it)
-           rwkv6-3b (full width and depth, bf16 from seed 0) asked for
-           paged KV and token stepping, served dense and chunked: 16
-           requests of 32-256 prompt tokens, every request FINISHED, no
+  serve-rwkv  (in a process of its own, beside serve-mla) rwkv6-3b (full
+           width and depth, bf16 from seed 0) asked for paged KV and token
+           stepping, served dense and chunked: 16 requests of 32-256 prompt
+           tokens, every request FINISHED, no
            kernel launched (decode runs the per-token recurrence), one host
            read per fused step, every request against generate_greedy token
            for token except at reported near-ties
-  lm-predict  the same model registered as an LM UDF (register_lm_udf: its
-           24.5 GB weights file written beside the catalog, the disk's free
-           bytes printed first, loaded back onto the card bit for bit), then
+  lm-predict  (in a process of its own, beside serve-mla) the serve
+           phase's model (20 layers) registered as an LM UDF
+           (register_lm_udf: its 13.6 GB weights file written beside the
+           catalog, the disk's free bytes printed first, loaded back onto
+           the card bit for bit), then
            LM PREDICT through Session.sql over a token table of 40,960
            prompts of 32-256 tokens (1,322 pages of 32 KB, 3 chunks; token 7
            first in 32 rows): SELECT * ... WHERE c0 = 7 AND label >= 64, 32
@@ -142,6 +166,15 @@ Phases, one JSON line each:
            window, against 1,100 decode steps on the dense ring cache
            (argmax equal, logits within 3e-2 or twice what a 1e-6 noise on
            the decode's attention outputs moves them, where that is larger)
+  train-moe  olmoe-1b-7b at full width, its depth cut to 9 of 16 layers
+           (16 bytes a parameter: 110.7 GB at 16 layers, 63.7 GB at 9; the
+           AdamW timing's one pass over the largest leaf needs room beside
+           that), f32 masters from seed 0, trained for 4 steps of 8 x 512
+           tokens as the train-mla phase is (B1 once a step, no other
+           kernel: routing and the expert products are plain PyTorch, as in
+           the reference), with the MoE block's share of the profiled step
+           (a record_function range); then one step's loss and every
+           gradient computed twice from the same state: the same bits
   launch-train  launch/train.py's main() at full width for 2 steps
   kernels  each kernel's launches on the main path (B3's: the GLM scans' and
            the LM statements'), error, time, bound,
@@ -160,14 +193,26 @@ Phases, one JSON line each:
            gather path's composite as the library yardstick; under "hybrid"
            serve-hybrid's two calls (a sliding-window layer's on the ring
            table, bound on the ring's distinct valid rows, and a global
-           layer's), with and without runs, and their launches; B6's
+           layer's), with and without runs, and their launches; under
+           "moe" serve-moe's call (KVH 16, G 1, D 128, 16 one-row runs),
+           with its launches; B6's
            two kernels and B6-bwd's three a call, each one's time,
            registers and CTAs per SM, beside the bytes its design moves
 
+The serving phases are bound by their host's launches and the card idles
+most of the time in each, so some run beside others, each in a process of
+its own (``chip_smoke.py --beside NAME``, its lines printed when it is
+joined, its phase's result handed back through a file under
+build/chip_smoke/): lm-predict and serve-rwkv beside serve-mla, then
+serve-moe and serve-hybrid (which starts its own gather run) beside serve
+and launch. The peak device memory of the phases that run together adds to
+at most 65 GB; the training phases, each near its own peak of 49-70 GB, run
+alone. Every kernel-line time is taken after the serving phases, with no
+other process on the card. Every process started is waited for, or killed
+when a phase fails.
+
 The last line is {"ok": true, "device": {...}}. Any failure raises, exits
 non-zero and prints no such line. Without a CUDA card the script exits 1.
-The two processes it starts (serve-hybrid's gather run, and serve-rwkv
-beside serve-hybrid) are waited for, or killed when a phase fails.
 
     python3 chip_smoke.py
 """
@@ -197,9 +242,14 @@ MERGE_COEF = 256
 # 9 chunks of at most 512 pages and 2,270 merge batches of 256 per epoch
 EXPECT = {"geometry": (581_102, 54, 138, 4211),
           "launches": {"strider_decode": 27, "glm_sgd_chunk": 27, "glm_grad": 0}}
-# the serve phase: mistral-nemo-12b at full width and depth; the longest
-# prompt (1024 tokens) plus 64 new tokens fits max_seq
+# the serve phase: mistral-nemo-12b at full width; the longest prompt (1024
+# tokens) plus 64 new tokens fits max_seq
 SERVE_ARCH = "mistral-nemo-12b"
+# the depth of the serve and lm-predict phases (mistral-nemo-12b, 40 layers
+# published) and of serve-mla (minicpm3-4b, 62), halved so that the smoke
+# stays near half its time limit: every layer has the same shapes, and B5's
+# checks and timings are per call; the launch phase serves all 40 layers
+SERVE_LAYERS, MLA_SERVE_LAYERS = 20, 31
 SERVE = {"batch_slots": 16, "kv": "paged", "block_size": 16, "step_mode": "tokens",
          "prefill_chunk": 16, "attn_impl": "kernel"}
 SERVE_REQUESTS = 48
@@ -282,6 +332,24 @@ def device_ms(calls, reps=5):
         times.append(start.elapsed_time(end) / len(calls))
     del graph
     return statistics.median(times)
+
+
+def busy_ms(calls, reps=5):
+    """Device time per call from the device's own events: the calls,
+    launched eagerly ``reps`` times under the profiler, and the union of
+    their kernels' intervals. Unlike ``device_ms`` it leaves out what
+    another process runs on the card between them, so a phase that shares
+    the card can time a call."""
+    for call in calls:  # warm the allocator and the libraries
+        call()
+
+    def run():
+        for _ in range(reps):
+            for call in calls:
+                call()
+
+    _, busy_s, _ = _device_profile(run, cpu=False)
+    return 1e3 * busy_s / (reps * len(calls))
 
 
 def eager_ms(calls, reps=5):
@@ -1563,28 +1631,31 @@ def _near_ties(cfg, params, stream, got, want, side, ref_side, what):
 
 
 def phase_serve():
-    """mistral-nemo-12b (GQA) served at full width and depth: the kernel
-    path, the gather path, chunked stepping and the deviation limit's
-    check."""
-    return _serve_phase(SERVE_ARCH, "serve", compare_chunked=True)
+    """mistral-nemo-12b (GQA) served at full width on SERVE_LAYERS layers:
+    the kernel path, the gather path, chunked stepping and the deviation
+    limit's check."""
+    from repro_torch.configs import get_config
+
+    return _serve_phase(get_config(SERVE_ARCH), SERVE_LAYERS, "serve", compare_chunked=True)
 
 
 def phase_serve_mla():
-    """minicpm3-4b (MLA) served at full width and depth: the absorbed-latent
-    decode through B5's latent entry (Dc 256, Dr 32, the latent body) and
-    the gather path."""
+    """minicpm3-4b (MLA) served at full width on MLA_SERVE_LAYERS layers: the
+    absorbed-latent decode through B5's latent entry (Dc 256, Dr 32, the
+    latent body) and the gather path."""
     import gc
 
     import torch
 
-    _published(SERVE_MLA_ARCH, MLA_FIELDS, MLA_WIDTH)
+    full = _published(SERVE_MLA_ARCH, MLA_FIELDS, MLA_WIDTH)
     gc.collect()
     torch.cuda.empty_cache()
-    return _serve_phase(SERVE_MLA_ARCH, "serve-mla", compare_chunked=False)
+    return _serve_phase(full, MLA_SERVE_LAYERS, "serve-mla", compare_chunked=False)
 
 
-def _serve_phase(arch, phase, compare_chunked):
-    """``arch`` at full width and depth, bf16 weights from seed 0, serving
+def _serve_phase(full, layers, phase, compare_chunked):
+    """The model of config ``full`` at full width, its depth cut to
+    ``layers``, bf16 weights from seed 0, serving
     the 48-request stream on the kernel path (every request FINISHED, B5
     once a layer a fused step on the body its attention kind takes, sharing
     ran; B5's first call at step 100 and its decode-only call with the most
@@ -1596,7 +1667,6 @@ def _serve_phase(arch, phase, compare_chunked):
     calls, the main path's launches)."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attn import kernel as pa_kernel
     from repro_torch.kernels.paged_attn import ops as pa_ops
     from repro_torch.models import model_zoo
@@ -1604,7 +1674,8 @@ def _serve_phase(arch, phase, compare_chunked):
     from repro_torch.serve import scheduler as sched
     from repro_torch.serve.serving import BatchedServer
 
-    cfg = get_config(arch)
+    arch = full.name
+    cfg = dataclasses.replace(full, n_layers=layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, _ = model_zoo.init_params(cfg, seed=0, device="cuda")
@@ -1758,7 +1829,8 @@ def _serve_phase(arch, phase, compare_chunked):
     del synced
 
     emit({"phase": phase, "arch": arch, "layers": cfg.n_layers,
-          "d_model": cfg.d_model, "weights": "bf16 from seed 0, drawn on the card",
+          "published_layers": full.n_layers, "d_model": cfg.d_model,
+          "weights": "bf16 from seed 0, drawn on the card",
           "weight_bytes": weight_bytes, "init_s": init_s, "server": SERVE,
           "max_seq": SERVE_MAX_SEQ, "requests": SERVE_REQUESTS, "max_new_tokens": SERVE_MAX_NEW,
           "prompt_tokens_submitted": sum(len(p) for _, p, _, _ in stream),
@@ -1972,15 +2044,16 @@ def _paged_attn_call(cap):
 
 
 def kernel_row_paged_attn(captured, launches, mla_captured, mla_launches, hybrid_captured,
-                          hybrid_launches):
+                          hybrid_launches, moe_captured, moe_launches):
     """B5's row of the kernels line: the serve phase's step-100 call (prefill
     runs beside decode rows), and beside it its decode-only call with the
     most context (every row a run of one); under ``mla`` the same two calls
     of the serve-mla phase (the latent entry); under ``hybrid`` the
     serve-hybrid phase's two calls of one sub-step past position 1,040, a
     sliding-window layer's on the ring table (the bound on the ring's rows)
-    and a global layer's. ``launches`` counts the three phases' main
-    paths."""
+    and a global layer's; under ``moe`` the serve-moe phase's call of the
+    first sub-step past position 1,040 (KVH 16, G 1, D 128). ``launches``
+    counts the four phases' main paths."""
     mixed = _paged_attn_call(captured)
     decode = _paged_attn_call(captured["decode_only"])
     mla = _paged_attn_call(mla_captured)
@@ -1995,15 +2068,20 @@ def kernel_row_paged_attn(captured, launches, mla_captured, mla_launches, hybrid
     hybrid["launches_per_fused_step"] = HYBRID_WIDTH[0] * SERVE["prefill_chunk"]
     hybrid["library"] = ("composite, no single call: gather k_pool[table], v_pool[table] + "
                          "F.scaled_dot_product_attention(attn_mask=valid ring rows, enable_gqa)")
+    moe_entry = _paged_attn_call(moe_captured)
+    moe_entry["launches"] = moe_launches["paged_attn"]
+    moe_entry["launches_per_sub_step"] = MOE_WIDTH[0]
+    moe_entry["library"] = ("composite, no single call: gather k_pool[table], v_pool[table] + "
+                            "F.scaled_dot_product_attention(attn_mask=valid rows)")
     return {
         "name": "paged_attn", "route": "cuda", "source": "src/repro_torch/csrc/paged_attn.cu",
         "replaces": "src/repro/kernels/paged_attn/kernel.py:32",
         "launches": (launches["paged_attn"] + mla_launches["paged_latent_attn"]
-                     + hybrid_launches["paged_attn"]),
+                     + hybrid_launches["paged_attn"] + moe_entry["launches"]),
         "launches_serve": launches["paged_attn"], **mixed,
         "library": ("composite, no single call: gather k_pool[table], v_pool[table] + "
                     "F.scaled_dot_product_attention(attn_mask=valid rows, enable_gqa)"),
-        "decode_only": decode, "mla": mla, "hybrid": hybrid,
+        "decode_only": decode, "mla": mla, "hybrid": hybrid, "moe": moe_entry,
     }
 
 
@@ -2201,9 +2279,10 @@ def _fallback_recorded(kind):
 
 def _mamba_decode_ms(server):
     """Device ms of one layer's Mamba mixer at the server's decode shape (its
-    slots, one token, bf16), replayed in a CUDA graph over 4 layers' weights
-    in turn, so that each call finds its weights out of the 50 MB L2 as the
-    next layer's call does."""
+    slots, one token, bf16), from the device's own events (``busy_ms``: the
+    phase shares the card), over 4 layers' weights in turn, so that each
+    call finds its weights out of the 50 MB L2 as the next layer's call
+    does."""
     import torch
 
     from repro_torch.models import ssm, transformer
@@ -2217,8 +2296,8 @@ def _mamba_decode_ms(server):
     h = torch.randn((server.slots, 1, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
     state = torch.zeros((server.slots, di, cfg.ssm_state), device=dev)
     conv = torch.zeros((server.slots, cfg.ssm_conv - 1, di), dtype=torch.bfloat16, device=dev)
-    return device_ms([lambda p=p: ssm.mamba_mix(p, h, cfg, state=state, conv_prev=conv)
-                      for p in layers] * 5)
+    return busy_ms([lambda p=p: ssm.mamba_mix(p, h, cfg, state=state, conv_prev=conv)
+                    for p in layers])
 
 
 def _chunked_profile(server, arrivals, steps, kernels):
@@ -2529,31 +2608,63 @@ def _serve_hybrid(phase_t0, child, gather_path):
     return captured, launches
 
 
-def _phase_beside(flag):
-    """Start ``chip_smoke.py flag`` in a process of its own, its standard
-    output to a file under SCRATCH: a host-bound phase that runs beside
-    another one (the card idles most of the time in both). Returns (the
-    process, the open file, its path) for ``_join_beside``."""
-    path = os.path.join(SCRATCH, flag.strip("-") + ".out")
+def _beside_phases():
+    """The phases that may run in a process of their own beside another
+    phase, by name."""
+    return {"serve-moe": phase_serve_moe, "serve-rwkv": phase_serve_rwkv,
+            "serve-hybrid": phase_serve_hybrid, "lm-predict": phase_lm_predict}
+
+
+def _beside_result(name):
+    return os.path.join(SCRATCH, f"{name}.result.pt")
+
+
+def run_beside(name):
+    """``chip_smoke.py --beside NAME``: the phase ``name``, its result saved
+    to ``_beside_result(name)``."""
+    import torch
+
+    torch.save(_beside_phases()[name](), _beside_result(name))
+    return 0
+
+
+def _phase_beside(name):
+    """Start the phase ``name`` in a process of its own, its standard output
+    to a file under SCRATCH: a host-bound phase that runs beside another one
+    (the card idles most of the time in each). Returns a handle for
+    ``_join_beside``."""
+    path = os.path.join(SCRATCH, name + ".out")
     out = open(path, "w")
-    return subprocess.Popen([sys.executable, os.path.abspath(__file__), flag], stdout=out), out, path
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--beside", name],
+                             stdout=out)
+    return child, out, path, name
 
 
-def _join_beside(child, out, path, timeout=900):
-    """Wait for a phase started by ``_phase_beside``, print its lines, and
-    fail where it failed."""
+def _stop_beside(*handles):
+    """Kill the processes of ``handles`` that still run (a phase failed)."""
+    for child, out, _, _ in handles:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+        out.close()
+
+
+def _join_beside(handle, timeout=900):
+    """Wait for the process started by ``_phase_beside``, print its lines,
+    fail where it failed, and return its phase's result."""
+    import torch
+
+    child, out, path, name = handle
     try:
         rc = child.wait(timeout=timeout)
     finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait()
-        out.close()
+        _stop_beside(handle)
     with open(path) as f:
         sys.stdout.write(f.read())
     sys.stdout.flush()
     if rc != 0:
-        raise AssertionError(f"the phase in its own process ({child.args[2:]}) failed: {rc}")
+        raise AssertionError(f"the phase {name} in its own process failed: {rc}")
+    return torch.load(_beside_result(name), weights_only=False)
 
 
 def phase_serve_rwkv():
@@ -2744,6 +2855,500 @@ def phase_train_hybrid():
                              f"argmax agree {agree} of 2")
 
 
+# the serve-moe and train-moe phases. olmoe-1b-7b at full width and depth:
+# (layers, d_model, heads, kv heads, experts, top-k, expert d_ff, vocab,
+# capacity factor) of configs/olmoe_1b_7b.py; its attention is GQA at KVH 16,
+# G 1, D 128, one B5 call a layer a sub-step. It serves with SERVE's settings
+# (token stepping asked for, chunked taken: MoE capacity groups would see
+# padding rows), in a process of its own beside the serve phase
+MOE_ARCH = "olmoe-1b-7b"
+MOE_FIELDS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "n_experts",
+              "experts_per_token", "moe_d_ff", "vocab_size", "capacity_factor")
+MOE_WIDTH = (16, 2048, 16, 16, 64, 8, 1024, 50304, 1.25)
+# 24 greedy requests of 64-1,024 prompt tokens (the first of 1,024, so that
+# a position passes MOE_CAPTURE_POS), 32 new tokens: 16 at step 0, then one
+# every 4 steps into the slots that free up (idle rows meanwhile)
+MOE_REQUESTS, MOE_MAX_NEW, MOE_LENGTHS = 24, 32, (64, 1025)
+MOE_CAPTURE_POS = 1040
+# the kernel and gather paths compared on the MOE_COMPARED shortest requests,
+# each path serving them alone (a decode sub-step routes the whole batch as
+# one group, so a comparison needs the same batch on both sides); beside
+# them the gather path with HYBRID_NOISE on its attention outputs, the noise
+# floor. A route flips where a token's k-th and (k+1)-th router
+# probabilities lie within MOE_ROUTE_TIE (tests/test_torch_serving_moe.py)
+MOE_COMPARED, MOE_ROUTE_TIE = 4, 1e-3
+# the MoE block in the training profile: a record_function range a call
+MOE_RANGE = "moe_block"
+# train-moe: 16 layers take 110.7 GB at 16 bytes a parameter (6.92 B
+# parameters: f32 master, gradient, two moments), so the depth is cut to
+# MOE_TRAIN_LAYERS (63.7 GB); batch 8 x TRAIN_SEQ, 4 steps
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 9, 8, 4
+
+
+def _moe_stream(vocab: int):
+    """serve-moe's traffic from seed 2: (rid, prompt, priority, arrival
+    step)."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    lengths = [MOE_LENGTHS[1] - 1] + [int(rng.integers(*MOE_LENGTHS))
+                                      for _ in range(MOE_REQUESTS - 1)]
+    return [(rid, rng.integers(1, vocab, n).tolist(), 1, 0 if rid < 16 else 4 * (rid - 15))
+            for rid, n in enumerate(lengths)]
+
+
+class _RowTap:
+    """A chunked-stepping server's logits at every sub-step, its run mask,
+    which rows emit a token, which request each row holds, and each row's
+    smallest margin between its token's k-th and (k+1)-th router
+    probability over the MoE layers (with the layer): what two runs of the
+    same requests compare row by row, sub-step by sub-step."""
+
+    def __init__(self, server):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.logits, self.run, self.emit, self.rids, self.route = [], [], [], [], []
+        real_forward, real_decode, real_route = server._forward, server._decode, moe.route
+
+        def forward(tok, pos, write_ok, **kw):
+            self.run.append(write_ok)
+            self.emit.append(write_ok & (pos + 1 >= torch.from_numpy(server._prompt_len)
+                                         .to(pos.device)))
+            self.rids.append([None if r is None else r.rid for r in server.active])
+            self.route.append([])
+            return real_forward(tok, pos, write_ok, **kw)
+
+        def decode(*args, **kw):
+            logits, cache = real_decode(*args, **kw)
+            self.logits.append(logits[:, :server.cfg.vocab_size].float())
+            return logits, cache
+
+        def route(x, router, k):
+            out = real_route(x, router, k)
+            top = torch.sort(out[0].detach(), dim=-1, descending=True).values
+            self.route[-1].append((top[..., k - 1] - top[..., k]).reshape(-1))  # read later
+            return out
+
+        server._forward, server._decode = forward, decode
+        self.hook = (moe, real_route, route)
+
+    def __enter__(self):
+        self.hook[0].route = self.hook[2]
+        return self
+
+    def __exit__(self, *exc):
+        self.hook[0].route = self.hook[1]
+
+
+def _row_divergences(tap, ref, limit):
+    """Each request of two runs of the same requests on the same schedule,
+    row by row: the spread over the vocab of the logits' difference and the
+    emitted token at every sub-step it runs, up to its first sub-step where
+    the spread passes ``limit`` or the token differs. There: its tokens
+    emitted so far, ``ref``'s top-2 margin where the token differs, the
+    row's smallest router margin in either run (and its layer), and whether
+    that is a near-tie (the margin below the deviation so far) or a route
+    flip (a router margin below MOE_ROUTE_TIE). Returns {rid: record}, the
+    first divergence None where the request never diverges."""
+    import torch
+
+    out = {}
+    n = min(len(tap.logits), len(ref.logits))
+    for rid in sorted({r for rows in tap.rids for r in rows if r is not None}):
+        deviation, emitted, first = 0.0, 0, None
+        for j in range(n):
+            if rid not in tap.rids[j]:
+                continue
+            i = tap.rids[j].index(rid)
+            if not bool(tap.run[j][i]):
+                continue
+            delta = tap.logits[j][i] - ref.logits[j][i]
+            spread = float(delta.max() - delta.min())
+            emits = bool(tap.emit[j][i])
+            differ = emits and int(tap.logits[j][i].argmax()) != int(ref.logits[j][i].argmax())
+            if spread <= limit and not differ:
+                deviation = max(deviation, spread)
+                emitted += emits
+                continue
+            margin = None
+            if differ:
+                top = torch.topk(ref.logits[j][i], 2).values
+                margin = float(top[0] - top[1])
+            routes = torch.stack([torch.stack(tap.route[j]), torch.stack(ref.route[j])])[:, :, i]
+            layer = int(routes.min(0).values.argmin())
+            router = float(routes.min())
+            first = {"sub_step": j, "token_index": emitted, "spread": spread,
+                     "logit_margin": margin, "router_margin": router, "router_layer": layer,
+                     "near_tie": margin is not None and spread <= limit
+                     and margin < max(spread, deviation),
+                     "route_flip": router < MOE_ROUTE_TIE}
+            break
+        out[rid] = {"deviation_before": deviation, "first": first}
+    return out
+
+
+def _moe_decode_ms(server):
+    """Device ms of one layer's MoE block at the server's decode shape (its
+    slots, one token, bf16: one routing group), from the device's own
+    events (``busy_ms``: the phase shares the card), over 4 layers' weights
+    in turn, so that each call finds its experts out of the 50 MB L2 as the
+    next layer's call does."""
+    import torch
+
+    from repro_torch.models import moe, transformer
+
+    cfg, dev = server.cfg, server.device
+    layers = [transformer._layer(sp, i)["moe"]
+              for sp, seg in zip(server.params["segments"], transformer.segments_for(cfg))
+              if seg.kind == "attn_moe" for i in range(seg.n_layers)][:4]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h = torch.randn((server.slots, 1, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    return busy_ms([lambda p=p: moe.apply_moe(p, h, cfg) for p in layers])
+
+
+def _moe_dropped(cfg, inputs, routers, run):
+    """The share of (token, expert) choices that capacity dropped in one
+    captured sub-step, from the port's routing on each MoE layer's captured
+    input (B, 1, d) and router: over every row, and over the rows that ran
+    (idle rows claim capacity ahead of the live rows below them)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    cap = moe.capacity(cfg, inputs[0].shape[0])
+    kept, kept_live = [], []
+    for x, router in zip(inputs, routers):
+        _, _, topi = moe.route(x.reshape(1, -1, cfg.d_model), router, cfg.experts_per_token)
+        ok = moe.Routing(topi, cap, cfg.n_experts).choice_ok
+        kept.append(ok.float().mean())
+        kept_live.append(ok[run].float().mean())
+    return {"capacity": cap, "rows": int(inputs[0].shape[0]), "live_rows": int(run.sum()),
+            "dropped_share": 1.0 - float(torch.stack(kept).mean()),
+            "dropped_share_live": 1.0 - float(torch.stack(kept_live).mean()),
+            "dropped_share_by_layer": [1.0 - float(k) for k in kept]}
+
+
+def phase_serve_moe():
+    """olmoe-1b-7b at full width and depth, bf16 weights from seed 0,
+    serving MOE_REQUESTS greedy requests through BatchedServer(SERVE): token
+    stepping falls back to chunked stepping (recorded), prefix sharing is
+    off, every request FINISHED, B5 16 times a sub-step on the split body,
+    every B5 call of each fused step's first sub-step against its plain
+    version at rtol=atol=2e-5, one host read per fused step, a profiled
+    fused step (B5's and the MoE block's shares), and the share of choices
+    capacity dropped in the captured sub-step; then the kernel and the
+    gather path (and the gather path under HYBRID_NOISE) each on the
+    MOE_COMPARED shortest requests, compared sub-step by sub-step. Returns
+    (B5's call of the first sub-step past MOE_CAPTURE_POS, the launches)."""
+    import contextlib
+    import gc
+
+    import torch
+
+    from repro_torch.dist import meshes
+    from repro_torch.kernels.paged_attn import kernel as pa_kernel
+    from repro_torch.kernels.paged_attn import ops as pa_ops
+    from repro_torch.kernels.paged_attn import ref as pa_ref
+    from repro_torch.models import model_zoo, moe
+    from repro_torch.models.params import leaves
+    from repro_torch.serve import scheduler as sched
+    from repro_torch.serve.serving import BatchedServer
+
+    phase_t0 = time.perf_counter()
+    cfg = _published(MOE_ARCH, MOE_FIELDS, MOE_WIDTH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = model_zoo.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    stream = _moe_stream(cfg.vocab_size)
+    prompts = {rid: p for rid, p, _, _ in stream}
+
+    def server(**kw):
+        return BatchedServer(cfg, params, max_seq=SERVE_MAX_SEQ, device="cuda",
+                             **dict(SERVE, **kw))
+
+    meshes.clear_fallbacks()
+    main = server()
+    if main.step_mode != "chunked" or not _fallback_recorded("serve_step") or \
+            main.prefix_cache or main.attn_impl != "kernel":
+        raise AssertionError("the MoE server did not fall back to chunked stepping on the "
+                             "kernel path with no prefix sharing")
+    forwards = _count_forwards(main)
+    real_forward = main._forward
+    run_mask = []
+
+    def forward(tok, pos, write_ok, **kw):
+        run_mask[:] = [write_ok]
+        return real_forward(tok, pos, write_ok, **kw)
+
+    main._forward = forward
+    real = pa_kernel.paged_attention
+    real_moe = moe.apply_moe
+    sub = {"step": -1, "calls": 0}
+    captured, calls = {}, {"bodies": {}, "kernels": {}}
+    moe_inputs = []
+    checked = []  # device scalars: (|kernel - plain| - 2e-5 - 2e-5 |plain|).max(), |err|
+
+    def capture(q, k_pool, v_pool, table, pos, **kw):
+        if sub["step"] != main.step_no:
+            sub.update(step=main.step_no, calls=0)
+        j = sub["calls"] // cfg.n_layers  # the sub-step of this call
+        sub["calls"] += 1
+        if "call" not in captured and any(
+                r is not None and MOE_CAPTURE_POS <= main._positions[i] + j < main.max_seq
+                for i, r in enumerate(main.active)):
+            t = q.shape[0]  # every row its own run, as chunked stepping calls it
+            runs = torch.stack([torch.arange(t, device=q.device),
+                                torch.ones(t, dtype=torch.long, device=q.device)], 1)
+            captured["call"] = dict(q=q.clone(), pools=(k_pool.clone(), v_pool.clone()),
+                                    latent=False, table=table.clone(), pos=pos.clone(),
+                                    runs=runs.to(torch.int32),
+                                    kw={k: v for k, v in kw.items() if k != "runs"},
+                                    step=(main.step_no, j))
+            captured["run"] = run_mask[0].clone()
+        out = real(q, k_pool, v_pool, table, pos, **kw)
+        for key, value in (("bodies", real.body), ("kernels", real.kernels)):
+            calls[key][value] = calls[key].get(value, 0) + 1
+        if j == 0:  # read after the run: no host read here
+            plain = pa_ref.paged_attn_ref(q, k_pool, v_pool, table, pos, **kw)
+            err = (out - plain).abs()
+            checked.append(torch.stack([(err - 2e-5 - 2e-5 * plain.abs()).max(), err.max()]))
+        return out
+
+    def moe_capture(p, x, c, **kw):
+        # the MoE blocks' inputs of the captured sub-step (layer i's call
+        # follows its attention's)
+        if captured.get("call", {}).get("step") == (main.step_no, (sub["calls"] - 1)
+                                                     // cfg.n_layers):
+            moe_inputs.append((x.clone(), p["router"]))
+        return real_moe(p, x, c, **kw)
+
+    zero_launches()
+    pa_ops.kernel = types.SimpleNamespace(paged_attention=capture)
+    moe.apply_moe = moe_capture
+    try:
+        t0 = time.perf_counter()
+        done = _Arrivals(main, stream, MOE_MAX_NEW).run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        pa_ops.kernel = pa_kernel
+        moe.apply_moe = real_moe
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    m = main.metrics
+    if sorted(done) != list(range(MOE_REQUESTS)) or any(
+            r.status != sched.FINISHED or len(r.out) != MOE_MAX_NEW for r in done.values()):
+        raise AssertionError(f"not every request FINISHED with its {MOE_MAX_NEW} tokens")
+    if forwards[0] != m.steps * SERVE["prefill_chunk"] or \
+            launches["paged_attn"] != cfg.n_layers * forwards[0]:
+        raise AssertionError(f"B5 launched {launches['paged_attn']} times over {forwards[0]} "
+                             f"sub-steps of {m.steps} fused steps")
+    if any(v for k, v in launches.items() if k != "paged_attn"):
+        raise AssertionError(f"the serve path launched other kernels: {launches}")
+    if set(calls["bodies"]) != {"split"}:
+        raise AssertionError(f"B5's calls ran the bodies {calls['bodies']}, not the split body")
+    checked = torch.stack(checked).amax(0).tolist() + [len(checked)]
+    if checked[0] > 0 or checked[2] != cfg.n_layers * m.steps:
+        raise AssertionError(f"B5 against its plain version on the main path: {checked}")
+    if "call" not in captured or len(moe_inputs) != cfg.n_layers:
+        raise AssertionError(f"no capture past position {MOE_CAPTURE_POS}: "
+                             f"{len(moe_inputs)} MoE inputs")
+    dropped = _moe_dropped(cfg, [x for x, _ in moe_inputs], [r for _, r in moe_inputs],
+                           captured["run"])
+    outs = {rid: r.out for rid, r in done.items()}
+    if not all(0 <= t < cfg.vocab_size for out in outs.values() for t in out):
+        raise AssertionError("a token outside the true vocab")
+    del main, moe_inputs
+
+    # the kernel and the gather path on the shortest requests, each serving
+    # them alone on as many slots (so that no row idles while they run),
+    # and the gather path again with its attention outputs perturbed:
+    # compared row by row
+    compared = sorted(prompts, key=lambda r: (len(prompts[r]), r))[:MOE_COMPARED]
+    few = [(rid, prompts[rid], 1, 0) for rid in compared]
+    runs, taps = {}, {}
+    for name, impl in (("kernel", "kernel"), ("gather", "gather"), ("noisy", "gather")):
+        srv = server(attn_impl=impl, batch_slots=MOE_COMPARED)
+        taps[name] = _RowTap(srv)
+        t0 = time.perf_counter()
+        with taps[name], (_AttentionNoise(srv.device) if name == "noisy"
+                          else contextlib.nullcontext()):
+            got = _Arrivals(srv, few, MOE_MAX_NEW).run()
+        torch.cuda.synchronize()
+        runs[name] = {"outs": {r: got[r].out for r in compared},
+                      "wall_s": time.perf_counter() - t0, "steps": srv.metrics.steps}
+        del srv
+    # the noise floor: the spread the perturbation causes before each row's
+    # own first discontinuity (a route flip moves a row's logits by units)
+    noise = _row_divergences(taps["noisy"], taps["gather"], DEVIATION_LIMIT)
+    floor = max(r["deviation_before"] for r in noise.values())
+    limit = max(DEVIATION_LIMIT, HYBRID_SOUND_FACTOR * floor)
+    vs_gather = _row_divergences(taps["kernel"], taps["gather"], limit)
+    bad = {r: d for r, d in vs_gather.items()
+           if d["first"] is not None and not (d["first"]["near_tie"] or d["first"]["route_flip"])}
+    if bad:
+        raise AssertionError(f"kernel vs gather: divergences that are neither near-ties nor "
+                             f"route flips: {bad}")
+    del taps
+    gc.collect()
+
+    synced = _Arrivals(server(), stream, MOE_MAX_NEW)
+    syncs, profile = _moe_profile(synced.server, synced)
+    del synced
+    emit({"phase": "serve-moe", "seconds": time.perf_counter() - phase_t0, "arch": MOE_ARCH,
+          "layers": cfg.n_layers, "d_model": cfg.d_model, "experts": cfg.n_experts,
+          "top_k": cfg.experts_per_token, "moe_d_ff": cfg.moe_d_ff,
+          "capacity_factor": cfg.capacity_factor,
+          "weights": "bf16 from seed 0, drawn on the card", "weight_bytes": weight_bytes,
+          "init_s": init_s, "server": SERVE,
+          "step_mode": "chunked (token stepping asked for; serve_step fallback recorded)",
+          "prefix_cache": False, "max_seq": SERVE_MAX_SEQ, "requests": MOE_REQUESTS,
+          "max_new_tokens": MOE_MAX_NEW, "prompt_lengths": [len(p) for p in prompts.values()],
+          "arrivals": [a for _, _, _, a in stream], "finished": len(done), "wall_s": wall_s,
+          "steps": m.steps, "sub_steps": forwards[0], "launches": launches,
+          "b5": {"per_sub_step": cfg.n_layers, "bodies": calls["bodies"],
+                 "kernels_per_call": calls["kernels"]},
+          "tokens_per_s": m.tokens_generated / wall_s, "metrics_tok_per_s": m.tok_per_s,
+          "mean_ttft_s": m.mean_ttft_s, "mean_ttft_steps": m.mean_ttft_steps,
+          "occupancy_pct": m.occupancy_pct, "mean_step_s": m.wall_s / m.steps,
+          "batched_tokens": m.batched_tokens, "kv_blocks_peak": m.kv_blocks_peak,
+          "peak_memory_bytes": peak,
+          "b5_against_plain_on_path": {"calls": checked[2], "max_abs_err": checked[1],
+                                       "rtol": 2e-5, "atol": 2e-5,
+                                       "which": "every call of each fused step's first "
+                                                "sub-step"},
+          "capacity_drops": dict(dropped, sub_step=captured["call"]["step"]),
+          "kernel_vs_gather": {"rids": compared, "deviation_limit": limit,
+                               "noise": HYBRID_NOISE, "noise_floor": floor,
+                               "runs": runs, "divergence": vs_gather,
+                               "noisy_vs_gather": noise},
+          "syncs": syncs, "profile": profile})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return captured["call"], launches
+
+
+def _moe_profile(server, arrivals):
+    """One host read a fused step under the sync debug mode over
+    HYBRID_SYNC_STEPS steps, then one step untraced and one under the
+    profiler (device and CUDA runtime), with B5's share of the busy time
+    and the MoE block's from its device time at the decode shape
+    (``_moe_decode_ms``) times its calls a step."""
+    import torch
+
+    where, _ = _synchronizing_calls(lambda: arrivals.run(max_steps=HYBRID_SYNC_STEPS), [])
+    reads = sum(where.values())
+    if reads != HYBRID_SYNC_STEPS or len(where) != 1 or \
+            not next(iter(where)).startswith("src/repro_torch/serve/serving.py:"):
+        raise AssertionError(f"expected one host read per fused step over "
+                             f"{HYBRID_SYNC_STEPS} steps: {where}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrivals.run(max_steps=1)
+    torch.cuda.synchronize()
+    untraced_s = time.perf_counter() - t0
+    traced_s, busy_s, top = _device_profile(lambda: arrivals.run(max_steps=1),
+                                            kernels=("paged_attn",), cpu=False)
+    moe_ms = _moe_decode_ms(server)
+    calls = server.cfg.n_layers * server.prefill_chunk
+    return ({"steps": HYBRID_SYNC_STEPS, "synchronizing_calls": reads, "where": where},
+            {"steps": 1, "traced_s": traced_s, "untraced_s": untraced_s,
+             "device_busy_s": busy_s if busy_s else None,
+             "device_idle_share": 1.0 - busy_s / untraced_s if busy_s else None,
+             "launches_per_step": top["launch_calls"],
+             "launches_per_sub_step": top["launch_calls"] / server.prefill_chunk,
+             "paged_attn_share_of_busy": (top["device_ms_of"]["paged_attn"] / 1e3 / busy_s
+                                          if busy_s else None),
+             "moe_ms_per_call": moe_ms, "moe_calls": calls,
+             "moe_share_of_busy": moe_ms * calls / 1e3 / busy_s if busy_s else None,
+             **top, "units": "ms totals over the step"})
+
+
+def phase_train_moe():
+    """olmoe-1b-7b at full width, its depth cut to MOE_TRAIN_LAYERS, trained
+    for MOE_TRAIN_STEPS steps of MOE_TRAIN_BATCH x TRAIN_SEQ tokens by
+    ``_train_phase`` (B1 the one kernel: routing and the expert products are
+    plain PyTorch, as in the reference), with the MoE block's share of the
+    profiled step; then the loss and every gradient of one step computed
+    twice from the same state: the same bits."""
+    import gc
+
+    import torch
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe
+    from repro_torch.models.params import leaves
+
+    full = _published(MOE_ARCH, MOE_FIELDS, MOE_WIDTH)
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    real = moe.apply_moe
+
+    def ranged(*args, **kw):
+        with record_function(MOE_RANGE):
+            return real(*args, **kw)
+
+    moe.apply_moe = ranged  # one host call a layer; launches nothing
+    try:
+        record, run = _train_phase(cfg, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS,
+                                   {"strider_decode": 1}, "olmoe_tokens.heap",
+                                   kernels=("strider_decode",), ranges=(MOE_RANGE,))
+    finally:
+        moe.apply_moe = real
+    prof = record["profile"]
+    prof["moe_ms"] = prof["device_ms_in"][MOE_RANGE]
+    prof["moe_share_of_busy"] = (prof["moe_ms"] / 1e3 / prof["device_busy_s"]
+                                 if prof["device_busy_s"] else None)
+
+    # one step's loss and gradients twice from the same state: each
+    # gradient's bits summed as integers in pieces (exact, so any changed
+    # bit shows), the loss's bits as they are
+    batch = run.ds.batch(MOE_TRAIN_STEPS + 2, MOE_TRAIN_BATCH)
+    flat = list(leaves(run.params))
+    prints, n_leaves = [], len(flat)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        loss = run.loss_fn(run.params, batch)
+        grads = torch.autograd.grad(loss, flat)
+        prints.append(torch.stack([loss.detach().view(torch.int32).long()]
+                                  + [_bit_sum(g) for g in grads]))
+        del loss, grads
+    same = bool(torch.equal(prints[0], prints[1]))
+    twice_s = time.perf_counter() - t0
+    del run, flat, prints
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train-moe", "arch": MOE_ARCH, "experts": cfg.n_experts,
+          "top_k": cfg.experts_per_token, "capacity_factor": cfg.capacity_factor,
+          "reduced": {"n_layers": [full.n_layers, cfg.n_layers],
+                      "why": "16 bytes a parameter (f32 master, gradient, two moments): "
+                             f"{16 * full.n_params() / 1e9:.1f} GB at {full.n_layers} layers, "
+                             f"{16 * cfg.n_params() / 1e9:.1f} GB at {cfg.n_layers}"},
+          **record,
+          "same_bits_twice": {"same": same, "leaves": n_leaves,
+                              "seconds": twice_s,
+                              "what": "one step's loss and every gradient from the same "
+                                      "state, twice"}})
+    _check_train(record)
+    if not same:
+        raise AssertionError("one training step's loss or gradients differ between two runs "
+                             "from the same state")
+
+
+def _bit_sum(t, piece=1 << 26):
+    """The sum of a float32 tensor's bits read as int32, in int64, piece by
+    piece (exact: no order of summation changes it)."""
+    import torch
+
+    flat = t.reshape(-1).view(torch.int32)
+    return sum(flat[i:i + piece].sum(dtype=torch.int64) for i in range(0, flat.numel(), piece))
+
+
 # the lm-predict phase: mistral-nemo-12b (SERVE_ARCH) registered as an LM UDF
 # and called from SQL over a token table of 40,960 prompts of 32-256 tokens in
 # 32 KB pages (1,322 pages, 3 chunks of at most 512); the first token is 7 in
@@ -2780,9 +3385,9 @@ def _token_rows(feats, labels, mask):
 
 
 def phase_lm_predict():
-    """LM PREDICT through Session.sql at mistral-nemo-12b's full width and
-    depth: returns B3's launches on this path and its sub-row for the
-    kernels line (the token table's chunks)."""
+    """LM PREDICT through Session.sql at mistral-nemo-12b's full width on
+    SERVE_LAYERS layers: returns B3's launches on this path, its sub-row for the kernels
+    line (the token table's chunks) and what ``lm_scan_times`` times."""
     import numpy as np
     import torch
 
@@ -2802,7 +3407,8 @@ def phase_lm_predict():
     os.makedirs(root, exist_ok=True)
     emit({"phase": "lm-predict", "step": "start", "dir": os.path.relpath(root, ROOT),
           "disk_free_bytes": shutil.disk_usage(root).free})
-    cfg = get_config(SERVE_ARCH)
+    full = get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=SERVE_LAYERS)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params, _ = model_zoo.init_params(cfg, seed=0, device="cuda")
@@ -2902,8 +3508,7 @@ def phase_lm_predict():
         if _token_rows(*decoded) != ins.predictions:
             raise AssertionError("nemo_out's pages do not give the INSERT's predictions back")
 
-    # B3 on the token table's chunks, against its plain version; the first two
-    # (512 full pages each) timed in turn
+    # B3 on the token table's chunks, against its plain version
     plan = striders.full_plan(heap.layout)
     src = torch.tensor(strider_kernel.plan_sources(plan), dtype=torch.int32).cuda()
     p = scoring.CHUNK_PAGES
@@ -2923,12 +3528,10 @@ def phase_lm_predict():
     b3 = {"shape": (f"pages ({p}, {heap.layout.page_words}) int32 -> tokens ({p}, {t}, {c}), "
                     f"full plan, label True"),
           "chunks": len(chunks), "max_abs_err": err, "bit_exact": True,
-          "ms": device_ms([lambda ch=ch: strider_kernel.strider_decode_projected(
-              ch, heap.layout, plan, src) for ch in chunks[:2]] * 5),
-          "plain_ms": device_ms([lambda ch=ch: strider_ref.decode_pages_projected_ref(
-              ch, heap.layout, plan) for ch in chunks[:2]] * 5),
           "bound_ms": 1e3 * b3_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
           "bound_bytes": b3_bytes, "library_ms": None}
+    # the first two chunks (512 full pages each), timed by lm_scan_times
+    timing = {"chunks": chunks[:2], "layout": heap.layout, "plan": plan, "src": src}
     del chunks, pages
 
     # beside the statement: a direct score_tokens with the same slots, and the
@@ -2964,7 +3567,8 @@ def phase_lm_predict():
                 "serve_tok_per_s": r.serve_metrics.tok_per_s}
 
     emit({"phase": "lm-predict", "arch": SERVE_ARCH, "layers": cfg.n_layers,
-          "d_model": cfg.d_model, "weights": "bf16 from seed 0, drawn on the card",
+          "published_layers": full.n_layers, "d_model": cfg.d_model,
+          "weights": "bf16 from seed 0, drawn on the card",
           "table": dict(LM_TABLE, pages=heap.n_pages, chunks=n_chunks,
                         tuples_per_page=heap.layout.tuples_per_page),
           "sql": LM_SQL, "server": dict(LM_SERVE, kv="dense", attn_impl="gather",
@@ -2982,7 +3586,21 @@ def phase_lm_predict():
                     "where": where},
           "rejected": rejected, "nemo_out_read_back": "B1 and B3 equal to the INSERT",
           "peak_memory_bytes": peak})
-    return launches["strider_decode_projected"], b3
+    return launches["strider_decode_projected"], b3, timing
+
+
+def lm_scan_times(timing):
+    """B3's and its plain version's device times on lm-predict's first two
+    token chunks, taken in turn: the ``ms`` and ``plain_ms`` of B3's
+    ``lm_scan`` entry."""
+    from repro_torch.kernels.strider import kernel as strider_kernel
+    from repro_torch.kernels.strider import ref as strider_ref
+
+    chunks, layout, plan, src = (timing[k] for k in ("chunks", "layout", "plan", "src"))
+    return {"ms": device_ms([lambda ch=ch: strider_kernel.strider_decode_projected(
+                ch, layout, plan, src) for ch in chunks] * 5),
+            "plain_ms": device_ms([lambda ch=ch: strider_ref.decode_pages_projected_ref(
+                ch, layout, plan) for ch in chunks] * 5)}
 
 
 # the train phase: rwkv6-3b at full width and depth from f32 masters, on the
@@ -3855,9 +4473,8 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--hybrid-gather"]:  # serve-hybrid's gather run
         return hybrid_gather_child(sys.argv[2])
-    if sys.argv[1:2] == ["--serve-rwkv"]:  # the serve-rwkv phase, beside serve-hybrid
-        phase_serve_rwkv()
-        return 0
+    if sys.argv[1:2] == ["--beside"]:  # a phase in a process of its own
+        return run_beside(sys.argv[2])
 
     smi = nvidia_smi()
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
@@ -3879,28 +4496,41 @@ def main() -> int:
         db, predict_launches = phase_predict(heap, res)
         rows = phase_kernels(heap, engine, res, launches, db, predict_launches)
         del heap, engine, res, db
-        captured, serve_launches = phase_serve()
-        phase_launch_serve()
-        mla_captured, mla_launches = phase_serve_mla()
-        rwkv = _phase_beside("--serve-rwkv")
+        # lm-predict (30 GB at its peak) and serve-rwkv (9 GB) beside serve-mla
+        # (5 GB)
+        lm, rwkv = _phase_beside("lm-predict"), _phase_beside("serve-rwkv")
         try:
-            hybrid_captured, hybrid_launches = phase_serve_hybrid()
+            mla_captured, mla_launches = phase_serve_mla()
+            lm_launches, lm_b3, lm_timing = _join_beside(lm)
+            _join_beside(rwkv)
         except BaseException:
-            rwkv[0].kill()
-            rwkv[0].wait()
+            _stop_beside(lm, rwkv)
             raise
-        _join_beside(*rwkv)
+        # serve-moe (17 GB) and serve-hybrid (6 GB and its gather run's 5)
+        # beside serve and launch (16 and 25 GB)
+        moe, hybrid = _phase_beside("serve-moe"), _phase_beside("serve-hybrid")
+        try:
+            captured, serve_launches = phase_serve()
+            phase_launch_serve()
+            moe_captured, moe_launches = _join_beside(moe)
+            hybrid_captured, hybrid_launches = _join_beside(hybrid)
+        except BaseException:
+            _stop_beside(moe, hybrid)
+            raise
+        # the kernels line's times, with no other process on the card
         rows.append(kernel_row_paged_attn(captured, serve_launches, mla_captured, mla_launches,
-                                          hybrid_captured, hybrid_launches))
-        del captured, mla_captured, hybrid_captured
-        lm_launches, lm_b3 = phase_lm_predict()
+                                          hybrid_captured, hybrid_launches, moe_captured,
+                                          moe_launches))
+        del captured, mla_captured, hybrid_captured, moe_captured
         b3_row = next(r for r in rows if r["name"] == "strider_decode_projected")
         b3_row["launches"] += lm_launches
-        b3_row["lm_scan"] = dict(lm_b3, launches=lm_launches)
+        b3_row["lm_scan"] = dict(lm_b3, **lm_scan_times(lm_timing), launches=lm_launches)
+        del lm_timing
         wkv_calls, train_launches = phase_train()
         phase_train_parity()
         phase_train_mla()
         phase_train_hybrid()
+        phase_train_moe()
         phase_launch_train()
         rows.extend(kernel_rows_wkv(wkv_calls, train_launches, *wkv_kernels))
         emit({"kernels": rows})

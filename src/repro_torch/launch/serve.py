@@ -5,8 +5,11 @@
         --kv paged --batch 8 --requests 16 --prefill-chunk 16
 
 Every decoder-only family the port serves takes the same flags: GQA
-(mistral-nemo-12b, internlm2-20b, ...) and MLA (``--arch minicpm3-4b``,
-whose kernel path runs the absorbed-latent attention on B5). Submit more
+(mistral-nemo-12b, internlm2-20b, ...), MLA (``--arch minicpm3-4b``,
+whose kernel path runs the absorbed-latent attention on B5), MoE
+(``--arch olmoe-1b-7b``: 13.8 GB of bf16 weights, token stepping falls
+back to chunked stepping; deepseek-v3-671b at ``--reduced`` size), the
+hybrid (``--arch hymba-1.5b``) and RWKV6 (``--arch rwkv6-3b``). Submit more
 requests than slots (``--requests``) to exercise mid-run admission. ``--kv paged`` swaps the dense per-slot cache for the block-pool
 layout (``--block-size`` tokens per block, ``--kv-blocks`` total, by default
 dense-equivalent capacity); ``--prefill-chunk C`` feeds C prompt tokens per

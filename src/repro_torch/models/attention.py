@@ -28,6 +28,16 @@ row that nothing reads: dense caches are ``(B + 1, S, KVH, D)`` with slot
 the landing block, which the allocator never maps. Reads slice the spare off
 (dense) or never reach it (paged: tables map blocks ``< NB``).
 
+One case differs: a dense decode with one batch row per cache row
+(``slot`` None), the chunked server's step. There the reference writes every
+row and reverts the rows that did not run afterwards, so such a row's
+attention reads its own new entry at its position. The port writes every
+row in place too and restores the gated rows' entries after the read
+(``_dense_write``): each row reads what it reads in the reference, and the
+cache ends as the reference's. It matters where a row's output reaches
+another row's: MoE routes a decode batch as one group, in which an idle row
+claims expert capacity.
+
 Cross attention waits for ROADMAP queue item 3e.
 """
 from __future__ import annotations
@@ -167,8 +177,8 @@ def gqa_decode(p, x, cache, pos, cfg: ModelConfig, window=0, slot=None,
     ring), row B the landing row. Returns (out (B,1,d), cache). ``pos`` is a
     scalar or a (B,) vector of per-slot positions. ``slot`` (B,) maps batch
     rows onto cache rows for the token-batched serving step (None keeps
-    row == slot); ``write_ok`` (B,) bool gates the cache write (gated-off
-    rows land in the spare row)."""
+    row == slot); ``write_ok`` (B,) bool gates the cache write (see
+    ``_dense_write``)."""
     b = x.shape[0]
     dt = x.dtype
     pos_b = _batch_pos(pos, b, x.device)
@@ -176,12 +186,8 @@ def gqa_decode(p, x, cache, pos, cfg: ModelConfig, window=0, slot=None,
 
     ck, cv = cache["k"], cache["v"]
     s = ck.shape[1]
-    nslots = ck.shape[0] - 1
     row = pos_b % s if window else pos_b.clamp(max=s - 1)
-    rows = torch.arange(b, device=x.device) if slot is None else slot
-    wrow = rows if write_ok is None else torch.where(write_ok, rows, nslots)
-    ck[wrow, row] = k[:, 0].to(ck.dtype)
-    cv[wrow, row] = v[:, 0].to(cv.dtype)
+    restore = _dense_write(((ck, k[:, 0]), (cv, v[:, 0])), row, slot, write_ok)
 
     kvh, hd = cfg.n_kv_heads, cfg.hd
     g = cfg.n_heads // kvh
@@ -196,8 +202,37 @@ def gqa_decode(p, x, cache, pos, cfg: ModelConfig, window=0, slot=None,
     gk, gv = (ck[:b], cv[:b]) if slot is None else (ck[slot], cv[slot])
     mask = torch.where(valid, 0.0, NEG)[:, None, None, None, :]
     out = _sdpa(q.reshape(b, 1, kvh, g, hd), gk, gv, mask, 1.0 / math.sqrt(hd))
+    restore()
     out = _out_proj(out.reshape(b, 1, cfg.n_heads, hd).to(dt), p["wo"])
     return out, cache
+
+
+def _dense_write(pairs, row, slot, write_ok):
+    """Write each (cache leaf (B + 1, S, ...), value (B, ...)) pair's rows at
+    their positions ``row`` (B,). With ``slot`` (token batching), gated-off
+    rows land in the spare row. With one batch row a cache row (``slot``
+    None), every row writes in place and the gated-off rows' old entries
+    come back when the returned function is called, after the read (see
+    the module's docstring). Returns that function."""
+    b = row.shape[0]
+    if slot is not None or write_ok is None:
+        rows = torch.arange(b, device=row.device) if slot is None else slot
+        if write_ok is not None:
+            rows = torch.where(write_ok, rows, pairs[0][0].shape[0] - 1)
+        for leaf, val in pairs:
+            leaf[rows, row] = val.to(leaf.dtype)
+        return lambda: None
+    rows = torch.arange(b, device=row.device)
+    old = [leaf[rows, row] for leaf, _ in pairs]
+    for leaf, val in pairs:
+        leaf[rows, row] = val.to(leaf.dtype)
+
+    def restore():
+        for (leaf, val), kept in zip(pairs, old):
+            ok = write_ok.view(-1, *[1] * (kept.dim() - 1))
+            leaf[rows, row] = torch.where(ok, val.to(leaf.dtype), kept)
+
+    return restore
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, seq: int, window=0, device="cpu"):
@@ -411,14 +446,12 @@ def mla_decode(p, x, cache, pos, cfg: ModelConfig, slot=None, write_ok=None):
 
     c, kr = cache["c"], cache["kr"]
     s = c.shape[1]
-    rows = torch.arange(b, device=x.device) if slot is None else slot
-    wrow = rows if write_ok is None else torch.where(write_ok, rows, c.shape[0] - 1)
     row = pos_b.clamp(max=s - 1)
-    c[wrow, row] = c_t[:, 0].to(c.dtype)
-    kr[wrow, row] = kr_t[:, 0].to(kr.dtype)
+    restore = _dense_write(((c, c_t[:, 0]), (kr, kr_t[:, 0])), row, slot, write_ok)
     gc, gkr = (c[:b], kr[:b]) if slot is None else (c[slot], kr[slot])
     valid = torch.arange(s, device=x.device)[None, :] <= pos_b[:, None]
     out_lat = _mla_latent_attn(_mla_absorb(p, qn, cfg), qr, gc, gkr, valid, _mla_scale(cfg))
+    restore()
     return _mla_out(p, out_lat, cfg), cache
 
 

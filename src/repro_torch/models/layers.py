@@ -82,6 +82,20 @@ def make_mlp(m: Maker, d: int, d_ff: int):
     }
 
 
+def silu_rounded(x):
+    """SiLU rounded as the reference rounds it: in bf16, ``jax.nn.silu``
+    lowers to x * (1 / (1 + exp(-x))) with each step rounded to bf16, which
+    the fused ``F.silu`` (one rounding) misses by an ulp on many elements.
+    The Mamba scan's exponentials carry such an ulp far, and an expert
+    product's output moves by as much as 0.25 in bf16 on reduced olmoe. In
+    f32 the two agree within an ulp and ``F.silu`` keeps its stable
+    gradient. (``apply_mlp`` keeps ``F.silu``: the dense models match the
+    reference within their bf16 bounds with it.)"""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 def apply_mlp(p, x):
     dt = x.dtype
     h = x @ p["wi"].to(dt)

@@ -29,6 +29,7 @@ from repro_torch.kernels.wkv.ref import wkv_chunked_ref as wkv_chunked
 from repro_torch.kernels.wkv.ref import wkv_ref as wkv_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_norm, make_norm
+from repro_torch.models.layers import silu_rounded as _silu
 from repro_torch.models.params import Maker
 
 LORA_TM = 32  # token-shift ddlerp lora rank
@@ -201,18 +202,6 @@ def _mamba_core(p, xc, cfg: ModelConfig, h0, chunk: int):
     y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
     y = y + p["d_skip"].to(f32) * x
     return y.to(xc.dtype), h
-
-
-def _silu(x):
-    """SiLU rounded as the reference rounds it: in bf16, ``jax.nn.silu``
-    lowers to x * (1 / (1 + exp(-x))) with each step rounded to bf16, which
-    the fused ``F.silu`` (one rounding) misses by an ulp on many elements,
-    and the Mamba scan's exponentials carry such an ulp far. In
-    f32 the two agree within an ulp and ``F.silu`` keeps its stable
-    gradient."""
-    if x.dtype == torch.float32:
-        return F.silu(x)
-    return x * torch.reciprocal(1 + torch.exp(-x))
 
 
 def mamba_mix(p, x, cfg: ModelConfig, state=None, conv_prev=None, chunk=256):

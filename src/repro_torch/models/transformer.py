@@ -7,14 +7,16 @@ parameters are stacked on a leading layer axis. ``repro`` runs a segment with
 views of them (``torch.unbind`` once per forward), so the stacked tensors stay
 the autograd leaves and nothing is copied.
 
-``segments_for`` covers every family. The port runs the families whose
-segments are all ``attn_mlp`` (dense and VLM backbones with GQA attention:
-internlm2, mistral-nemo, deepseek-67b, internvl2; and MLA: minicpm3), the
-``rwkv`` family (rwkv6-3b) and the hybrid family (hymba-1.5b: attention,
-sliding-window or global, beside a Mamba mixer in every layer): training,
-prefill, ``lm_decode_step`` and the server. MoE, encoder-decoder and
-multi-token prediction raise ``NotImplementedError`` naming the ROADMAP
-item that ports them (``check_supported``, ``check_servable``).
+``segments_for`` covers every family. The port runs the dense and VLM
+backbones (``attn_mlp`` segments, GQA attention: internlm2, mistral-nemo,
+deepseek-67b, internvl2; MLA: minicpm3), the MoE family (``attn_moe``
+segments, after ``first_dense_layers`` ``attn_mlp`` layers where the model
+has them: olmoe, and deepseek-v3 with MLA beside its experts and its
+multi-token-prediction loss), the ``rwkv`` family (rwkv6-3b) and the hybrid
+family (hymba-1.5b: attention, sliding-window or global, beside a Mamba
+mixer in every layer): training, prefill, ``lm_decode_step`` and the
+server. Encoder-decoder models raise ``NotImplementedError`` naming the
+ROADMAP item that ports them (``check_supported``, ``check_servable``).
 
 Recurrent state (RWKV's ``wkv``/``shift_t``/``shift_c``, Mamba's
 ``ssm``/``conv``) is per slot, dense ``(L, B, ...)`` under paged KV too, and
@@ -41,6 +43,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -100,14 +103,8 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port's model stack
     cannot run yet, naming the ROADMAP item that ports it."""
     if cfg.family == "encdec":
-        why = "encoder-decoder models wait for ROADMAP A15 (encdec)"
-    elif cfg.is_moe:
-        why = "MoE layers wait for ROADMAP A14 (moe.py)"
-    elif cfg.mtp:
-        why = "multi-token prediction waits for ROADMAP A18"
-    else:
-        return
-    raise NotImplementedError(f"{cfg.name}: {why}")
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models wait for ROADMAP A15 (encdec)")
 
 
 def check_servable(cfg: ModelConfig) -> None:
@@ -136,7 +133,10 @@ def _make_layer(m: Maker, cfg: ModelConfig, kind: str):
         p["mamba"] = ssm.make_mamba(m, cfg)
         p["ln_attn_out"] = make_norm(m, cfg.d_model)
         p["ln_mamba_out"] = make_norm(m, cfg.d_model)
-    p["mlp"] = make_mlp(m, cfg.d_model, cfg.d_ff)
+    if kind == "attn_moe":
+        p["moe"] = moe_mod.make_moe(m, cfg)
+    else:
+        p["mlp"] = make_mlp(m, cfg.d_model, cfg.d_ff)
     return p
 
 
@@ -154,7 +154,18 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device,
     }
     if cfg.vis_tokens:
         tree["vis_proj"] = m.param((cfg.d_model, cfg.d_model), ("embed", "embed"))
+    if cfg.mtp:
+        tree["mtp"] = {
+            "norm_h": make_norm(m, cfg.d_model),
+            "norm_e": make_norm(m, cfg.d_model),
+            "proj": m.param((2 * cfg.d_model, cfg.d_model), ("ff", "embed")),
+            "layer": _make_layer(m, cfg, _mtp_kind(cfg)),
+        }
     return split_tree(tree)
+
+
+def _mtp_kind(cfg: ModelConfig) -> str:
+    return "attn_moe" if cfg.is_moe else "attn_mlp"
 
 
 # --------------------------------------------------------------------------
@@ -178,8 +189,16 @@ def _layer_train(p, x, positions, cfg: ModelConfig, kind: str, wkv_impl: str = "
         x = x + _hybrid_mix(p, a, s, cfg)
     else:
         x = x + attn.kind_of(cfg).train(p["attn"], h, cfg, positions)
+    return x + _ffn(p, x, cfg, kind)
+
+
+def _ffn(p, x, cfg: ModelConfig, kind: str):
+    """The layer's feed-forward block on its second norm: the experts in an
+    ``attn_moe`` layer, the gated MLP elsewhere."""
     h = apply_norm(p["ln2"], x, cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h)
+    if kind == "attn_moe":
+        return moe_mod.apply_moe(p["moe"], h, cfg)
+    return apply_mlp(p["mlp"], h)
 
 
 def _hybrid_mix(p, a, s, cfg: ModelConfig):
@@ -249,10 +268,29 @@ def lm_loss(params, batch, cfg: ModelConfig, remat: str = "full",
     x = _run_segments(params["segments"], x, cfg, positions, remat, wkv_impl)
     h = apply_norm(params["final_norm"], x, cfg.norm_eps)[:, cfg.vis_tokens:]
     if cfg.loss_chunk:
-        return chunked_xent(params["embed"], h, batch["targets"], batch["loss_mask"], cfg,
+        loss = chunked_xent(params["embed"], h, batch["targets"], batch["loss_mask"], cfg,
                             cfg.loss_chunk)
-    logits = unembed(params["embed"], h, cfg)
-    return softmax_xent(logits, batch["targets"], batch["loss_mask"], cfg.vocab_size)
+    else:
+        loss = softmax_xent(unembed(params["embed"], h, cfg), batch["targets"],
+                            batch["loss_mask"], cfg.vocab_size)
+    if cfg.mtp:
+        loss = loss + cfg.mtp_loss_weight * _mtp_loss(params, h, batch, cfg,
+                                                      positions[:, :h.shape[1]])
+    return loss
+
+
+def _mtp_loss(params, h, batch, cfg: ModelConfig, positions):
+    """DeepSeek-V3 multi-token prediction: one extra layer predicts t+2 from
+    [h_t ; emb(token_{t+1})] with the shared embedding and head."""
+    p = params["mtp"]
+    tokens, targets, mask = batch["tokens"], batch["targets"], batch["loss_mask"]
+    h_in = apply_norm(p["norm_h"], h[:, :-1], cfg.norm_eps)
+    e_in = apply_norm(p["norm_e"], embed(params["embed"], tokens[:, 1:], cfg), cfg.norm_eps)
+    z = torch.cat([h_in, e_in], dim=-1) @ p["proj"].to(h.dtype)
+    z = _layer_train(p["layer"], z, positions[:, :-1], cfg, _mtp_kind(cfg))
+    logits = unembed(params["embed"], z, cfg)
+    # the target at offset +2: position t predicts targets[t + 1]
+    return softmax_xent(logits, targets[:, 1:], mask[:, 1:], cfg.vocab_size)
 
 
 # --------------------------------------------------------------------------
@@ -388,8 +426,7 @@ def _layer_decode(p, x, cache, pos, cfg: ModelConfig, kind: str = "attn_mlp", pa
         x = x + _hybrid_mix(p, a, s, cfg)
     else:
         x = x + a
-    h = apply_norm(p["ln2"], x, cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h)
+    return x + _ffn(p, x, cfg, kind)
 
 
 def lm_decode_step(params, tokens, caches, pos, cfg: ModelConfig, paged=None,

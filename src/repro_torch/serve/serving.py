@@ -90,19 +90,28 @@ Where the port differs from ``repro``:
     not the same numbers.
   * **Families.** The port serves the dense attention families (GQA or
     MLA: MLA's caches are the latent ``c``/``kr`` leaves, which every cache
-    walk here reaches as it reaches ``k``/``v``), RWKV6 and the hybrid
-    family (hymba: sliding-window layers read a ring of ``swa_window`` rows,
-    paged from the ring pool through its own block table, beside a Mamba
-    mixer). Recurrent state (``_PER_SLOT_KEYS``) stays per slot under paged
-    KV too: it is zeroed on admission, written only on the rows that run a
+    walk here reaches as it reaches ``k``/``v``), MoE (olmoe; deepseek-v3,
+    MLA beside its experts), RWKV6 and the hybrid family (hymba:
+    sliding-window layers read a ring of ``swa_window`` rows, paged from
+    the ring pool through its own block table, beside a Mamba mixer).
+    Recurrent state (``_PER_SLOT_KEYS``) stays per slot under paged KV too:
+    it is zeroed on admission, written only on the rows that run a
     sub-step, and left out of block copies and KV byte counts. As in
     ``repro``: a pure recurrent model (``ssm``) serves dense under
     ``kv="paged"``; token stepping on segments that are not all
     ``attn_mlp`` falls back to chunked stepping (``serve_step``), and an
     explicit ``prefix_cache=True`` without paged attention-only segments
     falls back to unshared serving (``serve_prefix``), both recorded in
-    ``meshes.fallbacks()``. MoE raises ``NotImplementedError``
-    (models/transformer.py); ``mesh=`` raises until ROADMAP A19.
+    ``meshes.fallbacks()``; ``mesh=`` raises until ROADMAP A19.
+  * **MoE's idle rows.** A decode sub-step routes the whole batch as one
+    group, so the rows that do not run it (empty slots, finished or parked
+    rows, fed token 0 at their frozen position as in ``repro``) claim
+    expert capacity in slot order, before the live rows below them. What
+    an idle row's attention reads therefore reaches the live rows' tokens,
+    and it is ``repro``'s on both layouts: on dense caches its own new
+    entry at its position (``attention._dense_write``), on paged caches the
+    blocks its table row maps (unmapped entries read block 0), its write
+    dropped.
 """
 from __future__ import annotations
 
@@ -316,7 +325,7 @@ class BatchedServer:
         # prefix sharing needs (a) a paged pool without a SWA ring (ring rows
         # wrap: a sharer skipping prefill would miss the skipped positions'
         # window writes) and (b) attention-only segments (skipped positions
-        # carry recurrent state that blocks don't hold). None = on wherever
+        # carry recurrent or MoE-capacity state that blocks don't hold). None = on wherever
         # eligible; an explicit True on an ineligible shape records a
         # fallback instead of serving wrong KV.
         kinds = {s.kind for s in segments_for(cfg)}
@@ -353,8 +362,8 @@ class BatchedServer:
             meshes.record_fallback(
                 "serve_step", "token_batch", 0,
                 f"token-level stepping needs attention-only segments, got "
-                f"{sorted(kinds)}: recurrent state is per slot; falling back to "
-                "chunked stepping",
+                f"{sorted(kinds)}: recurrent state is per slot and MoE capacity "
+                "groups see padding rows; falling back to chunked stepping",
             )
             step_mode = "chunked"
         self.attn_impl = attn_impl

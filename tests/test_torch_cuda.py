@@ -410,7 +410,8 @@ def test_server_hybrid_kernel_path_matches_gather_on_card(card):
 
 def _paged_teacher_forced(cfg, params, seq, impl, card, bs=4):
     """Logits (f32, true vocab) of ``seq`` teacher-forced one token a call
-    through one slot's paged decode on ``impl``'s read path."""
+    through one slot's paged decode on ``impl``'s read path, on the device
+    ``card`` (the CPU's ``kernel`` path is the plain version)."""
     from repro_torch.models import model_zoo
 
     nb = -(-len(seq) // bs)
@@ -667,3 +668,114 @@ def test_wkv_ops_differentiates_through_both_kernels(card):
     want = wkv_ref.wkv_bwd_ref(*ins, chunk, dy, ds)
     for leaf, w in zip(leaves, want):
         torch.testing.assert_close(leaf.grad, w, **WKV_TOL)
+
+
+def test_paged_attn_kernel_at_olmoes_call(card):
+    """olmoe-1b-7b's call as its server makes it: 16 slots, one row each
+    (chunked stepping), KVH 16, G 1, D 128, bf16 pools of 16-row blocks,
+    contexts from one row to 1,088 (68 blocks a slot), with and without
+    runs, on the split body."""
+    pos = np.array([0, 1, 15, 16, 17, 100, 255, 256, 500, 777, 1000, 1023, 1040, 1050, 1086,
+                    1087])
+    case = pa_case(t=16, kvh=16, g=1, dk=128, dv=128, bs=16, nb_slot=68,
+                   num_blocks=16 * 68 + 8, seed=43, bf16=True, scale=128 ** -0.5, pos=pos)
+    _paged_attn_on_card(card, case)
+    _paged_attn_on_card(card, case, with_runs=True)
+    assert pa_kernel.paged_attention.body == "split"
+
+
+def test_moe_backward_gives_the_same_bits_twice(card):
+    """The MoE block's forward and backward on the card at olmoe's expert
+    count and top-k (64 experts, top 8, capacity binding at the default
+    factor), bf16: a second run gives the same bits in the output and in
+    every gradient (the dispatch/combine pair gathers, no float atomics),
+    and the gradients are the CPU run's within bf16 rounding."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), d_model=512, moe_d_ff=256)
+    gen = torch.Generator().manual_seed(0)
+    p = {"router": torch.randn(512, 64, generator=gen) * 0.005,
+         "wi": torch.randn(64, 512, 256, generator=gen) / 512 ** 0.5,
+         "wg": torch.randn(64, 512, 256, generator=gen) / 512 ** 0.5,
+         "wo": torch.randn(64, 256, 512, generator=gen) / 256 ** 0.5}
+    x = torch.randn(4, 256, 512, generator=gen)
+    dy = torch.randn(4, 256, 512, generator=gen)
+
+    def run(device):
+        leaves = {k: v.to(device, torch.bfloat16).requires_grad_() for k, v in p.items()}
+        xx = x.to(device, torch.bfloat16).requires_grad_()
+        routed = []
+        out = moe.apply_moe(leaves, xx, cfg, routing_out=routed)
+        out.backward(dy.to(device, torch.bfloat16))
+        assert not routed[0].choice_ok.all()  # capacity binds
+        return [out.detach(), xx.grad] + [leaves[k].grad for k in sorted(leaves)]
+
+    first, second = run(card), run(card)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    for a, b in zip(first, run("cpu")):
+        a, b = a.float().cpu(), b.float()
+        assert float((a - b).norm() / b.norm()) < 2e-2
+
+
+def test_server_deepseek_v3_on_card_matches_cpu(card):
+    """Reduced deepseek-v3 (MLA at its latent widths, kv_lora 512 and rope
+    64, beside a shared expert and routed experts) served on the card
+    through B5's latent entry gives the CPU run's tokens (the same weights,
+    the plain version of the entry), except at a near-tie. Capacity factor
+    16, so a row's tokens depend on its own history only and the near-tie
+    is measured teacher-forced; the deviation limit is DEVIATION_LIMIT
+    doubled, as the reference doubles its parity tolerance for
+    deepseek-v3."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.serving import BatchedServer, Request
+    from test_torch_serve_util import DEVIATION_LIMIT
+
+    cfg = dataclasses.replace(
+        get_reduced_config("deepseek-v3-671b", kv_lora_rank=512, qk_rope_head_dim=64),
+        capacity_factor=16.0)
+    cpu_params, _ = model_zoo.init_params(cfg, seed=2, device="cpu")
+    params = {"cpu": cpu_params,
+              "card": _tree_to(cpu_params, card)}
+    stream = [([5, 6, 7, 8], 9), ([1, 2], 3), ([9, 3, 9, 4], 5), ([2, 7], 4)]
+
+    def serve(where):
+        srv = BatchedServer(cfg, params[where], batch_slots=2, max_seq=24, kv="paged",
+                            block_size=4, step_mode="tokens", prefill_chunk=4,
+                            attn_impl="kernel", device=card if where == "card" else "cpu")
+        for i, (p, n) in enumerate(stream):
+            srv.submit(Request(i, list(p), n))
+        return [r.out for r in srv.run()]
+
+    launches = pa_kernel.paged_latent_attention.launches
+    got = serve("card")
+    assert pa_kernel.paged_latent_attention.launches > launches
+    assert pa_kernel.paged_latent_attention.body == "latent"
+    for (prompt, _), g, w in zip(stream, got, serve("cpu")):
+        assert len(g) == len(w)
+        if g == w:
+            continue
+        k = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+        seq = list(prompt) + list(w[:k])
+        tl = _paged_teacher_forced(cfg, params["card"], seq, "kernel", card)
+        cl = _paged_teacher_forced(cfg, params["cpu"], seq, "kernel", "cpu").to(card)
+        top = torch.topk(cl[-1], 2).values
+        margin, delta = float(top[0] - top[1]), tl - cl
+        deviation = float((delta.amax(1) - delta.amin(1)).max())
+        assert deviation <= 2 * DEVIATION_LIMIT, ("logits deviate", k, deviation)
+        assert margin < deviation, (k, margin, deviation, g, w)
+        print(f"near-tie at token {k}: CPU margin {margin:.4g} < deviation {deviation:.4g}")
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)

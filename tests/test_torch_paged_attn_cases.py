@@ -9,7 +9,8 @@ block sizes of 1, 4 and 16, and the shapes that pick each of the kernel's
 bodies and layouts (Dv in 1 to 4 groups of 64 columns or leaving columns
 idle, rows of 8 query heads or fewer and of 12, f32 and tensor-core scores,
 head dims of 256 and past it, a serving shape at a context of 1,088 rows,
-hymba's sliding-window heads on a ring that has wrapped),
+hymba's sliding-window heads on a ring that has wrapped, olmoe's 16 heads
+of 128 at G 1),
 and runs: rows that share one table row, given to the kernel as (first row,
 count) pairs so that it reads their context once (prefill runs of 16 beside
 decode rows, mixed run lengths, runs across and up to the kernel's split
@@ -185,6 +186,11 @@ CASES = {
                                num_blocks=40, ring_width=64, seed=29, bf16=True,
                                scale=64 ** -0.5, pos=np.array([0, 17, 63, 64, 65, 100, 1087,
                                                                1040])),
+    # olmoe-1b-7b's call (KVH 16, G 1, D 128, bf16, blocks of 16): one row
+    # per slot as chunked stepping calls it, contexts from one row to 1,088
+    "olmoe_g1": lambda: make(t=6, kvh=16, g=1, dk=128, dv=128, bs=16, nb_slot=68,
+                             num_blocks=420, seed=30, bf16=True, scale=128 ** -0.5,
+                             pos=np.array([0, 15, 16, 500, 1040, 1087])),
     # the shared_blocks case with its six rows declared one run
     "shared_blocks_run": lambda: make(t=6, seed=6, table=np.tile([[7, 3, 11, 0]], (6, 1)),
                                       pos=np.array([0, 3, 4, 7, 12, 15]), runs=[(0, 6)]),

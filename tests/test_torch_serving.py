@@ -234,12 +234,10 @@ def test_submit_validation_and_unserved_families():
     with pytest.raises(ValueError, match="decoder-only"):
         BatchedServer(get_reduced_config("seamless-m4t-medium"), {}, batch_slots=1,
                       max_seq=8, device=CPU)
-    # the recurrent families construct (their weights do not matter here);
-    # MoE still waits for its ROADMAP item
-    for arch in ("rwkv6-3b", "hymba-1.5b"):
+    # the recurrent and MoE families construct (their weights do not matter
+    # here)
+    for arch in ("rwkv6-3b", "hymba-1.5b", "olmoe-1b-7b", "deepseek-v3-671b"):
         BatchedServer(get_reduced_config(arch), p, batch_slots=1, max_seq=8, device=CPU)
-    with pytest.raises(NotImplementedError, match="A14"):
-        BatchedServer(get_reduced_config("olmoe-1b-7b"), p, batch_slots=1, max_seq=8, device=CPU)
     with pytest.raises(NotImplementedError, match="A19"):
         BatchedServer(cfg, p, batch_slots=1, max_seq=8, mesh=object(), device=CPU)
 

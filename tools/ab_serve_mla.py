@@ -7,9 +7,10 @@ Each turn builds the checkout's paged-attention kernel, times B5's generic
 entry (the split body that mistral-nemo-12b's serve path runs) on the cases
 ``runs_gqa_dk128_bf16`` and ``long_context`` of
 ``tests/test_torch_paged_attn_cases.py`` with their runs, and runs the
-checkout's ``chip_smoke.phase_serve_mla`` (minicpm3-4b served at full width
-and depth), whose JSON line it prints. Host times spread between calls, so
-compare the two checkouts only within one call of this script.
+checkout's ``chip_smoke.phase_serve_mla`` (minicpm3-4b served at full width,
+at the depth that checkout's smoke gives it), whose JSON line it prints.
+Host times spread between calls, so compare the two checkouts only within
+one call of this script.
 
     python3 tools/ab_serve_mla.py PARENT_DIR CHANGE_DIR [--order ABBA]
 """
