@@ -2,10 +2,12 @@
 """Smoke run of the PyTorch port on one NVIDIA card: DAnA's TRAIN path and
 its in-database scoring (SQL PREDICT) at full size, LM serving of
 hymba-1.5b (hybrid), olmoe-1b-7b (MoE) and rwkv6-3b and LM training of
-rwkv6-3b, minicpm3-4b and hymba-1.5b at full width and depth, LM serving of
-mistral-nemo-12b (GQA) and minicpm3-4b (MLA) and LM training of olmoe-1b-7b
-at full width and cut depth, through the port's hand-written CUDA kernels,
-and LM PREDICT of mistral-nemo-12b from SQL over a token table.
+rwkv6-3b, minicpm3-4b, hymba-1.5b and seamless-m4t-medium (enc-dec, with its
+greedy decode) at full width and depth, LM serving of mistral-nemo-12b
+(GQA), minicpm3-4b (MLA) and internvl2-26b (the VLM) and LM training of
+olmoe-1b-7b and internvl2-26b at full width and cut depth, through the
+port's hand-written CUDA kernels, and LM PREDICT of mistral-nemo-12b from
+SQL over a token table.
 
 Phases, one JSON line each:
 
@@ -175,6 +177,37 @@ Phases, one JSON line each:
            the reference), with the MoE block's share of the profiled step
            (a record_function range); then one step's loss and every
            gradient computed twice from the same state: the same bits
+  train-encdec  seamless-m4t-medium (12 encoder and 12 decoder layers,
+           d_model 1,024, vocab 256,206; full width and depth, f32 masters
+           from seed 0) trained for 4 steps of 8 x 512 target tokens from
+           the page data path (B1 once a step, no other kernel: the encoder,
+           the decoder and the cross attention are plain PyTorch), each page
+           batch given the 8 x 512 source frames that synthetic_data_fn
+           draws for its step (the page path gives no frames, as the
+           reference's gives none); checked and measured as train-mla is,
+           then one step's loss and every gradient twice: the same bits
+  decode-encdec  the same model in bf16: 4 sources of 512 frames, 32 target
+           tokens, prefill_fn's last logits against 32 decode_fn steps on a
+           make_cache cache holding precompute_cross_kv's K and V (rtol =
+           atol = 3e-2, every argmax equal); then 64 greedy tokens from each
+           source, twice: the same tokens
+  train-vlm  internvl2-26b at full width, its depth cut to 6 of 48 layers
+           (16 bytes a parameter: 55.7 GB, and the backward of one layer's
+           f32 attention scores beside it), trained for 4 steps of 4 x
+           (1,024 patches + 1,024 text tokens): the text from the page data
+           path (B1 once a step), the patches synthetic_data_fn's draws;
+           checked as train-mla is, then the same bits twice
+  serve-vlm  (in a process of its own, beside serve-mla) internvl2-26b
+           (full width, 16 of its 48 layers, bf16 weights from seed 0)
+           serving the serve phase's 48 requests as serve-mla does: B5 at
+           KVH 8, G 6, D 128 once a layer a fused step on the split body,
+           every B5 call of every fused step against its plain version at
+           2e-5, then the stream again without that check (the phase's
+           times, the same tokens), the kernel and the gather path on the 4
+           shortest requests alone, token for token except at reported
+           near-ties;
+           B5's calls at step 100 and at the decode-only step with the most
+           context captured for the kernels line
   launch-train  launch/train.py's main() at full width for 2 steps
   kernels  each kernel's launches on the main path (B3's: the GLM scans' and
            the LM statements'), error, time, bound,
@@ -195,21 +228,22 @@ Phases, one JSON line each:
            table, bound on the ring's distinct valid rows, and a global
            layer's), with and without runs, and their launches; under
            "moe" serve-moe's call (KVH 16, G 1, D 128, 16 one-row runs),
-           with its launches; B6's
+           with its launches; under "vlm" serve-vlm's two calls (KVH 8, G
+           6, D 128), with and without runs, and their launches; B6's
            two kernels and B6-bwd's three a call, each one's time,
            registers and CTAs per SM, beside the bytes its design moves
 
-The serving phases are bound by their host's launches and the card idles
-most of the time in each, so some run beside others, each in a process of
-its own (``chip_smoke.py --beside NAME``, its lines printed when it is
-joined, its phase's result handed back through a file under
-build/chip_smoke/): lm-predict and serve-rwkv beside serve-mla, then
-serve-moe and serve-hybrid (which starts its own gather run) beside serve
-and launch. The peak device memory of the phases that run together adds to
-at most 65 GB; the training phases, each near its own peak of 49-70 GB, run
-alone. Every kernel-line time is taken after the serving phases, with no
-other process on the card. Every process started is waited for, or killed
-when a phase fails.
+The serving phases are bound by their host's launches and the card idles most
+of the time in each, so some run beside others, each in a process of its own
+(``chip_smoke.py --beside NAME``, its lines printed when it is joined, its
+phase's result handed back through a file under build/chip_smoke/):
+lm-predict, serve-rwkv and serve-vlm beside serve-mla, then serve-moe and
+serve-hybrid (which starts its own gather run) beside serve and launch. The
+peak device memory of the phases that run together adds to at most 69 GB; the
+training phases, each near its own peak of 28-73 GB, run alone. Each phase's
+line carries the time it ended (``ended_unix_s``). Every kernel-line time is
+taken after the serving phases, with no other process on the card. Every
+process started is waited for, or killed when a phase fails.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, exits
 non-zero and prints no such line. Without a CUDA card the script exits 1.
@@ -293,6 +327,8 @@ SQL = {
 
 
 def emit(obj) -> None:
+    if "phase" in obj:  # when each phase ended: the smoke's time by phase, across processes
+        obj = dict(obj, ended_unix_s=time.time())
     print(json.dumps(obj), flush=True)
 
 
@@ -1516,6 +1552,43 @@ def _count_forwards(server):
     return calls
 
 
+class _PlainCheck:
+    """B5's calls on a main path, each held against its plain version at
+    rtol=atol=2e-5 right after it runs. The errors stay on the card until
+    ``result`` reads them, so the run makes no host read; CUDA events around
+    each plain call give the device time the check adds to the run."""
+
+    def __init__(self):
+        self.errs, self.events = [], []
+
+    def __call__(self, out, q, k_pool, v_pool, table, pos, kw):
+        import torch
+
+        from repro_torch.kernels.paged_attn import ref as pa_ref
+
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        plain = pa_ref.paged_attn_ref(q, k_pool, v_pool, table, pos, **kw)
+        err = (out - plain).abs()
+        self.errs.append(torch.stack([(err - 2e-5 - 2e-5 * plain.abs()).max(), err.max()]))
+        end.record()
+        self.events.append((start, end))
+
+    def result(self, calls, which):
+        """The check's record, read after the run; raises unless it held
+        ``calls`` calls, each within the bound."""
+        import torch
+
+        worst = torch.stack(self.errs).amax(0).tolist() if self.errs else [float("inf")] * 2
+        record = {"calls": len(self.errs), "max_abs_err": worst[1], "rtol": 2e-5,
+                  "atol": 2e-5, "which": which,
+                  "plain_device_s": sum(a.elapsed_time(b) for a, b in self.events) / 1e3}
+        if worst[0] > 0 or len(self.errs) != calls:
+            raise AssertionError(f"B5 against its plain version on the main path, {calls} "
+                                 f"calls expected: {record}")
+        return record
+
+
 def _teacher_forced(cfg, params, seq, impl, chunk, block):
     """Logits (f32, true vocab) of ``seq`` teacher-forced through the paged
     decode of one slot, ``chunk`` tokens per call, yielded ``block`` rows at
@@ -1653,7 +1726,7 @@ def phase_serve_mla():
     return _serve_phase(full, MLA_SERVE_LAYERS, "serve-mla", compare_chunked=False)
 
 
-def _serve_phase(full, layers, phase, compare_chunked):
+def _serve_phase(full, layers, phase, compare_chunked, check_plain=False, compared=0):
     """The model of config ``full`` at full width, its depth cut to
     ``layers``, bf16 weights from seed 0, serving
     the 48-request stream on the kernel path (every request FINISHED, B5
@@ -1663,8 +1736,15 @@ def _serve_phase(full, layers, phase, compare_chunked):
     stream on the gather path token for token up to near-ties, one host read
     per fused step over 24 steps, and 5 profiled steps. With
     ``compare_chunked``, also 8 requests through chunked stepping and the
-    deviation limit against two broken kernels. Returns (the captured
-    calls, the main path's launches)."""
+    deviation limit against two broken kernels. With ``check_plain`` (GQA
+    only), every B5 call of every fused step is held against its plain
+    version at rtol=atol=2e-5 on the main path (``_PlainCheck``), and the
+    phase's times come from a second run of the stream without the check,
+    whose tokens must be the same. With ``compared``, the
+    kernel and the gather path each serve only the ``compared`` shortest
+    requests, alone on as many slots, in place of the gather path's run of
+    the whole stream. Returns (the captured calls, the main path's
+    launches)."""
     import torch
 
     from repro_torch.kernels.paged_attn import kernel as pa_kernel
@@ -1702,6 +1782,9 @@ def _serve_phase(full, layers, phase, compare_chunked):
     real = pa_kernel.paged_latent_attention if latent else pa_kernel.paged_attention
     captured, decode = {}, {"ctx": -1, "seen": -1}
     calls = {"bodies": {}, "kernels": {}, "ctas": {}}
+    if check_plain and latent:
+        raise ValueError("the plain check holds GQA calls only")
+    check = _PlainCheck()
 
     def keep(into, q, pools, table, pos, kw):
         into.update(q=q.clone(), pools=tuple(x.clone() for x in pools), latent=latent,
@@ -1723,6 +1806,8 @@ def _serve_phase(full, layers, phase, compare_chunked):
         for key, value in (("bodies", real.body), ("kernels", real.kernels)) + (
                 (("ctas", real.grid[0]),) if latent else ()):
             calls[key][value] = calls[key].get(value, 0) + 1
+        if check_plain:
+            check(out, q, pool_a, pool_b, table, pos, kw)
         return out
 
     zero_launches()
@@ -1755,17 +1840,40 @@ def _serve_phase(full, layers, phase, compare_chunked):
     if not captured or decode["ctx"] < 0:
         raise AssertionError("no mixed or no decode-only call of the kernel was captured")
     captured["decode_only"] = decode
+    on_path = check.result(cfg.n_layers * forwards[0], "every call of every fused step") \
+        if check_plain else None
     outs = {rid: r.out for rid, r in done.items()}
     for out in outs.values():
         if not all(0 <= t < cfg.vocab_size for t in out):
             raise AssertionError("a token outside the true vocab")
     del main
+    checked_wall_s = None
+    if check_plain:
+        # the stream again, without the check: the phase's times come from
+        # this run. The check only reads, so the tokens are the same
+        checked_wall_s, again = wall_s, server()
+        t0 = time.perf_counter()
+        tdone = _Arrivals(again, stream).run()
+        torch.cuda.synchronize()
+        wall_s, m = time.perf_counter() - t0, again.metrics
+        del again
+        if {rid: r.out for rid, r in tdone.items()} != outs:
+            raise AssertionError("the run without the plain check gave other tokens")
 
-    # the same stream through the gather path: token for token except at
-    # near-ties (the two paths round the attention output differently)
-    gather = server(attn_impl="gather")
+    # the same requests through the gather path: token for token except at
+    # near-ties (the two paths round the attention output differently). With
+    # ``compared``, the shortest requests alone on both paths (a request's
+    # tokens on the main path depend on its batch: the matmuls' rounding
+    # follows their row count)
+    subset = stream
+    if compared:
+        subset = [(rid, p, prio, 0) for rid, p, prio, _ in
+                  sorted(stream, key=lambda r: (len(r[1]), r[0]))[:compared]]
+        kdone = _Arrivals(server(batch_slots=compared), subset).run()
+        outs = {r: q.out for r, q in kdone.items()}
+    gather = server(attn_impl="gather", **({"batch_slots": compared} if compared else {}))
     t0 = time.perf_counter()
-    gdone = _Arrivals(gather, stream).run()
+    gdone = _Arrivals(gather, subset).run()
     torch.cuda.synchronize()
     gather_s = time.perf_counter() - t0
     g_steps = gather.metrics.steps
@@ -1846,7 +1954,12 @@ def _serve_phase(full, layers, phase, compare_chunked):
           "peak_memory_bytes": peak,
           "deviation_limit": DEVIATION_LIMIT, "limit_check": limit_check,
           "gather": {"wall_s": gather_s, "steps": g_steps, "near_ties": len(gather_ties),
-                     "divergences": gather_ties, "probe": gather_probe},
+                     "divergences": gather_ties, "probe": gather_probe,
+                     "rids": sorted(outs) if compared else "all"},
+          "b5_against_plain_on_path": on_path,
+          "times_from": ("a second run of the stream without the plain check (same tokens)"
+                         if check_plain else "the main run"),
+          "checked_run_wall_s": checked_wall_s,
           "chunked_subset": None if cdone is None else {
               "rids": sorted(cdone), "near_ties": len(chunked_ties),
               "divergences": chunked_ties, "probe": chunked_probe},
@@ -2044,7 +2157,8 @@ def _paged_attn_call(cap):
 
 
 def kernel_row_paged_attn(captured, launches, mla_captured, mla_launches, hybrid_captured,
-                          hybrid_launches, moe_captured, moe_launches):
+                          hybrid_launches, moe_captured, moe_launches, vlm_captured,
+                          vlm_launches):
     """B5's row of the kernels line: the serve phase's step-100 call (prefill
     runs beside decode rows), and beside it its decode-only call with the
     most context (every row a run of one); under ``mla`` the same two calls
@@ -2052,8 +2166,9 @@ def kernel_row_paged_attn(captured, launches, mla_captured, mla_launches, hybrid
     serve-hybrid phase's two calls of one sub-step past position 1,040, a
     sliding-window layer's on the ring table (the bound on the ring's rows)
     and a global layer's; under ``moe`` the serve-moe phase's call of the
-    first sub-step past position 1,040 (KVH 16, G 1, D 128). ``launches``
-    counts the four phases' main paths."""
+    first sub-step past position 1,040 (KVH 16, G 1, D 128); under ``vlm``
+    the serve-vlm phase's two calls (internvl2-26b: KVH 8, G 6, D 128).
+    ``launches`` counts the five phases' main paths."""
     mixed = _paged_attn_call(captured)
     decode = _paged_attn_call(captured["decode_only"])
     mla = _paged_attn_call(mla_captured)
@@ -2073,15 +2188,20 @@ def kernel_row_paged_attn(captured, launches, mla_captured, mla_launches, hybrid
     moe_entry["launches_per_sub_step"] = MOE_WIDTH[0]
     moe_entry["library"] = ("composite, no single call: gather k_pool[table], v_pool[table] + "
                             "F.scaled_dot_product_attention(attn_mask=valid rows)")
+    library = ("composite, no single call: gather k_pool[table], v_pool[table] + "
+               "F.scaled_dot_product_attention(attn_mask=valid rows, enable_gqa)")
+    vlm = _paged_attn_call(vlm_captured)
+    vlm["decode_only"] = _paged_attn_call(vlm_captured["decode_only"])
+    vlm.update(launches=vlm_launches["paged_attn"], launches_per_fused_step=VLM_SERVE_LAYERS,
+               library=library)
     return {
         "name": "paged_attn", "route": "cuda", "source": "src/repro_torch/csrc/paged_attn.cu",
         "replaces": "src/repro/kernels/paged_attn/kernel.py:32",
         "launches": (launches["paged_attn"] + mla_launches["paged_latent_attn"]
-                     + hybrid_launches["paged_attn"] + moe_entry["launches"]),
-        "launches_serve": launches["paged_attn"], **mixed,
-        "library": ("composite, no single call: gather k_pool[table], v_pool[table] + "
-                    "F.scaled_dot_product_attention(attn_mask=valid rows, enable_gqa)"),
-        "decode_only": decode, "mla": mla, "hybrid": hybrid, "moe": moe_entry,
+                     + hybrid_launches["paged_attn"] + moe_entry["launches"]
+                     + vlm["launches"]),
+        "launches_serve": launches["paged_attn"], **mixed, "library": library,
+        "decode_only": decode, "mla": mla, "hybrid": hybrid, "moe": moe_entry, "vlm": vlm,
     }
 
 
@@ -2444,7 +2564,6 @@ def _serve_hybrid(phase_t0, child, gather_path):
     from repro_torch.dist import meshes
     from repro_torch.kernels.paged_attn import kernel as pa_kernel
     from repro_torch.kernels.paged_attn import ops as pa_ops
-    from repro_torch.kernels.paged_attn import ref as pa_ref
     from repro_torch.models.params import leaves
     from repro_torch.serve import scheduler as sched
     from repro_torch.serve.serving import BatchedServer
@@ -2471,7 +2590,7 @@ def _serve_hybrid(phase_t0, child, gather_path):
     real = pa_kernel.paged_attention
     sub = {"step": -1, "calls": 0}
     captured, calls = {}, {"bodies": {}, "kernels": {}, "ring": 0, "full": 0}
-    checked = []  # device scalars: (|kernel - plain| - 2e-5 - 2e-5 |plain|).max(), |err|
+    check = _PlainCheck()
 
     def capture(q, k_pool, v_pool, table, pos, **kw):
         if sub["step"] != main.step_no:
@@ -2500,10 +2619,8 @@ def _serve_hybrid(phase_t0, child, gather_path):
         out = real(q, k_pool, v_pool, table, pos, **kw)
         for key, value in (("bodies", real.body), ("kernels", real.kernels)):
             calls[key][value] = calls[key].get(value, 0) + 1
-        if j == 0:  # read after the run: no host read here
-            plain = pa_ref.paged_attn_ref(q, k_pool, v_pool, table, pos, **kw)
-            err = (out - plain).abs()
-            checked.append(torch.stack([(err - 2e-5 - 2e-5 * plain.abs()).max(), err.max()]))
+        if j == 0:
+            check(out, q, k_pool, v_pool, table, pos, kw)
         return out
 
     zero_launches()
@@ -2531,9 +2648,8 @@ def _serve_hybrid(phase_t0, child, gather_path):
         raise AssertionError(f"the serve path launched other kernels: {launches}")
     if set(calls["bodies"]) != {"split"}:
         raise AssertionError(f"B5's calls ran the bodies {calls['bodies']}, not the split body")
-    checked = torch.stack(checked).amax(0).tolist() + [len(checked)]
-    if checked[0] > 0 or checked[2] != cfg.n_layers * m.steps:
-        raise AssertionError(f"B5 against its plain version on the main path: {checked}")
+    on_path = check.result(cfg.n_layers * m.steps, "every call of each fused step's first "
+                                                    "sub-step")
     if len(wrapping) < 2 or set(captured) != {"swa", "global"} or \
             captured["swa"]["step"] != captured["global"]["step"]:
         raise AssertionError(f"requests that wrap: {wrapping}; captures "
@@ -2590,10 +2706,7 @@ def _serve_hybrid(phase_t0, child, gather_path):
           "occupancy_pct": m.occupancy_pct, "mean_step_s": m.wall_s / m.steps,
           "batched_tokens": m.batched_tokens, "kv_blocks_peak": m.kv_blocks_peak,
           "kv_blocks_total": m.kv_blocks_total, "peak_memory_bytes": peak,
-          "b5_against_plain_on_path": {"calls": checked[2], "max_abs_err": checked[1],
-                                       "rtol": 2e-5, "atol": 2e-5,
-                                       "which": "every call of each fused step's first "
-                                                "sub-step"},
+          "b5_against_plain_on_path": on_path,
           "gather": {"rids": compared, "wall_s": gather_s, "near_ties": len(gather_ties),
                      "ran": "in a process of its own, beside the main run",
                      "divergences": gather_ties, "probe": gather_probe,
@@ -2612,7 +2725,8 @@ def _beside_phases():
     """The phases that may run in a process of their own beside another
     phase, by name."""
     return {"serve-moe": phase_serve_moe, "serve-rwkv": phase_serve_rwkv,
-            "serve-hybrid": phase_serve_hybrid, "lm-predict": phase_lm_predict}
+            "serve-hybrid": phase_serve_hybrid, "lm-predict": phase_lm_predict,
+            "serve-vlm": phase_serve_vlm}
 
 
 def _beside_result(name):
@@ -3050,7 +3164,6 @@ def phase_serve_moe():
     from repro_torch.dist import meshes
     from repro_torch.kernels.paged_attn import kernel as pa_kernel
     from repro_torch.kernels.paged_attn import ops as pa_ops
-    from repro_torch.kernels.paged_attn import ref as pa_ref
     from repro_torch.models import model_zoo, moe
     from repro_torch.models.params import leaves
     from repro_torch.serve import scheduler as sched
@@ -3091,7 +3204,7 @@ def phase_serve_moe():
     sub = {"step": -1, "calls": 0}
     captured, calls = {}, {"bodies": {}, "kernels": {}}
     moe_inputs = []
-    checked = []  # device scalars: (|kernel - plain| - 2e-5 - 2e-5 |plain|).max(), |err|
+    check = _PlainCheck()
 
     def capture(q, k_pool, v_pool, table, pos, **kw):
         if sub["step"] != main.step_no:
@@ -3113,10 +3226,8 @@ def phase_serve_moe():
         out = real(q, k_pool, v_pool, table, pos, **kw)
         for key, value in (("bodies", real.body), ("kernels", real.kernels)):
             calls[key][value] = calls[key].get(value, 0) + 1
-        if j == 0:  # read after the run: no host read here
-            plain = pa_ref.paged_attn_ref(q, k_pool, v_pool, table, pos, **kw)
-            err = (out - plain).abs()
-            checked.append(torch.stack([(err - 2e-5 - 2e-5 * plain.abs()).max(), err.max()]))
+        if j == 0:
+            check(out, q, k_pool, v_pool, table, pos, kw)
         return out
 
     def moe_capture(p, x, c, **kw):
@@ -3152,9 +3263,8 @@ def phase_serve_moe():
         raise AssertionError(f"the serve path launched other kernels: {launches}")
     if set(calls["bodies"]) != {"split"}:
         raise AssertionError(f"B5's calls ran the bodies {calls['bodies']}, not the split body")
-    checked = torch.stack(checked).amax(0).tolist() + [len(checked)]
-    if checked[0] > 0 or checked[2] != cfg.n_layers * m.steps:
-        raise AssertionError(f"B5 against its plain version on the main path: {checked}")
+    on_path = check.result(cfg.n_layers * m.steps, "every call of each fused step's first "
+                                                    "sub-step")
     if "call" not in captured or len(moe_inputs) != cfg.n_layers:
         raise AssertionError(f"no capture past position {MOE_CAPTURE_POS}: "
                              f"{len(moe_inputs)} MoE inputs")
@@ -3218,10 +3328,7 @@ def phase_serve_moe():
           "occupancy_pct": m.occupancy_pct, "mean_step_s": m.wall_s / m.steps,
           "batched_tokens": m.batched_tokens, "kv_blocks_peak": m.kv_blocks_peak,
           "peak_memory_bytes": peak,
-          "b5_against_plain_on_path": {"calls": checked[2], "max_abs_err": checked[1],
-                                       "rtol": 2e-5, "atol": 2e-5,
-                                       "which": "every call of each fused step's first "
-                                                "sub-step"},
+          "b5_against_plain_on_path": on_path,
           "capacity_drops": dict(dropped, sub_step=captured["call"]["step"]),
           "kernel_vs_gather": {"rids": compared, "deviation_limit": limit,
                                "noise": HYBRID_NOISE, "noise_floor": floor,
@@ -3283,7 +3390,6 @@ def phase_train_moe():
     from torch.profiler import record_function
 
     from repro_torch.models import moe
-    from repro_torch.models.params import leaves
 
     full = _published(MOE_ARCH, MOE_FIELDS, MOE_WIDTH)
     cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
@@ -3305,12 +3411,37 @@ def phase_train_moe():
     prof["moe_share_of_busy"] = (prof["moe_ms"] / 1e3 / prof["device_busy_s"]
                                  if prof["device_busy_s"] else None)
 
-    # one step's loss and gradients twice from the same state: each
-    # gradient's bits summed as integers in pieces (exact, so any changed
-    # bit shows), the loss's bits as they are
-    batch = run.ds.batch(MOE_TRAIN_STEPS + 2, MOE_TRAIN_BATCH)
+    twice = _same_bits_twice(run, MOE_TRAIN_STEPS + 2)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train-moe", "arch": MOE_ARCH, "experts": cfg.n_experts,
+          "top_k": cfg.experts_per_token, "capacity_factor": cfg.capacity_factor,
+          "reduced": _depth_cut(full, cfg), **record, "same_bits_twice": twice})
+    _check_train(record)
+    _check_twice(twice)
+
+
+def _depth_cut(full, cfg):
+    """A training phase's depth cut, with its arithmetic."""
+    return {"n_layers": [full.n_layers, cfg.n_layers],
+            "why": "16 bytes a parameter (f32 master, gradient, two moments): "
+                   f"{16 * full.n_params() / 1e9:.1f} GB at {full.n_layers} layers, "
+                   f"{16 * cfg.n_params() / 1e9:.1f} GB at {cfg.n_layers}"}
+
+
+def _same_bits_twice(run, step):
+    """One step's loss and every gradient computed twice from the trained
+    state on the batch of ``step``: each gradient's bits summed as integers
+    in pieces (exact, so any changed bit shows), the loss's bits as they
+    are."""
+    import torch
+
+    from repro_torch.models.params import leaves
+
+    batch = run.batch(step)
     flat = list(leaves(run.params))
-    prints, n_leaves = [], len(flat)
+    prints = []
     t0 = time.perf_counter()
     for _ in range(2):
         loss = run.loss_fn(run.params, batch)
@@ -3318,24 +3449,13 @@ def phase_train_moe():
         prints.append(torch.stack([loss.detach().view(torch.int32).long()]
                                   + [_bit_sum(g) for g in grads]))
         del loss, grads
-    same = bool(torch.equal(prints[0], prints[1]))
-    twice_s = time.perf_counter() - t0
-    del run, flat, prints
-    gc.collect()
-    torch.cuda.empty_cache()
-    emit({"phase": "train-moe", "arch": MOE_ARCH, "experts": cfg.n_experts,
-          "top_k": cfg.experts_per_token, "capacity_factor": cfg.capacity_factor,
-          "reduced": {"n_layers": [full.n_layers, cfg.n_layers],
-                      "why": "16 bytes a parameter (f32 master, gradient, two moments): "
-                             f"{16 * full.n_params() / 1e9:.1f} GB at {full.n_layers} layers, "
-                             f"{16 * cfg.n_params() / 1e9:.1f} GB at {cfg.n_layers}"},
-          **record,
-          "same_bits_twice": {"same": same, "leaves": n_leaves,
-                              "seconds": twice_s,
-                              "what": "one step's loss and every gradient from the same "
-                                      "state, twice"}})
-    _check_train(record)
-    if not same:
+    return {"same": bool(torch.equal(prints[0], prints[1])), "leaves": len(flat),
+            "seconds": time.perf_counter() - t0,
+            "what": "one step's loss and every gradient from the same state, twice"}
+
+
+def _check_twice(twice):
+    if not twice["same"]:
         raise AssertionError("one training step's loss or gradients differ between two runs "
                              "from the same state")
 
@@ -3347,6 +3467,215 @@ def _bit_sum(t, piece=1 << 26):
 
     flat = t.reshape(-1).view(torch.int32)
     return sum(flat[i:i + piece].sum(dtype=torch.int64) for i in range(0, flat.numel(), piece))
+
+
+# the enc-dec phases: seamless-m4t-medium at full width and depth,
+# (decoder layers, encoder layers, d_model, heads, kv heads, d_ff, vocab) of
+# configs/seamless_m4t_medium.py; 0.665 B parameters, 10.6 GB at 16 bytes a
+# parameter, so nothing is cut. train-encdec: 8 x 512 tokens (and 512 source
+# frames), 4 steps. decode-encdec: 4 sources of 512 frames and 32 target
+# tokens through prefill and through decode, then 64 greedy tokens twice
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_FIELDS = ("n_layers", "enc_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+                 "vocab_size")
+ENCDEC_WIDTH = (12, 12, 1024, 16, 16, 4096, 256206)
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_STEPS = 8, 4
+ENCDEC_SOURCES, ENCDEC_SRC, ENCDEC_TARGET, ENCDEC_GREEDY = 4, 512, 32, 64
+# the VLM phases: internvl2-26b, (layers, d_model, heads, kv heads, d_ff,
+# vocab, patches) of configs/internvl2_26b.py; its decode is B5 at KVH 8,
+# G 6, D 128. train-vlm: 4 x 2,048 positions (1,024 patches, 1,024 text), 4
+# steps, the depth cut to VLM_TRAIN_LAYERS: the untied embedding and
+# unembedding take 18.2 GB at 16 bytes a parameter and each layer 6.2 GB,
+# so 7 layers hold 61.9 GB, and the backward of one layer's f32 attention
+# scores over 2,048 positions (4 x 48 x 2,048 x 2,048, 3.2 GB a tensor,
+# about four alive) needs about 13 GB beside them: 6 layers, 55.7 GB.
+# serve-vlm: 16 of 48 layers (14.8 GB of bf16 weights) beside serve-mla,
+# lm-predict and serve-rwkv, every B5 call of every fused step against its
+# plain version, the kernel and the gather path compared on the
+# VLM_COMPARED shortest requests
+VLM_ARCH = "internvl2-26b"
+VLM_FIELDS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab_size",
+              "vis_tokens")
+VLM_WIDTH = (48, 6144, 48, 8, 16384, 92553, 1024)
+VLM_TRAIN_LAYERS, VLM_TRAIN_BATCH, VLM_TRAIN_POSITIONS, VLM_TRAIN_STEPS = 6, 4, 2048, 4
+VLM_SERVE_LAYERS, VLM_COMPARED = 16, 4
+
+
+def phase_train_encdec():
+    """seamless-m4t-medium at full width and depth trained for
+    ENCDEC_TRAIN_STEPS steps of ENCDEC_TRAIN_BATCH x TRAIN_SEQ target
+    tokens by ``_train_phase`` (B1 the one kernel: the encoder, the decoder
+    and the cross attention are plain PyTorch, as in the reference). The
+    target tokens come from the token heap through B1; the source frames
+    (f32 (batch, TRAIN_SEQ, d_model)) are drawn per step by
+    ``synthetic_data_fn``, and this phase adds them to each page batch: the
+    smoke composing two of the port's sources, as the package's page path
+    gives no frames (nor does the reference's). Then one step's loss and
+    every gradient twice from one state: the same bits."""
+    import gc
+
+    import torch
+
+    from repro_torch.data.pipeline import synthetic_data_fn
+
+    cfg = _published(ENCDEC_ARCH, ENCDEC_FIELDS, ENCDEC_WIDTH)
+    draw = synthetic_data_fn(cfg, ENCDEC_TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+    record, run = _train_phase(cfg, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_STEPS,
+                               {"strider_decode": 1}, "encdec_tokens.heap",
+                               kernels=("strider_decode",),
+                               extra=lambda step: {"frames": draw(step)["frames"]})
+    twice = _same_bits_twice(run, ENCDEC_TRAIN_STEPS + 2)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train-encdec", "arch": ENCDEC_ARCH, "enc_layers": cfg.enc_layers,
+          "source_frames": TRAIN_SEQ,
+          "frames": "synthetic_data_fn's draws (default_rng(step + 7)), added to each page "
+                    "batch by the smoke", **record, "same_bits_twice": twice})
+    _check_train(record)
+    _check_twice(twice)
+
+
+def phase_decode_encdec():
+    """seamless-m4t-medium at full width and depth, bf16 weights from seed 0:
+    ENCDEC_SOURCES sources of ENCDEC_SRC frames and ENCDEC_TARGET target
+    tokens, ``prefill_fn``'s last logits against as many steps of
+    ``decode_fn`` on a ``make_cache`` cache holding ``precompute_cross_kv``'s
+    K and V (the reference's tolerance: rtol=atol=3e-2, every argmax equal);
+    then a greedy generation of ENCDEC_GREEDY tokens from each source, twice:
+    the same tokens."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import encdec, model_zoo
+
+    cfg = _published(ENCDEC_ARCH, ENCDEC_FIELDS, ENCDEC_WIDTH)
+    params, _ = model_zoo.init_params(cfg, seed=0, device="cuda")
+    dev = params["frame_proj"].device
+    rng = np.random.default_rng(5)
+    b = ENCDEC_SOURCES
+    frames = torch.from_numpy(rng.normal(0, 1, (b, ENCDEC_SRC, cfg.d_model))
+                              .astype(np.float32)).to(dev)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (b, ENCDEC_TARGET))
+                              .astype(np.int32)).to(dev)
+    step = model_zoo.decode_fn(cfg)
+
+    def source_cache():
+        cache = model_zoo.make_cache(cfg, b, ENCDEC_SRC, dev)
+        enc_out = encdec.encode(params, frames, cfg, remat="none")
+        cache["xk"][:], cache["xv"][:] = encdec.precompute_cross_kv(params, enc_out, cfg)
+        return cache
+
+    def greedy():
+        cache, tok = source_cache(), tokens[:, 0]
+        out = torch.empty((b, ENCDEC_GREEDY), dtype=torch.int32, device=dev)
+        for t in range(ENCDEC_GREEDY):
+            logits, cache = step(params, tok, cache, t)
+            tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+            out[:, t] = tok
+        return out
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre = model_zoo.prefill_fn(cfg)(params, {"tokens": tokens, "frames": frames}).float()
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        cache = source_cache()
+        for t in range(ENCDEC_TARGET):
+            logits, cache = step(params, tokens[:, t], cache, t)
+        dec = logits.float()
+        del cache
+        runs, seconds = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(greedy())
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+    excess = float(((pre - dec).abs() - 3e-2 - 3e-2 * pre.abs()).max())
+    dev = float((pre - dec).abs().max())
+    agree = int((pre.argmax(-1) == dec.argmax(-1)).sum())
+    same = bool(torch.equal(runs[0], runs[1]))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "decode-encdec", "arch": ENCDEC_ARCH, "layers": cfg.n_layers,
+          "enc_layers": cfg.enc_layers, "weights": "bf16 from seed 0, drawn on the card",
+          "sources": b, "source_frames": ENCDEC_SRC, "target_tokens": ENCDEC_TARGET,
+          "prefill_s": prefill_s,
+          "prefill_vs_decode": {"max_abs_dev": dev, "rtol": 3e-2, "atol": 3e-2,
+                                "excess": excess, "argmax_agree": agree},
+          "greedy": {"tokens": ENCDEC_GREEDY, "same_twice": same, "seconds": seconds,
+                     "tokens_per_s": [b * ENCDEC_GREEDY / x for x in seconds],
+                     "first_tokens": runs[0][:, :8].tolist()}})
+    if excess > 0 or agree != b:
+        raise AssertionError(f"enc-dec prefill vs decode: deviation {dev}, argmax agree "
+                             f"{agree} of {b}")
+    if not same:
+        raise AssertionError("two greedy enc-dec generations from the same sources differ")
+
+
+def phase_train_vlm():
+    """internvl2-26b at full width, its depth cut to VLM_TRAIN_LAYERS,
+    trained for VLM_TRAIN_STEPS steps of VLM_TRAIN_BATCH x
+    VLM_TRAIN_POSITIONS positions (its 1,024 patches, then the text) by
+    ``_train_phase`` (B1 the one kernel): the text tokens from the token
+    heap through B1, the patches drawn per step by ``synthetic_data_fn``
+    and added to each page batch by this phase (the page path gives no
+    patches, as the reference's gives none); then one step's loss and every
+    gradient twice from one state: the same bits."""
+    import gc
+
+    import torch
+
+    from repro_torch.data.pipeline import synthetic_data_fn
+
+    full = _published(VLM_ARCH, VLM_FIELDS, VLM_WIDTH)
+    cfg = dataclasses.replace(full, n_layers=VLM_TRAIN_LAYERS)
+    draw = synthetic_data_fn(cfg, VLM_TRAIN_BATCH, VLM_TRAIN_POSITIONS, device="cuda")
+    record, run = _train_phase(cfg, VLM_TRAIN_BATCH, VLM_TRAIN_STEPS, {"strider_decode": 1},
+                               "vlm_tokens.heap", kernels=("strider_decode",),
+                               seq=VLM_TRAIN_POSITIONS - cfg.vis_tokens,
+                               extra=lambda step: {"patches": draw(step)["patches"]})
+    twice = _same_bits_twice(run, VLM_TRAIN_STEPS + 2)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    positions = VLM_TRAIN_BATCH * VLM_TRAIN_POSITIONS
+    emit({"phase": "train-vlm", "arch": VLM_ARCH, "patches": cfg.vis_tokens,
+          "positions_per_step": positions, "positions_per_s": positions / record["s_per_step"],
+          "reduced": dict(_depth_cut(full, cfg),
+                          attention="the backward of one layer's f32 scores over "
+                                    f"{VLM_TRAIN_POSITIONS} positions needs about 13 GB "
+                                    "beside the state"),
+          **record, "same_bits_twice": twice})
+    _check_train(record)
+    _check_twice(twice)
+
+
+def phase_serve_vlm():
+    """internvl2-26b at full width on VLM_SERVE_LAYERS of its layers, bf16
+    weights from seed 0, serving the serve phase's stream through
+    BatchedServer(SERVE) as ``_serve_phase`` does: B5 at KVH 8, G 6, D 128
+    once a layer a fused step on the split body, every call of every fused
+    step against its plain version (the times from a second run without
+    the check), the kernel and
+    the gather path on the VLM_COMPARED shortest requests token for token
+    except at near-ties. Its prompts are text: the server has no patch
+    inputs, as the reference's has none. Returns (the captured calls, the
+    launches)."""
+    import gc
+
+    import torch
+
+    full = _published(VLM_ARCH, VLM_FIELDS, VLM_WIDTH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _serve_phase(full, VLM_SERVE_LAYERS, "serve-vlm", compare_chunked=False,
+                        check_plain=True, compared=VLM_COMPARED)
 
 
 # the lm-predict phase: mistral-nemo-12b (SERVE_ARCH) registered as an LM UDF
@@ -3918,18 +4247,23 @@ def _published(arch, fields, width):
     return cfg
 
 
-def _train_phase(cfg, batch, steps, per_step, heap, kernels=(), around=None, ranges=()):
+def _train_phase(cfg, batch, steps, per_step, heap, kernels=(), around=None, ranges=(),
+                 seq=None, extra=None):
     """``cfg`` trained from f32 masters drawn on the card from seed 0 by
-    train_loop.run for ``steps`` steps of ``batch`` x TRAIN_SEQ tokens from
+    train_loop.run for ``steps`` steps of ``batch`` x ``seq`` (TRAIN_SEQ by
+    default) tokens from
     the page data path (B1 each step), full rematerialisation, AdamW (lr
     3e-4, warmup steps // 4 + 1, as launch/train.py), with the sync debug
     mode on; then one step untraced, one under the profiler (device ms of
     ``kernels`` and of the record_function ``ranges``) and the AdamW update
     alone. ``per_step`` gives the launches
     a step of each kernel; ``around`` wraps the training run (a context
-    manager). Returns (the record, the run: params, optimizer state, loss
-    function, dataset, loop and optimizer configs). ``_check_train`` holds
-    the record to its expectations."""
+    manager); ``extra(step)`` gives the inputs that a step's batch takes
+    beside the page path's tokens (a VLM's patches, an enc-dec model's
+    frames), drawn for every step before the run. Returns (the record, the
+    run: params, optimizer state, loss function, dataset, ``batch(step)``,
+    loop and optimizer configs). ``_check_train`` holds the record to its
+    expectations."""
     import contextlib
     import gc
 
@@ -3941,6 +4275,7 @@ def _train_phase(cfg, batch, steps, per_step, heap, kernels=(), around=None, ran
     from repro_torch.train import optimizer, train_loop
     from repro_torch.train.optimizer import OptConfig, make_train_step
 
+    seq = seq or TRAIN_SEQ
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3952,8 +4287,15 @@ def _train_phase(cfg, batch, steps, per_step, heap, kernels=(), around=None, ran
     n_params = count_params(params)
     t0 = time.perf_counter()
     ds = PageTokenDataset(os.path.join(SCRATCH, heap), n_seqs=max(batch * 8, 64),
-                          seq_len=TRAIN_SEQ, vocab=cfg.vocab_size, seed=0, device="cuda")
+                          seq_len=seq, vocab=cfg.vocab_size, seed=0, device="cuda")
+    # the extra inputs of the run's steps, the untraced and the profiled
+    # step, and one more
+    extras = {step: extra(step) for step in range(steps + 3)} if extra else {}
+    torch.cuda.synchronize()
     data_setup_s = time.perf_counter() - t0
+
+    def batch_at(step):
+        return dict(ds.batch(step, batch), **extras.get(step, {}))
 
     loss_fn = model_zoo.loss_fn(cfg, remat=TRAIN_REMAT)
     losses, starts = [], []
@@ -3965,7 +4307,7 @@ def _train_phase(cfg, batch, steps, per_step, heap, kernels=(), around=None, ran
 
     def data_fn(step):
         starts.append(time.perf_counter())
-        return ds.batch(step, batch)
+        return batch_at(step)
 
     loop_cfg = train_loop.TrainLoopConfig(total_steps=steps, ckpt_every=10**9,
                                           ckpt_dir=os.path.join(SCRATCH, heap + ".ckpt"))
@@ -3991,12 +4333,12 @@ def _train_phase(cfg, batch, steps, per_step, heap, kernels=(), around=None, ran
     # one more step untraced, then one under the profiler
     step_fn = make_train_step(loss_fn, opt_cfg)
     p, o = out["params"], out["opt"]
-    b = ds.batch(steps, batch)
+    b = batch_at(steps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     float(step_fn(p, o, b)[2]["loss"])
     untraced_s = time.perf_counter() - t0
-    b = ds.batch(steps + 1, batch)
+    b = batch_at(steps + 1)
     traced_s, busy_s, top = _device_profile(
         lambda: float(step_fn(p, o, b)[2]["loss"]), kernels=kernels, ranges=ranges)
 
@@ -4013,13 +4355,14 @@ def _train_phase(cfg, batch, steps, per_step, heap, kernels=(), around=None, ran
     finally:
         optimizer.UPDATE_PIECE = saved
 
-    tokens = batch * TRAIN_SEQ
+    tokens = batch * seq
     record = {
         "layers": cfg.n_layers, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
         "vocab": cfg.vocab_size, "params": n_params,
         "weights": "f32 masters from seed 0, drawn on the card", "remat": TRAIN_REMAT,
-        "batch": batch, "seq": TRAIN_SEQ, "tokens_per_step": tokens,
+        "batch": batch, "seq": seq, "tokens_per_step": tokens,
         "data_path": "pages (B1 on 32 KB token pages)",
+        "extra_inputs": sorted(extras[0]) if extras else [],
         "optimizer": {"lr": opt_cfg.lr, "warmup_steps": opt_cfg.warmup_steps},
         "init_s": init_s, "data_setup_s": data_setup_s, "steps": steps,
         "losses": loss_values, "finite": all(math.isfinite(x) for x in loss_values),
@@ -4040,7 +4383,7 @@ def _train_phase(cfg, batch, steps, per_step, heap, kernels=(), around=None, ran
                     **top, "units": "ms totals over the step"},
     }
     return record, types.SimpleNamespace(params=p, opt=o, loss_fn=loss_fn, ds=ds,
-                                         loop_cfg=loop_cfg, opt_cfg=opt_cfg)
+                                         batch=batch_at, loop_cfg=loop_cfg, opt_cfg=opt_cfg)
 
 
 def _check_train(record):
@@ -4496,15 +4839,17 @@ def main() -> int:
         db, predict_launches = phase_predict(heap, res)
         rows = phase_kernels(heap, engine, res, launches, db, predict_launches)
         del heap, engine, res, db
-        # lm-predict (30 GB at its peak) and serve-rwkv (9 GB) beside serve-mla
-        # (5 GB)
-        lm, rwkv = _phase_beside("lm-predict"), _phase_beside("serve-rwkv")
+        # lm-predict (30 GB at its peak), serve-rwkv (9 GB) and serve-vlm
+        # (17 GB) beside serve-mla (5 GB)
+        lm, rwkv, vlm = (_phase_beside(name) for name in ("lm-predict", "serve-rwkv",
+                                                           "serve-vlm"))
         try:
             mla_captured, mla_launches = phase_serve_mla()
             lm_launches, lm_b3, lm_timing = _join_beside(lm)
             _join_beside(rwkv)
+            vlm_captured, vlm_launches = _join_beside(vlm)
         except BaseException:
-            _stop_beside(lm, rwkv)
+            _stop_beside(lm, rwkv, vlm)
             raise
         # serve-moe (17 GB) and serve-hybrid (6 GB and its gather run's 5)
         # beside serve and launch (16 and 25 GB)
@@ -4520,8 +4865,8 @@ def main() -> int:
         # the kernels line's times, with no other process on the card
         rows.append(kernel_row_paged_attn(captured, serve_launches, mla_captured, mla_launches,
                                           hybrid_captured, hybrid_launches, moe_captured,
-                                          moe_launches))
-        del captured, mla_captured, hybrid_captured, moe_captured
+                                          moe_launches, vlm_captured, vlm_launches))
+        del captured, mla_captured, hybrid_captured, moe_captured, vlm_captured
         b3_row = next(r for r in rows if r["name"] == "strider_decode_projected")
         b3_row["launches"] += lm_launches
         b3_row["lm_scan"] = dict(lm_b3, **lm_scan_times(lm_timing), launches=lm_launches)
@@ -4531,6 +4876,9 @@ def main() -> int:
         phase_train_mla()
         phase_train_hybrid()
         phase_train_moe()
+        phase_train_encdec()
+        phase_decode_encdec()
+        phase_train_vlm()
         phase_launch_train()
         rows.extend(kernel_rows_wkv(wkv_calls, train_launches, *wkv_kernels))
         emit({"kernels": rows})

@@ -110,15 +110,26 @@ class PageTokenDataset:
 
 def synthetic_data_fn(cfg, batch: int, seq: int, shard: int = 0, device=None):
     """Deterministic (step, shard)-keyed batch function for the train loop,
-    on ``device`` (``None``: the card). The reference's extra inputs of the
-    VLM and enc-dec families wait for their slices (ROADMAP queue item 3)."""
+    on ``device`` (``None``: the card), the reference's numbers: a VLM's
+    text cut to ``seq - vis_tokens`` beside f32 ``patches`` (batch,
+    vis_tokens, d_model) from ``default_rng(step)``; an enc-dec model's f32
+    ``frames`` (batch, seq, d_model) from ``default_rng(step + 7)``."""
     device = resolve_device(device)
-    if cfg.vis_tokens or cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: patch and frame inputs wait for ROADMAP queue item 3")
+
+    def normal(seed, shape):
+        draw = np.random.default_rng(seed).normal(0, 1, shape).astype(np.float32)
+        return _upload(torch.from_numpy(draw), device)
 
     def fn(step: int):
         b = lm_token_batch(step, batch, seq, cfg.vocab_size, shard)
-        return {k: _upload(torch.from_numpy(v), device) for k, v in b.items()}
+        if cfg.vis_tokens:
+            b = {k: v[:, :seq - cfg.vis_tokens] for k, v in b.items()}
+        out = {k: _upload(torch.from_numpy(np.ascontiguousarray(v)), device)
+               for k, v in b.items()}
+        if cfg.vis_tokens:
+            out["patches"] = normal(step, (batch, cfg.vis_tokens, cfg.d_model))
+        if cfg.family == "encdec":
+            out["frames"] = normal(step + 7, (batch, seq, cfg.d_model))
+        return out
 
     return fn

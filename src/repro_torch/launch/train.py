@@ -9,12 +9,14 @@ decodes each batch on the device with the strider kernel B1 (the paper's data
 path); ``synthetic`` draws them per step. The weights are random f32 masters
 drawn on the device from ``--seed``. ``--device`` defaults to ``cuda``;
 without a card the launcher raises unless ``--device cpu`` is given (with
-``--reduced`` that runs in seconds). The port trains every decoder-only
-family: rwkv6-3b, the dense GQA and MLA attention models such as
-minicpm3-4b, hymba-1.5b, and the MoE models (``--arch olmoe-1b-7b``;
-deepseek-v3-671b at ``--reduced`` size, its multi-token-prediction loss
-included: 715 B parameters do not fit one card); encoder-decoder models
-raise ``NotImplementedError``.
+``--reduced`` that runs in seconds). The port trains every family:
+rwkv6-3b, the dense GQA and MLA attention models such as minicpm3-4b,
+hymba-1.5b, the MoE models (``--arch olmoe-1b-7b``; deepseek-v3-671b at
+``--reduced`` size, its multi-token-prediction loss included: 715 B
+parameters do not fit one card), and from ``--data-path synthetic`` the VLM
+(internvl2-26b, its patches) and the encoder-decoder model
+(seamless-m4t-medium, its frames). As in the reference, the page data path
+gives those two no patches or frames, and their loss raises ``KeyError``.
 
 Like the reference, ``--microbatch`` is parsed and not passed on: the train
 loop always steps with one microbatch. The reference's mesh flags wait for

@@ -1,6 +1,6 @@
 """Attention: GQA and MLA, their training forms and their decode paths over
-dense and paged KV caches (counterpart of ``repro.models.attention``, lines
-36-500, which it is held against).
+dense and paged KV caches, and the encoder-decoder's cross attention
+(counterpart of ``repro.models.attention``, which it is held against).
 
 The training forms (``gqa_train``, ``mla_train``) run plain PyTorch: einsum,
 softmax and, with ``cfg.attn_q_chunk``, query tiles each under
@@ -38,7 +38,10 @@ cache ends as the reference's. It matters where a row's output reaches
 another row's: MoE routes a decode batch as one group, in which an idle row
 claims expert capacity.
 
-Cross attention waits for ROADMAP queue item 3e.
+Cross attention (``cross_train``, ``cross_decode``) is GQA's parameters
+over the encoder's output: no rotary embedding, no mask, in plain PyTorch
+as in the reference (its decode reads the K and V that
+``encdec.precompute_cross_kv`` computed once a source).
 """
 from __future__ import annotations
 
@@ -510,6 +513,36 @@ def init_mla_cache_paged(cfg: ModelConfig, num_blocks: int, block_size: int, dev
                              dtype=torch.bfloat16, device=device),
             "kr": torch.zeros((num_blocks + 1, block_size, cfg.qk_rope_head_dim),
                               dtype=torch.bfloat16, device=device)}
+
+
+# ============================ cross attention ================================
+def make_cross(m: Maker, cfg: ModelConfig):
+    return make_gqa(m, cfg)
+
+
+def _cross_attend(p, q, k, v, cfg: ModelConfig):
+    """Unmasked attention of q (B,Sq,H,hd) over the encoder's k/v
+    (B,Ssrc,KVH,hd), then the output projection: (B,Sq,d)."""
+    b, sq = q.shape[:2]
+    kvh, hd = cfg.n_kv_heads, cfg.hd
+    mask = torch.zeros((sq, k.shape[1]), dtype=torch.float32, device=q.device)
+    out = _sdpa(q.reshape(b, sq, kvh, cfg.n_heads // kvh, hd), k, v, mask,
+                1.0 / math.sqrt(hd))
+    return _out_proj(out.reshape(b, sq, cfg.n_heads, hd).to(q.dtype), p["wo"])
+
+
+def cross_train(p, x, enc_out, cfg: ModelConfig):
+    """Training and prefill form: the decoder's x (B,S,d) over the encoder's
+    output enc_out (B,Ssrc,d), cast to x's type -> (B,S,d)."""
+    src = enc_out.to(x.dtype)
+    return _cross_attend(p, _proj(x, p["wq"]), _proj(src, p["wk"]), _proj(src, p["wv"]), cfg)
+
+
+def cross_decode(p, x, cross_kv, cfg: ModelConfig):
+    """Decode form: x (B,1,d) over the precomputed encoder K/V
+    ``cross_kv`` {k, v} (B,Ssrc,KVH,hd) -> (B,1,d)."""
+    dt = x.dtype
+    return _cross_attend(p, _proj(x, p["wq"]), cross_kv["k"].to(dt), cross_kv["v"].to(dt), cfg)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,7 @@
-"""Uniform model API (counterpart of ``repro.models.model_zoo``, lines
-53-168 and 214-234, which it is held against).
+"""Uniform model API over every family (counterpart of
+``repro.models.model_zoo``, lines 53-168 and 214-234, which it is held
+against); encoder-decoder models dispatch to ``encdec``, the others to
+``transformer``.
 
   init_params(cfg, seed, device, dtype) -> (params, logical-axis specs)
   loss_fn(cfg, remat)                   -> f(params, batch) -> scalar loss
@@ -9,6 +11,7 @@
   make_cache(cfg, batch, seq, device)   -> dense decode cache
   make_paged_cache(cfg, num_blocks, block_size, device, *, slots,
                    ring_num_blocks, ring_width) -> block-pool cache
+                                           (decoder-only families)
   demo_batch(cfg, batch, seq, rng, device) -> a random training batch
 
 The shape cells and the dry-run input specs wait for the tooling slice
@@ -23,7 +26,7 @@ import torch
 import numpy as np
 
 from repro_torch.core.engine import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_norm, unembed
 
@@ -36,19 +39,30 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=torch.bfloat
     Returns (params, specs)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
+    if cfg.family == "encdec":
+        return encdec.init_encdec(cfg, gen, device, dtype)
     return transformer.init_lm(cfg, gen, device, dtype)
 
 
 def loss_fn(cfg: ModelConfig, remat: str = "full", wkv_impl: str = "kernel"):
-    """f(params, batch) -> the mean next-token loss (``transformer.lm_loss``)."""
-    transformer.check_supported(cfg)
+    """f(params, batch) -> the mean next-token loss (``encdec.encdec_loss``
+    or ``transformer.lm_loss``)."""
+    if cfg.family == "encdec":
+        return partial(encdec.encdec_loss, cfg=cfg, remat=remat)
     return partial(transformer.lm_loss, cfg=cfg, remat=remat, wkv_impl=wkv_impl)
 
 
 def prefill_fn(cfg: ModelConfig, remat: str = "none", wkv_impl: str = "kernel"):
     """Full-sequence forward -> logits (B, padded_vocab) at the last position
-    (inference prefill; no loss)."""
-    transformer.check_supported(cfg)
+    (inference prefill; no loss). Enc-dec: ``encode`` the frames, then the
+    decoder over the whole token sequence."""
+    if cfg.family == "encdec":
+        def run_encdec(params, batch):
+            enc_out = encdec.encode(params, batch["frames"], cfg, remat)
+            h = encdec.decode_hidden(params, batch["tokens"], enc_out, cfg, remat)
+            return unembed(params["embed"], h[:, -1:], cfg)[:, 0]
+
+        return run_encdec
 
     def run(params, batch):
         x, positions = transformer.embed_inputs(params, batch, cfg)
@@ -63,12 +77,18 @@ def decode_fn(cfg: ModelConfig):
     """One decode step: f(params, tokens (B,), cache, pos, **kw) -> (logits,
     cache). ``pos`` is a scalar position, or a (B,) vector when every cache
     row decodes at its own position (continuous batching). Extra kwargs
-    (``paged``, ``slot``, ``write_ok``) forward to ``lm_decode_step``."""
-    transformer.check_supported(cfg)
+    (``paged``, ``slot``, ``write_ok``) forward to ``lm_decode_step``;
+    enc-dec's ``encdec_decode_step`` takes none."""
+    if cfg.family == "encdec":
+        return partial(encdec.encdec_decode_step, cfg=cfg)
     return partial(transformer.lm_decode_step, cfg=cfg)
 
 
 def make_cache(cfg: ModelConfig, batch: int, seq: int, device=None):
+    """Dense decode caches; enc-dec's cross K/V hold ``seq`` source rows, as
+    the reference's do."""
+    if cfg.family == "encdec":
+        return encdec.init_encdec_cache(cfg, batch, seq, src=seq, device=resolve_device(device))
     return transformer.init_cache(cfg, batch, seq, resolve_device(device))
 
 
@@ -78,7 +98,10 @@ def make_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device=
     ``(num_blocks + 1, block_size, ...)`` shared across slots
     (serve/kv_pool.py allocates the first ``num_blocks``); sliding-window
     layers' pools hold ``ring_num_blocks`` when ``ring_width`` is set, and
-    recurrent state ``slots`` dense rows."""
+    recurrent state ``slots`` dense rows. Enc-dec has none (``ValueError``,
+    as in the reference)."""
+    if cfg.family == "encdec":
+        raise ValueError(f"family {cfg.family!r} has no paged attention cache")
     return transformer.init_paged_cache(cfg, num_blocks, block_size, resolve_device(device),
                                         slots=slots, ring_num_blocks=ring_num_blocks,
                                         ring_width=ring_width)
@@ -88,7 +111,8 @@ def demo_batch(cfg: ModelConfig, batch: int, seq: int, rng=None, device=None) ->
     """A random training batch from ``rng`` (numpy; default seed 0), the same
     numbers as ``repro``'s ``demo_batch`` with the same generator state: of
     ``seq`` positions, ``cfg.vis_tokens`` are patches (f32 ``patches``
-    (batch, vis_tokens, d_model)) and the rest text."""
+    (batch, vis_tokens, d_model)) and the rest text; enc-dec models take
+    f32 ``frames`` (batch, seq, d_model) besides."""
     rng = rng or np.random.default_rng(0)
     device = resolve_device(device)
     t = seq - cfg.vis_tokens
@@ -101,4 +125,7 @@ def demo_batch(cfg: ModelConfig, batch: int, seq: int, rng=None, device=None) ->
     if cfg.vis_tokens:
         patches = rng.normal(0, 1, (batch, cfg.vis_tokens, cfg.d_model))
         out["patches"] = torch.from_numpy(patches).to(device, torch.float32)
+    if cfg.family == "encdec":
+        frames = rng.normal(0, 1, (batch, seq, cfg.d_model))
+        out["frames"] = torch.from_numpy(frames).to(device, torch.float32)
     return out

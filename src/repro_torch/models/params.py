@@ -118,12 +118,19 @@ def params_from_numpy(cfg, tree, device=None, dtype=torch.bfloat16):
     (``None``: the card). Norm scales (leaves named ``scale``) stay f32;
     every other leaf is stored as ``dtype``, by round-to-nearest-even as
     ``astype`` rounds. Raises ``ValueError`` when the tree was not made for
-    ``cfg`` (its embedding or its segments differ)."""
+    ``cfg`` (its embedding, its segments or, for an enc-dec model, its
+    encoder's and decoder's depths differ)."""
     from repro_torch.models.transformer import segments_for
 
-    table = np.shape(tree["embed"]["table"])
-    if table != (cfg.padded_vocab, cfg.d_model) or \
-            len(tree["segments"]) != len(segments_for(cfg)):
+    def depth(stack):
+        return len(stack["ln1"]["scale"]) if isinstance(stack, dict) else -1
+
+    if cfg.family == "encdec":
+        fits = (depth(tree.get("enc")) == cfg.enc_layers
+                and depth(tree.get("dec")) == cfg.n_layers)
+    else:
+        fits = len(tree.get("segments", ())) == len(segments_for(cfg))
+    if not fits or np.shape(tree["embed"]["table"]) != (cfg.padded_vocab, cfg.d_model):
         raise ValueError(f"the parameter tree was not made for {cfg.name}")
     device = resolve_device(device)
 

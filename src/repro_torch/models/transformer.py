@@ -15,8 +15,8 @@ has them: olmoe, and deepseek-v3 with MLA beside its experts and its
 multi-token-prediction loss), the ``rwkv`` family (rwkv6-3b) and the hybrid
 family (hymba-1.5b: attention, sliding-window or global, beside a Mamba
 mixer in every layer): training, prefill, ``lm_decode_step`` and the
-server. Encoder-decoder models raise ``NotImplementedError`` naming the
-ROADMAP item that ports them (``check_supported``, ``check_servable``).
+server. Encoder-decoder models run through ``models.encdec`` (on this
+module's ``run_stacked``); this stack refuses them (``check_decoder_only``).
 
 Recurrent state (RWKV's ``wkv``/``shift_t``/``shift_c``, Mamba's
 ``ssm``/``conv``) is per slot, dense ``(L, B, ...)`` under paged KV too, and
@@ -99,18 +99,13 @@ def segments_for(cfg: ModelConfig) -> list[Segment]:
 HYBRID = ("hybrid_swa", "hybrid_global")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port's model stack
-    cannot run yet, naming the ROADMAP item that ports it."""
+def check_decoder_only(cfg: ModelConfig) -> None:
+    """This module's decoder-only stack, its paged caches and the server take
+    every family but enc-dec, which runs through ``models.encdec`` and is not
+    served (as in the reference): raise ``ValueError`` for it."""
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models wait for ROADMAP A15 (encdec)")
-
-
-def check_servable(cfg: ModelConfig) -> None:
-    """What the server can serve: every family ``check_supported`` lets
-    through."""
-    check_supported(cfg)
+        raise ValueError(f"family 'encdec' ({cfg.name}) runs through models.encdec: "
+                         "the decoder-only stack, paged caches and the server refuse it")
 
 
 # --------------------------------------------------------------------------
@@ -144,7 +139,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device,
             dtype=torch.bfloat16):
     """Returns (params, specs): nested dicts; repeated layers stacked. The
     matrices are stored as ``dtype``, the norm scales as f32 (see params)."""
-    check_supported(cfg)
+    check_decoder_only(cfg)
     m = Maker(generator, device, dtype)
     tree = {
         "embed": make_embedding(m, cfg),
@@ -226,21 +221,29 @@ def _unbind_layers(tree, n_layers):
     return list(torch.unbind(tree, 0))
 
 
-def _run_segments(seg_params, x, cfg: ModelConfig, positions, remat: str,
-                  wkv_impl: str = "kernel"):
+def run_stacked(body, stacked, n_layers, x, *args, remat: str):
+    """``x = body(lp, x, *args)`` over the layers of a stacked parameter
+    tree, each layer under ``remat``'s checkpoint (see the module's
+    docstring)."""
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat must be none|full|dots, got {remat!r}")
+    for lp in _unbind_layers(stacked, n_layers):
+        if remat == "none":
+            x = body(lp, x, *args)
+        elif remat == "full":
+            x = checkpoint(body, lp, x, *args, use_reentrant=False)
+        else:
+            x = checkpoint(body, lp, x, *args, use_reentrant=False,
+                           context_fn=functools.partial(
+                               create_selective_checkpoint_contexts, _save_dots))
+    return x
+
+
+def _run_segments(seg_params, x, cfg: ModelConfig, positions, remat: str,
+                  wkv_impl: str = "kernel"):
     for seg, sp in zip(segments_for(cfg), seg_params):
         body = functools.partial(_layer_train, cfg=cfg, kind=seg.kind, wkv_impl=wkv_impl)
-        for lp in _unbind_layers(sp, seg.n_layers):
-            if remat == "none":
-                x = body(lp, x, positions)
-            elif remat == "full":
-                x = checkpoint(body, lp, x, positions, use_reentrant=False)
-            else:
-                x = checkpoint(body, lp, x, positions, use_reentrant=False,
-                               context_fn=functools.partial(
-                                   create_selective_checkpoint_contexts, _save_dots))
+        x = run_stacked(body, sp, seg.n_layers, x, positions, remat=remat)
     return x
 
 
@@ -263,7 +266,7 @@ def lm_loss(params, batch, cfg: ModelConfig, remat: str = "full",
     (B, S) int, ``loss_mask`` (B, S) f32, and ``patches`` where the model
     takes them) over the text positions. ``wkv_impl`` as in
     ``ssm.rwkv_tmix``."""
-    check_supported(cfg)
+    check_decoder_only(cfg)
     x, positions = embed_inputs(params, batch, cfg)
     x = _run_segments(params["segments"], x, cfg, positions, remat, wkv_impl)
     h = apply_norm(params["final_norm"], x, cfg.norm_eps)[:, cfg.vis_tokens:]
@@ -323,7 +326,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device):
     (L, batch, 1, d_model) bf16; a hybrid layer its attention's and Mamba's
     ``ssm`` (L, batch, d_inner, N) f32 and ``conv`` (L, batch, conv - 1,
     d_inner) bf16."""
-    check_supported(cfg)
+    check_decoder_only(cfg)
     caches = []
     for s in segments_for(cfg):
         if s.kind == "rwkv":
@@ -346,7 +349,7 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device,
     pool, ``ring_num_blocks`` blocks, when ``ring_width`` is set. Recurrent
     state keeps its dense per-slot rows, ``slots`` of them: it is O(1) a
     slot, not a token, so there is nothing to page."""
-    check_servable(cfg)
+    check_decoder_only(cfg)
     caches = []
     for s in segments_for(cfg):
         if s.kind == "rwkv":

@@ -127,7 +127,7 @@ from repro_torch.dist import meshes
 from repro_torch.models import model_zoo
 from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import check_servable, segments_for
+from repro_torch.models.transformer import segments_for
 from repro_torch.serve import scheduler as sched
 from repro_torch.serve.kv_pool import PagedKV, PoolExhausted, prefix_keys
 from repro_torch.serve.metrics import ServeMetrics
@@ -287,7 +287,6 @@ class BatchedServer:
                 "BatchedServer serves decoder-only families; enc-dec decode "
                 "needs per-request encoder output"
             )
-        check_servable(cfg)
         if admission not in ("continuous", "drain"):
             raise ValueError(f"admission must be continuous|drain, got {admission!r}")
         if kv not in ("dense", "paged"):

@@ -380,6 +380,53 @@ def test_paged_attn_kernel_on_hymbas_wrapped_ring(card):
     assert pa_kernel.paged_attention.body == "split"
 
 
+def test_paged_attn_kernel_at_internvl2s_call(card):
+    """internvl2-26b's call as its server makes it: KVH 8, G 6, D 128, bf16
+    pools of 16-row blocks, 1,088 rows a slot; one slot's prefill chunk of
+    16 rows (one run) beside 8 decode rows at positions 0-1,087, with and
+    without runs."""
+    nb_slot, rng = 68, np.random.default_rng(43)
+    tables = rng.permutation(9 * nb_slot).reshape(9, nb_slot)
+    table = np.concatenate([np.repeat(tables[:1], 16, 0), tables[1:]])
+    pos = np.concatenate([np.arange(500, 516), [0, 15, 16, 255, 700, 1000, 1040, 1087]])
+    runs = [(0, 16)] + [(16 + i, 1) for i in range(8)]
+    case = pa_case(t=24, kvh=8, g=6, dk=128, dv=128, bs=16, nb_slot=nb_slot,
+                   num_blocks=9 * nb_slot + 8, seed=43, bf16=True, scale=128 ** -0.5,
+                   pos=pos, table=table, runs=runs)
+    _paged_attn_on_card(card, case)
+    _paged_attn_on_card(card, case, with_runs=True)
+    assert pa_kernel.paged_attention.body == "split"
+
+
+def test_encdec_prefill_equals_decode_on_card(card):
+    """Reduced seamless-m4t-medium on the card (bf16 weights from seed 4):
+    prefill's last logits against as many decode steps over the source's
+    precomputed cross K/V, at the reference's tolerance (3e-2, an equal
+    argmax), as ``test_torch_encdec_decode.py`` holds them on the CPU."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import encdec, model_zoo
+
+    cfg = get_reduced_config("seamless-m4t-medium")
+    params, _ = model_zoo.init_params(cfg, seed=4, device=card)
+    rng = np.random.default_rng(9)
+    seq = 24
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, seq)).astype(np.int32))
+    frames = torch.from_numpy(rng.normal(0, 1, (2, seq, cfg.d_model)).astype(np.float32))
+    tokens, frames = tokens.to(card), frames.to(card)
+    with torch.no_grad():
+        want = model_zoo.prefill_fn(cfg)(params, {"tokens": tokens, "frames": frames}).float()
+        cache = model_zoo.make_cache(cfg, 2, seq, card)
+        enc_out = encdec.encode(params, frames, cfg, remat="none")
+        cache["xk"][:], cache["xv"][:] = encdec.precompute_cross_kv(params, enc_out, cfg)
+        step = model_zoo.decode_fn(cfg)
+        for t in range(seq):
+            logits, cache = step(params, tokens[:, t], cache, t)
+    got = logits.float()
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
 def test_server_hybrid_kernel_path_matches_gather_on_card(card):
     """Reduced hymba with one global layer (the other a sliding-window layer
     of window 16, on the ring pool): the kernel path's tokens equal the

@@ -74,6 +74,47 @@ def test_synthetic_data_fn_matches_repro(shard):
 
 
 def test_synthetic_data_fn_refuses_extra_inputs():
-    cfg = dataclasses.replace(get_reduced_config("rwkv6-3b"), vis_tokens=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.synthetic_data_fn(cfg, 1, 8, device=CPU)
+    """The extra inputs, bit for bit: internvl2-26b's text cut to seq -
+    vis_tokens beside its patches, seamless-m4t-medium's frames, and both
+    on a config of another family given ``vis_tokens``."""
+    vlm = dataclasses.replace(get_reduced_config("rwkv6-3b"), vis_tokens=4)
+    jvlm = dataclasses.replace(jreduced("rwkv6-3b"), vis_tokens=4)
+    extra = {"internvl2-26b": {"patches"}, "seamless-m4t-medium": {"frames"}, "rwkv": {"patches"}}
+    for name, cfg, jcfg in [(a, get_reduced_config(a), jreduced(a))
+                            for a in ("internvl2-26b", "seamless-m4t-medium")] + [
+            ("rwkv", vlm, jvlm)]:
+        fn = pipeline.synthetic_data_fn(cfg, 3, 24, 1, device=CPU)
+        jfn = jpipeline.synthetic_data_fn(jcfg, 3, 24, 1)
+        for step in (0, 2):
+            got, want = fn(step), jfn(step)
+            assert set(got) == set(want) == {"tokens", "targets", "loss_mask"} | extra[name]
+            for k in want:
+                assert got[k].dtype == getattr(torch, str(want[k].dtype)), (name, k)
+                assert got[k].shape == want[k].shape, (name, k)
+                np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                              err_msg=f"{name} {k}")
+        assert got["tokens"].shape[1] == 24 - cfg.vis_tokens
+
+
+@pytest.mark.parametrize("arch,missing", [("seamless-m4t-medium", "frames"),
+                                          ("internvl2-26b", "patches")])
+def test_page_batches_lack_the_extra_inputs_in_both_packages(tmp_path, arch, missing):
+    """A reference quirk, kept (ROADMAP §C): the page data path gives tokens,
+    targets and the loss mask only, so either family's loss raises
+    ``KeyError`` on a page batch in both packages."""
+    import jax
+
+    from repro.models import model_zoo as jzoo
+    from repro_torch.models import model_zoo
+
+    cfg, jcfg = get_reduced_config(arch), jreduced(arch)
+    kw = dict(n_seqs=8, seq_len=16, vocab=cfg.vocab_size, seed=0, page_bytes=4096)
+    mine = pipeline.PageTokenDataset(str(tmp_path / "t.heap"), device=CPU, **kw).batch(0, 2)
+    ref = jpipeline.PageTokenDataset(str(tmp_path / "j.heap"), **kw).batch(0, 2)
+    assert set(mine) == set(ref) == {"tokens", "targets", "loss_mask"}
+    params, _ = model_zoo.init_params(cfg, device=CPU)
+    jparams, _ = jzoo.init_params(jcfg, jax.random.PRNGKey(0))
+    with pytest.raises(KeyError, match=missing):
+        model_zoo.loss_fn(cfg, "none")(params, mine)
+    with pytest.raises(KeyError, match=missing):
+        jzoo.loss_fn(jcfg, "none")(jparams, ref)

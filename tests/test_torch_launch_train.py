@@ -39,15 +39,33 @@ def test_main_trains_on_both_data_paths(tmp_path, capsys, data_path):
         assert (tmp_path / "tokens.heap").exists()
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "internlm2-20b"])
+# the families whose batches carry patches or frames train from synthetic
+# data, as in the reference (the page data path gives tokens only)
+SYNTHETIC_ONLY = ("seamless-m4t-medium", "internvl2-26b")
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "internlm2-20b"] + list(SYNTHETIC_ONLY))
 def test_main_trains_the_attention_families(tmp_path, capsys, arch):
     """An MLA and a GQA model through the attention training forward, from
-    token pages with full rematerialisation."""
+    token pages with full rematerialisation; the enc-dec and the VLM model
+    from synthetic data (their frames and patches)."""
+    data_path = "synthetic" if arch in SYNTHETIC_ONLY else "pages"
     hist = train_cli.main(["--arch", arch] + ARGS[2:] + [
-        "--steps", "2", "--ckpt-dir", str(tmp_path), "--data-path", "pages",
+        "--steps", "2", "--ckpt-dir", str(tmp_path), "--data-path", data_path,
         "--remat", "full"])
     assert f"[train] {arch} (reduced)" in capsys.readouterr().out
     assert len(hist) == 1 and torch.isfinite(torch.tensor(hist[0]["loss"]))
+
+
+@pytest.mark.parametrize("arch,missing", [("seamless-m4t-medium", "frames"),
+                                          ("internvl2-26b", "patches")])
+def test_main_on_pages_raises_the_references_key_error(tmp_path, arch, missing):
+    """``--data-path pages`` gives these families no frames or patches: the
+    reference's launcher raises ``KeyError`` there, and so does the port's
+    (ROADMAP §C, reference quirks)."""
+    with pytest.raises(KeyError, match=missing):
+        train_cli.main(["--arch", arch] + ARGS[2:] + [
+            "--steps", "1", "--ckpt-dir", str(tmp_path), "--data-path", "pages"])
 
 
 def test_main_without_a_card_raises():

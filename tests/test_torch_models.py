@@ -95,8 +95,8 @@ def test_init_params_is_seeded_and_explicit():
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS])
 def test_unported_families_raise_with_their_names(arch):
     cfg = get_reduced_config(arch)
-    # every decoder-only family: GQA or MLA attention, MoE, RWKV6, the
-    # hybrid layers; encoder-decoder models still raise
+    # every family runs: GQA or MLA attention, MoE, RWKV6, the hybrid layers
+    # and enc-dec; only the paged cache still refuses enc-dec, as repro's does
     if cfg.family != "encdec":
         params, _ = model_zoo.init_params(cfg, device=CPU)
         logits, _ = model_zoo.decode_fn(cfg)(
@@ -111,12 +111,18 @@ def test_unported_families_raise_with_their_names(arch):
                                                                 "ssm", "conv")
                                        else (s.n_layers, 5)), (k, c.shape)
         return
-    for call in (lambda: model_zoo.init_params(cfg, device=CPU),
-                 lambda: model_zoo.make_cache(cfg, 2, 4, CPU),
-                 lambda: model_zoo.make_paged_cache(cfg, 4, 4, CPU),
-                 lambda: model_zoo.decode_fn(cfg)):
-        with pytest.raises(NotImplementedError, match=f"{cfg.name}.*ROADMAP A15"):
-            call()
+    params, _ = model_zoo.init_params(cfg, device=CPU)
+    cache = model_zoo.make_cache(cfg, 2, 4, CPU)
+    assert {k: tuple(v.shape) for k, v in cache.items()} == {
+        k: (cfg.n_layers, 3 if k in ("k", "v") else 2, 4, cfg.n_kv_heads, cfg.hd)
+        for k in ("k", "v", "xk", "xv")}
+    logits, _ = model_zoo.decode_fn(cfg)(params, torch.tensor([1, 2], dtype=torch.int32),
+                                         cache, 0)
+    assert logits.shape == (2, cfg.padded_vocab) and torch.isfinite(logits.float()).all()
+    with pytest.raises(ValueError, match="family 'encdec' has no paged attention cache"):
+        model_zoo.make_paged_cache(cfg, 4, 4, CPU)
+    with pytest.raises(ValueError, match="family 'encdec' has no paged attention cache"):
+        jzoo.make_paged_cache(jreduced(arch), 2, 4, 4)
 
 
 def test_segments_for_matches_repro_for_every_family():

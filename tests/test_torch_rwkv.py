@@ -228,24 +228,26 @@ def test_train_step_matches_repro(monkeypatch):
 
 def test_attention_families_do_not_train_yet():
     """The attention families train: the GQA and MLA ones with dense layers
-    (``test_torch_attention.py`` holds them against ``repro``) and, since
-    the MoE slice, the MoE ones (``test_torch_moe.py``); encoder-decoder
-    models still raise."""
-    for arch in ("mistral-nemo-12b", "olmoe-1b-7b"):
+    (``test_torch_attention.py`` holds them against ``repro``), the MoE ones
+    (``test_torch_moe.py``) and, since the enc-dec slice, encoder-decoder
+    models (``test_torch_encdec.py``)."""
+    for arch in ("mistral-nemo-12b", "olmoe-1b-7b", "seamless-m4t-medium"):
         cfg = get_reduced_config(arch)
         params, _ = model_zoo.init_params(cfg, device=CPU)
         batch = model_zoo.demo_batch(cfg, 1, 8, device=CPU)
         assert torch.isfinite(model_zoo.loss_fn(cfg, "none")(params, batch))
-    with pytest.raises(NotImplementedError, match="A15"):
-        model_zoo.loss_fn(get_reduced_config("seamless-m4t-medium"))
 
 
 def test_demo_batch_matches_repro():
-    cfg, jcfg = get_reduced_config(ARCH), jreduced(ARCH)
-    want = jzoo.demo_batch(jcfg, 3, 10, np.random.default_rng(4))
-    got = model_zoo.demo_batch(cfg, 3, 10, np.random.default_rng(4), device=CPU)
-    for k in want:
-        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    """rwkv6-3b's tokens, and seamless-m4t-medium's frames after them."""
+    for arch in (ARCH, "seamless-m4t-medium"):
+        cfg, jcfg = get_reduced_config(arch), jreduced(arch)
+        want = jzoo.demo_batch(jcfg, 3, 10, np.random.default_rng(4))
+        got = model_zoo.demo_batch(cfg, 3, 10, np.random.default_rng(4), device=CPU)
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].dtype == getattr(torch, str(want[k].dtype))
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
 @pytest.mark.parametrize("seq,chunk", [(16, 0), (13, 4)])
