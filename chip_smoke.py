@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA card: DAnA's TRAIN path and
-its in-database scoring (SQL PREDICT) at full size, LM serving of
+"""Smoke run of the PyTorch port on one NVIDIA card: DAnA's TRAIN path (alone
+and on meshes of 4 gloo ranks that share the card) and its in-database
+scoring (SQL PREDICT) at full size, LM serving of
 hymba-1.5b (hybrid), olmoe-1b-7b (MoE) and rwkv6-3b and LM training of
 rwkv6-3b, minicpm3-4b, hymba-1.5b and seamless-m4t-medium (enc-dec, with its
 greedy decode) at full width and depth, LM serving of mistral-nemo-12b
@@ -117,6 +118,25 @@ Phases, one JSON line each:
            launches a step); a sliding-window
            and a global layer's B5 call of the first sub-step past position
            1,040 captured for the kernels line
+  train-sharded  (in a process of its own, beside serve-mla and serve)
+           the TRAIN path on a mesh: the unsharded solver.train on the card as the
+           baseline, then 4 gloo ranks on the one card (``--sharded-rank``,
+           each bound to cuda:0, gloo over loopback) train the whole heap
+           for 3 epochs through solver.train(mesh=) on a 4 x 1 data mesh
+           (the shard_map path: each rank decodes its own page range with
+           B1, once a chunk, and takes 64 rows of every merge batch through
+           B2's glm_grad, 2,270 times an epoch, then one all_reduce; the
+           vmap thread path poisoned; every glm_grad call of the first
+           chunk on rank 0 against glm_grad_ref at rtol=2e-5, atol=2e-4)
+           and on a 2 x 2 mesh with shard_model (w Shard(0) on the model
+           axis, the row-parallel products); the coefficients within 1e-4
+           of the baseline and the same bits on every rank, one join an
+           epoch; then repro's LRMF case on the 2 x 2 mesh (the gspmd path,
+           items Shard(0)) against the unsharded card run at rtol=1e-4,
+           atol=1e-5. One line per mesh: seconds an epoch per rank,
+           tuples/s, collectives an epoch, each rank's busy time over the
+           run (traced, device events only) and its idle share, the
+           largest difference
   serve-rwkv  (in a process of its own, beside serve-mla) rwkv6-3b (full
            width and depth, bf16 from seed 0) asked for paged KV and token
            stepping, served dense and chunked: 16 requests of 32-256 prompt
@@ -210,7 +230,9 @@ Phases, one JSON line each:
            context captured for the kernels line
   launch-train  launch/train.py's main() at full width for 2 steps
   kernels  each kernel's launches on the main path (B3's: the GLM scans' and
-           the LM statements'), error, time, bound,
+           the LM statements'; B2's one-batch gradient: the sharded ranks',
+           and its time at their shares, (64, 54) and (128, 54)), error,
+           time, bound,
            plain version's time and library yardstick; the SGD walk per full
            chunk, per tail chunk, per batch and at D = 2,000; B4 with the
            scan's bool mask and an f32 one, beside its bound on live rows and
@@ -238,12 +260,15 @@ of the time in each, so some run beside others, each in a process of its own
 (``chip_smoke.py --beside NAME``, its lines printed when it is joined, its
 phase's result handed back through a file under build/chip_smoke/):
 lm-predict, serve-rwkv and serve-vlm beside serve-mla, then serve-moe and
-serve-hybrid (which starts its own gather run) beside serve and launch. The
-peak device memory of the phases that run together adds to at most 69 GB; the
-training phases, each near its own peak of 28-73 GB, run alone. Each phase's
-line carries the time it ended (``ended_unix_s``). Every kernel-line time is
-taken after the serving phases, with no other process on the card. Every
-process started is waited for, or killed when a phase fails.
+serve-hybrid (which starts its own gather run) beside serve and launch;
+train-sharded (which starts its 4 ranks) runs through both stages. The peak device memory of the phases
+that run together adds to at most 72 GB; the training phases, each near its
+own peak of 28-73 GB, run alone. Each phase's line carries the time it ended
+(``ended_unix_s``). Every kernel-line time is taken with no other process on
+the card (B2's one-batch gradient at the ranks' shares, (64, 54) and (128,
+54), before the serving phases; its launches are the ranks'). Every process
+started is waited for, or killed when a phase fails (a rank whose parent is
+gone ends itself).
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, exits
 non-zero and prints no such line. Without a CUDA card the script exits 1.
@@ -259,6 +284,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
 import warnings
@@ -1231,6 +1257,7 @@ def phase_kernels(heap, engine, res, launches, db, predict_launches):
         "bound_bytes": b2_bytes,
         "library_ms": device_ms(b2_lib),
         "library": "composite: torch.matmul, sigmoid, sub, mul, torch.matmul",
+        "sharded": [_glm_grad_share(X, Y, M, w, rows) for rows in (64, 128)],
     }
     del X, Y, M, b2_calls, b2_plain, b2_lib
     b2_chunk = kernel_row_sgd_chunk(chunks, layout, engine, w, launches)
@@ -1327,6 +1354,38 @@ def phase_kernels(heap, engine, res, launches, db, predict_launches):
     if b4_err > 2e-6:
         raise AssertionError(f"glm_predict differs by {b4_err} at the main path's chunks")
     return [b1, b2_chunk, b2, b3, b4]
+
+
+def _glm_grad_share(X, Y, M, w, rows):
+    """B2's one-batch gradient at a rank's share of each merge batch of the
+    chunk, ``rows`` of 256 (train-sharded: 64 on the 4 x 1 mesh, 128 where
+    the data axis holds 2 ranks), against its plain version and the library
+    composite x.T @ ((sigmoid(x @ w) - y) * mask)."""
+    import torch
+
+    from repro_torch.kernels.engine import kernel as glm_kernel
+    from repro_torch.kernels.engine import ref as glm_ref
+
+    parts = [(X[b, :rows], Y[b, :rows], M[b, :rows]) for b in range(X.shape[0])]
+    err = max(float((glm_kernel.glm_grad(x, y, w, m, "logistic")
+                     - glm_ref.glm_grad_ref(x, y, w, m, "logistic")).abs().max())
+              for x, y, m in parts)
+    if err > 2e-4:
+        raise AssertionError(f"glm_grad differs by {err} at ({rows}, 54)")
+    d = X.shape[2]
+    nbytes, flops = 4 * (rows * d + 2 * rows + 2 * d), 4 * rows * d
+    bound, by = _bound_ms(nbytes, flops)
+    calls = [lambda x=x, y=y, m=m: glm_kernel.glm_grad(x, y, w, m, "logistic")
+             for x, y, m in parts]
+    return {
+        "shape": f"x ({rows}, {d}) f32, logistic, a rank's share of a merge batch",
+        "max_abs_err": err, "ms": device_ms(calls), "host_ms": eager_ms(calls),
+        "plain_ms": device_ms([lambda x=x, y=y, m=m: glm_ref.glm_grad_ref(x, y, w, m, "logistic")
+                               for x, y, m in parts]),
+        "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes,
+        "library_ms": device_ms([lambda x=x, y=y, m=m: torch.matmul(
+            (torch.sigmoid(torch.matmul(x, w)) - y) * m, x) for x, y, m in parts]),
+    }
 
 
 def _sgd_work(n, d, coef):
@@ -2726,7 +2785,7 @@ def _beside_phases():
     phase, by name."""
     return {"serve-moe": phase_serve_moe, "serve-rwkv": phase_serve_rwkv,
             "serve-hybrid": phase_serve_hybrid, "lm-predict": phase_lm_predict,
-            "serve-vlm": phase_serve_vlm}
+            "serve-vlm": phase_serve_vlm, "train-sharded": phase_train_sharded}
 
 
 def _beside_result(name):
@@ -2779,6 +2838,343 @@ def _join_beside(handle, timeout=900):
     if rc != 0:
         raise AssertionError(f"the phase {name} in its own process failed: {rc}")
     return torch.load(_beside_result(name), weights_only=False)
+
+
+# ---------------------------------------------------------------------------
+# train-sharded: the TRAIN path on a mesh of gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+SHARDED_WORLD = 4
+# mesh name -> (data, model, shard_model); the LRMF case runs on "model"
+SHARDED_MESHES = {"data": (4, 1, False), "model": (2, 2, True)}
+SHARDED_TIMEOUT_S = 600  # the ranks' limit; the process group's is below it
+SHARDED_PG_TIMEOUT_S = 300
+B2_TOL = dict(rtol=2e-5, atol=2e-4)  # B2's parity tolerance, as the parity phase
+# tests/test_shard_map_engine.py's LRMF case, at its size: 24 items, rank 4,
+# merge_coef 8, 256 rows
+LRMF_CASE = {"items": 24, "rank": 4, "coef": 8, "rows": 256, "lr": 1e-2}
+
+
+def _sharded_inputs():
+    """The table's heap (e2e wrote it; made again when this phase runs alone)
+    and the LRMF case's rows and starting factors, from seeds."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import WORKLOADS, generate
+    from repro_torch.db.heap import HeapFile, write_table
+
+    path = os.path.join(SCRATCH, f"{WORKLOAD}.heap")
+    if not os.path.exists(path):
+        wl = WORKLOADS[WORKLOAD]
+        X, y = generate(wl, scale=SCALE, seed=0)
+        write_table(path, X, y, page_bytes=wl.page_bytes)
+    rng = np.random.default_rng(0)
+    R = rng.normal(0, 1, (LRMF_CASE["rows"], LRMF_CASE["items"])).astype(np.float32)
+    m0 = np.random.default_rng(1).normal(0, 0.05, (LRMF_CASE["items"], LRMF_CASE["rank"]))
+    return HeapFile(path), R, m0.astype(np.float32)
+
+
+def _lrmf_batches(R, device):
+    import torch
+
+    Rb = torch.from_numpy(R).reshape(-1, LRMF_CASE["coef"], R.shape[1]).to(device)
+    return Rb, torch.zeros(Rb.shape[:2], device=device), torch.ones(Rb.shape[:2], device=device)
+
+
+def _lrmf_graph():
+    from repro_torch.algorithms import lrmf
+    from repro_torch.core.translator import trace
+
+    return trace(lambda: lrmf(LRMF_CASE["items"], rank=LRMF_CASE["rank"], lr=LRMF_CASE["lr"],
+                              merge_coef=LRMF_CASE["coef"]))
+
+
+def _sharded_graph():
+    from repro_torch.algorithms import logistic_regression
+    from repro_torch.core.translator import trace
+
+    return trace(lambda: logistic_regression(54, lr=0.1, merge_coef=MERGE_COEF, epochs=EPOCHS))
+
+
+def phase_train_sharded():
+    """The parent of the ranks: the kernels built here, the unsharded
+    solver.train on the card as the baseline (and the LRMF case's unsharded
+    epoch), then SHARDED_WORLD gloo ranks on the one card
+    (``chip_smoke.py --sharded-rank``), each failing the phase if it fails;
+    one line per mesh. Returns the ranks' launches and B2's parity error for
+    the kernels line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import solver
+    from repro_torch.core.engine import make_engine, models_from_numpy
+    from repro_torch.db.bufferpool import BufferPool
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    build.build(*KERNEL_SOURCES)  # a hash hit after the build phase: nvcc stays out of the ranks
+    heap, R, m0 = _sharded_inputs()
+    pool = BufferPool(pool_bytes=heap.n_pages * heap.layout.page_bytes,
+                      page_bytes=heap.layout.page_bytes)
+    pool.warm(heap)
+    g, part = _sharded_graph()
+    t0 = time.perf_counter()
+    base = solver.train(g, part, heap, pool=pool, mode="dana", seed=0)
+    base_s = time.perf_counter() - t0
+    gm, pm = _lrmf_graph()
+    engm = make_engine(gm, pm)
+    want_m, _ = engm.run_epoch(models_from_numpy([m0]), *_lrmf_batches(R, engm.device))
+    work = os.path.join(SCRATCH, "sharded")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+    procs = []
+    try:
+        for rank in range(SHARDED_WORLD):
+            out = open(os.path.join(work, f"rank{rank}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(rank),
+                 str(SHARDED_WORLD), work], stdout=out, stderr=subprocess.STDOUT, env=env),
+                out))
+        deadline = time.monotonic() + SHARDED_TIMEOUT_S
+        for rank, (proc, _) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                raise AssertionError(f"train-sharded: rank {rank} ended with {rc}")
+    except BaseException:
+        for rank in range(SHARDED_WORLD):
+            path = os.path.join(work, f"rank{rank}.log")
+            if os.path.exists(path):
+                with open(path) as f:
+                    sys.stderr.write(f"--- rank {rank} ---\n{f.read()[-4000:]}\n")
+        raise
+    finally:
+        for proc, out in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            out.close()
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(SHARDED_WORLD)]
+
+    w_base = base.models[0]
+    for name in SHARDED_MESHES:
+        got = [r[name] for r in ranks]
+        w = got[0]["w"]
+        same = all(np.array_equal(r["w"], w) for r in got)
+        diff = float(np.abs(w - w_base).max())
+        epoch_s = [r["epoch_s"] for r in got]
+        busy = [r["busy_s"] for r in got]
+        run_s = [r["total_s"] for r in got]
+        emit({"phase": "train-sharded", "mesh": name, "shape": got[0]["mesh"],
+              "shard_model": SHARDED_MESHES[name][2], "ranks": SHARDED_WORLD,
+              "backend": got[0]["backend"], "path": got[0]["path"],
+              "model_placements": got[0]["placements"],
+              "launches_per_rank": [r["launches"] for r in got],
+              "device_syncs": [r["device_syncs"] for r in got],
+              "epoch_s_per_rank": epoch_s, "total_s_per_rank": [r["total_s"] for r in got],
+              "tuples_per_s": EPOCHS * heap.n_tuples / max(r["total_s"] for r in got),
+              "collectives_per_epoch": {k: v / EPOCHS for k, v in got[0]["collectives"].items()},
+              "device_busy_s_per_rank": busy,
+              "device_idle_share_per_rank": [1.0 - b / s for b, s in zip(busy, run_s)],
+              "device_busy_share_all_ranks": sum(busy) / max(run_s),
+              "unsharded_total_s": base_s, "unsharded_epoch_s": base.total_s / EPOCHS,
+              "max_abs_diff_vs_unsharded": diff, "tolerance": 1e-4,
+              "same_bits_on_every_rank": same,
+              **({"glm_grad_parity": got[0]["parity"]} if "parity" in got[0] else {})})
+        if not same:
+            raise AssertionError(f"train-sharded {name}: the ranks' coefficients differ")
+        if diff > 1e-4:
+            raise AssertionError(f"train-sharded {name}: {diff} from the unsharded card run")
+    got = [r["lrmf"] for r in ranks]
+    m_diff = float(np.abs(got[0]["M"] - want_m[0].cpu().numpy()).max())
+    emit({"phase": "train-sharded", "mesh": "model", "case": "lrmf", "path": got[0]["path"],
+          "model_placements": got[0]["placements"], "collectives": got[0]["collectives"],
+          "max_abs_diff_vs_unsharded": m_diff, "tolerance": {"rtol": 1e-4, "atol": 1e-5},
+          "same_bits_on_every_rank": all(np.array_equal(r["M"], got[0]["M"]) for r in got),
+          "seconds": time.perf_counter() - t_phase})
+    np.testing.assert_allclose(got[0]["M"], want_m[0].cpu().numpy(), rtol=1e-4, atol=1e-5)
+    if not all(np.array_equal(r["M"], got[0]["M"]) for r in got):
+        raise AssertionError("train-sharded lrmf: the ranks' factors differ")
+    return {"glm_grad_launches_per_rank": [r["data"]["launches"]["glm_grad"] for r in ranks],
+            "parity": ranks[0]["data"]["parity"]}
+
+
+class _GlmGradCheck:
+    """Stands in for B2's one-batch wrapper while it is installed (a context
+    manager): every call launches the kernel, and the first ``calls`` are
+    held against glm_grad_ref on the same inputs, the error kept on the
+    card. ``launches`` is the kernel wrapper's own count."""
+
+    def __init__(self, calls):
+        from repro_torch.kernels.engine import kernel as glm_kernel
+
+        self.module, self.real, self.left = glm_kernel, glm_kernel.glm_grad, calls
+        self.worst = self.excess = None
+        self.checked = 0
+
+    @property
+    def launches(self):
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.real.launches = n
+
+    def __call__(self, x, y, w, mask, act):
+        import torch
+
+        from repro_torch.kernels.engine import ref as glm_ref
+
+        out = self.real(x, y, w, mask, act)
+        if self.left > 0:
+            want = glm_ref.glm_grad_ref(x, y, w, mask, act)
+            err = (out - want).abs()
+            excess = (err - B2_TOL["atol"] - B2_TOL["rtol"] * want.abs()).max()
+            self.worst = err.max() if self.worst is None else torch.maximum(self.worst,
+                                                                            err.max())
+            self.excess = excess if self.excess is None else torch.maximum(self.excess, excess)
+            self.left -= 1
+            self.checked += 1
+        return out
+
+    def __enter__(self):
+        self.module.glm_grad = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.glm_grad = self.real
+
+    def result(self):
+        return {"calls": self.checked, "max_abs_err": float(self.worst),
+                "within_tolerance": bool(float(self.excess) <= 0), **B2_TOL}
+
+
+def sharded_rank(rank: int, world: int, work: str) -> int:
+    """``chip_smoke.py --sharded-rank RANK WORLD DIR``: one gloo rank of
+    train-sharded on cuda:0. For each mesh: solver.train over the whole heap
+    with the vmap thread path poisoned, the launches and collectives counted
+    from zero just before it, traced (the device's events only) for the
+    rank's busy time, one join an epoch, the path and the model's placement
+    checked; then the LRMF case on the model mesh. Saves its results to
+    DIR/rank{RANK}.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import solver
+    from repro_torch.core.engine import make_engine, models_from_numpy
+    from repro_torch.db.bufferpool import BufferPool
+    from repro_torch.dist import meshes
+    from test_torch_dist_util import placements
+
+    parent = os.getppid()
+
+    def watch():  # a rank whose parent is gone (killed with its phase) ends
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{work}/store", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=SHARDED_PG_TIMEOUT_S))
+    heap, R, m0 = _sharded_inputs()
+    pool = BufferPool(pool_bytes=heap.n_pages * heap.layout.page_bytes,
+                      page_bytes=heap.layout.page_bytes)
+    pool.warm(heap)
+    g, part = _sharded_graph()
+    n_chunks = -(-heap.n_pages // solver.MAX_RESIDENT_PAGES)
+    batches = sum(-(-min(solver.MAX_RESIDENT_PAGES, heap.n_pages - s)
+                    * heap.layout.tuples_per_page // MERGE_COEF)
+                  for s in range(0, heap.n_pages, solver.MAX_RESIDENT_PAGES))
+    first_chunk = -(-min(solver.MAX_RESIDENT_PAGES, heap.n_pages) * heap.layout.tuples_per_page
+                    // MERGE_COEF)
+    out = {}
+
+    def poisoned(*a, **kw):
+        raise AssertionError("the sharded epoch took the vmap thread path")
+
+    for name, (dp, mp, shard_model) in SHARDED_MESHES.items():
+        mesh = meshes.make_mesh((dp, mp), ("data", "model"))
+        engine = make_engine(g, part, mesh=mesh, shard_model=shard_model)
+        engine._pre = poisoned
+        sync_at, seen = [], []
+        real_sync = solver._device_sync
+
+        def timed_sync(models, gnorm):
+            res = real_sync(models, gnorm)
+            sync_at.append(time.perf_counter())
+            seen.append(placements(models[0]))
+            return res
+
+        check = _GlmGradCheck(first_chunk if (rank == 0 and not shard_model) else 0)
+        box = {}
+
+        def run():
+            box["res"] = solver.train(g, part, heap, pool=pool, mode="dana", engine=engine,
+                                      seed=0, mesh=mesh, shard_model=shard_model)
+
+        solver._device_sync = timed_sync
+        try:
+            with meshes.use_mesh(mesh), check:
+                dist.barrier()
+                zero_launches()
+                meshes.reset_collectives()
+                t0 = time.perf_counter()
+                # the run itself traced (the device's events only): its busy time
+                _, busy_s, _ = _device_profile(run, cpu=False)
+                launches = read_launches()
+                collectives = dict(meshes.COLLECTIVES)
+        finally:
+            solver._device_sync = real_sync
+        res, total_s = box["res"], sync_at[-1] - t0
+        want = {k: 0 for k in launches}
+        want["strider_decode"] = EPOCHS * n_chunks  # each rank's Strider, once a chunk
+        want["glm_grad"] = 0 if shard_model else EPOCHS * batches
+        if launches != want:
+            raise AssertionError(f"{name} mesh, rank {rank}: launches {launches}, "
+                                 f"expected {want}")
+        if res.device_syncs != res.epochs_run or res.epochs_run != EPOCHS:
+            raise AssertionError(f"{name} mesh: device_syncs {res.device_syncs}")
+        path = engine.last_sharded_path
+        want_path = ("shard_map", ("data",), "model" if shard_model else None)
+        if path != want_path:
+            raise AssertionError(f"{name} mesh: path {path}, expected {want_path}")
+        want_place = ["R", "S(0)"] if shard_model else None
+        if any(p != want_place for p in seen):
+            raise AssertionError(f"{name} mesh: w placed {seen}, expected {want_place}")
+        out[name] = {"mesh": {"data": dp, "model": mp}, "path": path, "placements": seen[-1],
+                     "launches": launches, "collectives": collectives,
+                     "device_syncs": res.device_syncs, "total_s": total_s,
+                     "epoch_s": [b - a for a, b in zip([t0] + sync_at[:-1], sync_at)],
+                     "busy_s": busy_s, "w": res.models[0], "backend": dist.get_backend()}
+        if check.checked:
+            out[name]["parity"] = check.result()
+            if not out[name]["parity"]["within_tolerance"] or check.checked != first_chunk:
+                raise AssertionError(f"glm_grad against glm_grad_ref: {out[name]['parity']}")
+
+    # the LRMF case on the model mesh: the gspmd path, items Shard(0)
+    mesh = meshes.make_mesh(SHARDED_MESHES["model"][:2], ("data", "model"))
+    gm, pm = _lrmf_graph()
+    engm = make_engine(gm, pm, shard_model=True)
+    meshes.reset_collectives()
+    with meshes.use_mesh(mesh):
+        got, _ = engm.run_epoch(models_from_numpy([m0]), *_lrmf_batches(R, engm.device))
+        whole = meshes.full_tensor(got[0]).cpu().numpy()
+    out["lrmf"] = {"path": engm.last_sharded_path, "placements": placements(got[0]),
+                   "collectives": dict(meshes.COLLECTIVES), "M": whole}
+    if out["lrmf"]["path"] != ("gspmd", ("data",), None) or out["lrmf"]["placements"] != [
+            "R", "S(0)"]:
+        raise AssertionError(f"lrmf: {out['lrmf']['path']}, {out['lrmf']['placements']}")
+    dist.barrier()
+    dist.destroy_process_group()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    return 0
 
 
 def phase_serve_rwkv():
@@ -4818,6 +5214,8 @@ def main() -> int:
         return hybrid_gather_child(sys.argv[2])
     if sys.argv[1:2] == ["--beside"]:  # a phase in a process of its own
         return run_beside(sys.argv[2])
+    if sys.argv[1:2] == ["--sharded-rank"]:  # one gloo rank of train-sharded
+        return sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
 
     smi = nvidia_smi()
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
@@ -4839,8 +5237,11 @@ def main() -> int:
         db, predict_launches = phase_predict(heap, res)
         rows = phase_kernels(heap, engine, res, launches, db, predict_launches)
         del heap, engine, res, db
+        # train-sharded (its 4 ranks, ~3 GB) runs through both serving
+        # stages: bound by gloo's latency, it takes about as long as they do.
         # lm-predict (30 GB at its peak), serve-rwkv (9 GB) and serve-vlm
         # (17 GB) beside serve-mla (5 GB)
+        sharded = _phase_beside("train-sharded")
         lm, rwkv, vlm = (_phase_beside(name) for name in ("lm-predict", "serve-rwkv",
                                                            "serve-vlm"))
         try:
@@ -4849,19 +5250,30 @@ def main() -> int:
             _join_beside(rwkv)
             vlm_captured, vlm_launches = _join_beside(vlm)
         except BaseException:
-            _stop_beside(lm, rwkv, vlm)
+            _stop_beside(lm, rwkv, vlm, sharded)
             raise
         # serve-moe (17 GB) and serve-hybrid (6 GB and its gather run's 5)
         # beside serve and launch (16 and 25 GB)
-        moe, hybrid = _phase_beside("serve-moe"), _phase_beside("serve-hybrid")
+        try:
+            moe, hybrid = _phase_beside("serve-moe"), _phase_beside("serve-hybrid")
+        except BaseException:
+            _stop_beside(sharded)
+            raise
         try:
             captured, serve_launches = phase_serve()
             phase_launch_serve()
             moe_captured, moe_launches = _join_beside(moe)
             hybrid_captured, hybrid_launches = _join_beside(hybrid)
+            sharded_result = _join_beside(sharded)
         except BaseException:
-            _stop_beside(moe, hybrid)
+            _stop_beside(moe, hybrid, sharded)
             raise
+        # B2's one-batch gradient is on the sharded path: its launches there
+        b2_row = next(r for r in rows if r["name"] == "glm_grad")
+        b2_row["e2e_launches"] = b2_row["launches"]
+        b2_row["launches_per_rank"] = sharded_result["glm_grad_launches_per_rank"]
+        b2_row["launches"] = sum(b2_row["launches_per_rank"])
+        b2_row["sharded_parity"] = sharded_result["parity"]
         # the kernels line's times, with no other process on the card
         rows.append(kernel_row_paged_attn(captured, serve_launches, mla_captured, mla_launches,
                                           hybrid_captured, hybrid_launches, moe_captured,

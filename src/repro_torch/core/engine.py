@@ -20,6 +20,33 @@ graphs (LRMF, an update that is not affine) loop over the batches.
 Device policy: ``make_engine`` and ``init_models`` take ``device=None``, which
 means ``"cuda"``, and raise ``RuntimeError`` when there is no card. Callers ask
 for the CPU with ``device="cpu"``; every kernel then runs its plain version.
+
+Sharded epoch mode (``repro_torch.dist``): under an active
+``meshes.use_mesh`` (or an Engine built with ``mesh=``) whose data axes hold
+more than one rank, each rank takes its slice of every merge batch's tuples,
+the threaded update runs data-parallel and the tree-bus merge is an
+``all_reduce`` across ranks: the paper's parallel Striders feeding one merge
+tree. ``sharded_path`` decides the path with ``repro``'s rules:
+
+  * ``shard_map`` where the merge is a '+' fold and the thread dim divides
+    the data axes: a GLM template takes ``glm_grad_sharded`` a batch (B2 on
+    the rank's rows, one ``all_reduce``), other graphs the vmap thread path
+    and one ``all_reduce``. With the model axis (``shard_model=True``, a GLM
+    template, a feature dim that divides it) each rank also holds its
+    feature slice of the batch and of w, in the row-parallel form.
+  * ``gspmd`` otherwise (a merge that is not '+', a thread dim that does not
+    divide, a generic graph on the model axis, or ``shard_impl="gspmd"``):
+    the thread path on the rank's tuple slice (padded with dead rows to
+    divide), the models whole, one ``all_reduce`` a batch with the merge's
+    operator; the models are then placed by their declared logical axes
+    (LRMF's factor matrix ``Shard(0)`` on ``model``).
+
+``run_chunk`` on a mesh decodes the rank's own page range (B1) and makes the
+chunk whole by broadcasts (``strider_ops.decode_page_range``) before each
+rank takes its slices. Models come back as DTensors where the model axis
+shards them, and whole, the same on every rank, elsewhere. The port issues
+``all_reduce`` and ``broadcast`` only: gloo on CUDA tensors runs nothing
+else. A mesh that offers no parallelism keeps the unsharded path.
 """
 from __future__ import annotations
 
@@ -33,6 +60,7 @@ from repro_torch.core.hdfg import HDFG
 from repro_torch.core.torch_backend import MERGE_OPS, compile_hdfg
 from repro_torch.core.translator import Partition
 from repro_torch.db.page import PageLayout
+from repro_torch.dist import meshes
 from repro_torch.kernels.engine import ops as engine_ops
 from repro_torch.kernels.strider import ops as strider_ops
 
@@ -52,6 +80,17 @@ def resolve_device(device=None) -> torch.device:
 
 def default_metas(g: HDFG) -> list[float]:
     return [float(g.node(nid).attrs["value"]) for nid in g.meta_ids]
+
+
+def model_logical_axes(g: HDFG) -> tuple[tuple[str | None, ...], ...]:
+    """Per-model logical sharding axes, as declared by the algorithm
+    (``dana.model(..., axes=...)``). Undeclared models resolve replicated."""
+    out = []
+    for mid in g.model_ids:
+        n = g.node(mid)
+        axes = n.attrs.get("logical_axes")
+        out.append(tuple(axes) if axes is not None else (None,) * len(n.shape))
+    return tuple(out)
 
 
 def init_models(
@@ -247,27 +286,46 @@ class Engine:
     use_fused_kernel: bool
     device: torch.device
     fused_update: tuple[float, float] | None = None
+    mesh: object = None  # a meshes.Mesh (DeviceMesh), an AbstractMesh or None
+    shard_model: bool = False
+    shard_impl: str = "auto"  # "auto" | "shard_map" | "gspmd"
+
+    # logical axes of a (batches, merge_coef, D) epoch input
+    BATCH_AXES = {
+        "X": ("pages", "tuples", "features"),
+        "Y": ("pages", "tuples"),
+        "mask": ("pages", "tuples"),
+    }
 
     def __post_init__(self):
         self._pre, self._post, self._conv, _ = compile_hdfg(self.g, self.part)
         self._stage = (
             PinnedStager(self.device) if self.device.type == "cuda" else None
         )
+        self._model_axes = model_logical_axes(self.g)
+        self._chunk_paths: dict = {}  # mesh -> the chunk's sharded path
+        self.last_sharded_path: tuple | None = None  # introspection for tests
 
     # -- one merge batch -------------------------------------------------------
     def _merge(self, vals, mask):
         m = mask.reshape(mask.shape + (1,) * (vals.dim() - 1)).to(vals.dtype)
         return MERGE_OPS[self.merge_op](vals, m, dim=0)
 
+    def _thread_merge(self, models, xb, yb, mask):
+        """The vmap thread path: every tuple's pre-merge value, merged."""
+        vals = torch.func.vmap(
+            lambda x, y: self._pre(models, x, y, self.metas)
+        )(xb, yb)
+        return self._merge(vals, mask)
+
     def batch_step(self, models, xb, yb, mask):
-        """One merge batch: the threads' merged update and the new models."""
+        """One merge batch: the threads' merged update and the new models.
+        Models a mesh shards are made whole first (every rank calls it)."""
+        models = [meshes.full_tensor(m) for m in models]
         if self.use_fused_kernel:
             merged = engine_ops.glm_grad(xb, yb, models[0], mask, act=self.glm_template)
         else:
-            vals = torch.func.vmap(
-                lambda x, y: self._pre(models, x, y, self.metas)
-            )(xb, yb)
-            merged = self._merge(vals, mask)
+            merged = self._thread_merge(models, xb, yb, mask)
         new_models = self._post(models, merged, self.metas)
         return new_models, merged
 
@@ -287,7 +345,17 @@ class Engine:
         """X: (n_batches, merge_coef, D) float32; mask marks live tuples.
         Returns the updated models and each batch's merged-gradient norm,
         all on the engine's device, with no host join. One SGD kernel
-        launch when ``chunk_kernel``, else a loop over the batches."""
+        launch when ``chunk_kernel``, else a loop over the batches.
+        Dispatches to the sharded epoch only when an active mesh (via
+        ``Engine.mesh`` or an enclosing ``meshes.use_mesh``) offers
+        parallelism this engine can use; ``run_epoch_sharded`` stays
+        callable on any mesh."""
+        mesh = self._active_mesh()
+        if mesh is not None:
+            return self.run_epoch_sharded(models, X, Y, mask, mesh=mesh)
+        return self._epoch(models, X, Y, mask)
+
+    def _epoch(self, models, X, Y, mask):
         if self.chunk_kernel:
             return self._sgd_chunk(models, X.reshape(-1, X.shape[-1]), Y.reshape(-1),
                                    mask.reshape(-1), X.shape[1])
@@ -298,6 +366,215 @@ class Engine:
         gnorms = torch.stack(merged).flatten(1).square().sum(1).sqrt()
         return models, gnorms
 
+    # -- sharded epoch (data-parallel threads over the mesh) -------------------
+    def _active_mesh(self):
+        """The engine's mesh (or the ambient ``use_mesh`` one) iff it is a
+        mesh of ranks that offers parallelism this engine can use: data axes
+        of more than one rank, or a model axis of more than one when
+        ``shard_model`` is on. None otherwise."""
+        mesh = self.mesh if self.mesh is not None else meshes.current_mesh()
+        if not isinstance(mesh, meshes.Mesh):
+            return None
+        if meshes.mesh_axis_size(mesh, "pod", "data") > 1:
+            return mesh
+        if self.shard_model and meshes.mesh_axis_size(mesh, "model") > 1:
+            return mesh
+        return None
+
+    def _batch_rules(self):
+        return meshes.MODEL_SHARD_RULES if self.shard_model else None
+
+    def sharded_path(self, mesh, coef: int | None = None):
+        """Decide how an epoch shards on ``mesh``, as ``repro`` decides it:
+        ``("shard_map", data_axes, model_axis)``, the per-rank datapath with
+        explicit ``all_reduce`` merges, or ``("gspmd", data_axes, None)``,
+        the thread path on each rank's tuple slice with whole models.
+        shard_map is taken whenever the merge is a '+' fold and the thread
+        (merge-coefficient) dim divides the data axes; the model axis
+        additionally needs a GLM template (row-parallel datapath) and a
+        divisible feature dim. Drops are recorded in ``meshes.fallbacks()``."""
+        data = meshes.mesh_data_axes(mesh)
+        coef = self.merge_coef if coef is None else int(coef)
+        want_model = (
+            self.shard_model and meshes.mesh_axis_size(mesh, "model") > 1
+        )
+        if self.shard_impl == "gspmd":
+            return "gspmd", data, None
+        n_data = meshes.mesh_axis_size(mesh, *data) if data else 1
+        if self.merge_op != "+":
+            if self.shard_impl == "shard_map":
+                raise ValueError(
+                    f"shard_map datapath needs a '+' merge, got {self.merge_op!r}"
+                )
+            return "gspmd", data, None
+        if coef % n_data != 0:
+            meshes.record_fallback(
+                "engine_batch", "tuples", 1,
+                f"merge coef {coef} not divisible by data axes "
+                f"{data}={n_data}; falling back to the GSPMD epoch",
+            )
+            if self.shard_impl == "shard_map":
+                raise ValueError(
+                    f"merge coef {coef} does not divide data axes {data}={n_data}"
+                )
+            return "gspmd", data, None
+        model_axis = None
+        if want_model:
+            if self.glm_template is None or len(self.g.model_ids) != 1:
+                if self.shard_impl == "shard_map":
+                    raise ValueError(
+                        "model-axis shard_map needs a single-model GLM "
+                        "template (row-parallel datapath); generic graphs "
+                        "model-shard via gspmd"
+                    )
+                # generic graphs (LRMF) model-shard via the gspmd path: whole
+                # models through the thread path, placed by their declared
+                # axes afterwards
+                return "gspmd", data, None
+            d = self.g.node(self.g.model_ids[0]).shape[0]
+            m_size = meshes.mesh_axis_size(mesh, "model")
+            if d % m_size != 0:
+                meshes.record_fallback(
+                    "engine_model", "features", 0,
+                    f"feature dim {d} not divisible by mesh axis "
+                    f"'model'={m_size}; model stays replicated",
+                )
+            else:
+                model_axis = "model"
+        return "shard_map", data, model_axis
+
+    def _model_shardings(self, models, mesh):
+        """Per-model NamedShardings from the declared logical axes, the one
+        resolution every placement of the models reads."""
+        return [
+            meshes.named_sharding(
+                axes, tuple(m.shape), mesh,
+                rules=meshes.MODEL_SHARD_RULES, tensor_name="engine_model",
+            )
+            for m, axes in zip(models, self._model_axes)
+        ]
+
+    def _model_targets(self, models, mesh, model_axis=None):
+        """Where a sharded run keeps the models: whole on every rank, or
+        partitioned per the declared logical axes when the model axis is in
+        play."""
+        if model_axis is None and not self.shard_model:
+            return [meshes.replicated(mesh)] * len(models)
+        return self._model_shardings(models, mesh)
+
+    @staticmethod
+    def _local(m, sharding):
+        """This rank's part of model ``m`` under ``sharding``: a DTensor
+        already so placed gives its local tensor, anything else is made
+        whole and sliced."""
+        if meshes.is_dtensor(m):
+            if m.device_mesh is sharding.mesh and tuple(m.placements) == sharding.placements:
+                return m.to_local()
+            m = meshes.full_tensor(m)
+        return meshes.local_slice(m, sharding)
+
+    def _place_models(self, models, mesh, model_axis=None):
+        """Models placed for a sharded run: whole tensors (replicated), or
+        DTensors partitioned per the declared logical axes when the model
+        axis is in play."""
+        return [
+            meshes.from_local(self._local(m, sh), sh, tuple(m.shape))
+            for m, sh in zip(models, self._model_targets(models, mesh, model_axis))
+        ]
+
+    def _batch_shardings(self, X, Y, mask, mesh):
+        """Resolve an epoch input's placement (``BATCH_AXES``), as ``repro``
+        places it: the resolution's drops land in ``fallbacks()``; each rank
+        takes its slices by the decided path."""
+        rules = self._batch_rules()
+        for arr, key in ((X, "X"), (Y, "Y"), (mask, "mask")):
+            meshes.named_sharding(self.BATCH_AXES[key][: arr.dim()], tuple(arr.shape), mesh,
+                                  rules=rules, tensor_name=f"engine_{key}")
+
+    def _shard_map_epoch(self, mesh, data_axes, model_axis, models, X, Y, mask):
+        """The per-rank epoch (``repro``'s ``_shard_map_epoch``): each rank
+        runs the datapath on its rows of every merge batch (and, with
+        ``model_axis``, its feature slice of them and of w), and the merge
+        is an ``all_reduce`` over the data axes. GLM templates take
+        ``glm_grad_sharded`` (B2 on the card without the model axis), other
+        graphs the vmap thread path. The gradient norms' model-axis sum is
+        one ``all_reduce`` for the epoch. ``models`` are this rank's parts."""
+        r0, r1 = meshes.shard_range(X.shape[1], mesh, data_axes)
+        x = X[:, r0:r1]
+        if model_axis is not None:
+            c0, c1 = meshes.shard_range(X.shape[2], mesh, (model_axis,))
+            x = x[..., c0:c1]
+        x, y, m = x.contiguous(), Y[:, r0:r1].contiguous(), mask[:, r0:r1].contiguous()
+        glm = self.glm_template is not None and (
+            self.use_fused_kernel or model_axis is not None
+        )
+        squares = []
+        for b in range(x.shape[0]):
+            if glm:
+                merged = engine_ops.glm_grad_sharded(
+                    x[b], y[b], models[0], m[b], act=self.glm_template, mesh=mesh,
+                    data_axes=data_axes, model_axis=model_axis,
+                )
+            else:
+                merged = meshes.all_reduce(
+                    self._thread_merge(models, x[b], y[b], m[b]), mesh, data_axes
+                )
+            models = self._post(models, merged, self.metas)
+            squares.append(merged.square().sum())
+        sq = torch.stack(squares)
+        if model_axis is not None:
+            meshes.all_reduce(sq, mesh, (model_axis,))
+        return models, sq.sqrt()
+
+    def _gspmd_epoch(self, mesh, data_axes, models, X, Y, mask):
+        """The thread path on each rank's tuple slice of every merge batch
+        (dead rows pad the batch to divide the data axes), the models whole,
+        one ``all_reduce`` a batch with the merge's operator."""
+        pad = -X.shape[1] % meshes.mesh_axis_size(mesh, *data_axes)
+        if pad:
+            X = torch.nn.functional.pad(X, (0, 0, 0, pad))
+            Y = torch.nn.functional.pad(Y, (0, pad))
+            mask = torch.nn.functional.pad(mask, (0, pad))
+        r0, r1 = meshes.shard_range(X.shape[1], mesh, data_axes)
+        x, y, m = (t[:, r0:r1].contiguous() for t in (X, Y, mask))
+        squares = []
+        for b in range(x.shape[0]):
+            merged = meshes.all_reduce(self._thread_merge(models, x[b], y[b], m[b]),
+                                       mesh, data_axes, op=self.merge_op)
+            models = self._post(models, merged, self.metas)
+            squares.append(merged.square().sum())
+        return models, torch.stack(squares).sqrt()
+
+    def _sharded_epoch(self, mesh, path, models, X, Y, mask):
+        kind, data_axes, model_axis = path
+        if kind == "shard_map":
+            targets = self._model_targets(models, mesh, model_axis)
+            local = [self._local(m, sh) for m, sh in zip(models, targets)]
+            local, gnorms = self._shard_map_epoch(mesh, data_axes, model_axis, local,
+                                                  X, Y, mask)
+            return [meshes.from_local(t, sh, tuple(m.shape))
+                    for t, sh, m in zip(local, targets, models)], gnorms
+        whole = [meshes.full_tensor(m) for m in models]
+        whole, gnorms = self._gspmd_epoch(mesh, data_axes, whole, X, Y, mask)
+        return self._place_models(whole, mesh, model_axis), gnorms
+
+    def run_epoch_sharded(self, models, X, Y, mask, mesh=None):
+        """Epoch with the merge-coefficient (thread) dim split over the
+        mesh's data axes (and, with ``shard_model``, the feature dim over the
+        model axis): every rank holds the whole (X, Y, mask) and takes its
+        slices, runs the per-rank datapath, and the '+' merge becomes an
+        ``all_reduce``. Numerically ``run_epoch`` up to float summation
+        order. Every rank of the mesh calls it."""
+        mesh = mesh if mesh is not None else (
+            self.mesh if self.mesh is not None else meshes.current_mesh()
+        )
+        if not isinstance(mesh, meshes.Mesh):
+            return self._epoch(models, X, Y, mask)
+        path = self.sharded_path(mesh, coef=X.shape[1])
+        self.last_sharded_path = path
+        self._batch_shardings(X, Y, mask, mesh)
+        return self._sharded_epoch(mesh, path, models, X, Y, mask)
+
     # -- fused chunk executor (decode + reshape + epoch, no host join) ---------
     def run_chunk(self, models, pages, layout: PageLayout):
         """Strider decode + batch reshape + epoch loop over one resident page
@@ -305,7 +582,12 @@ class Engine:
         datapath. ``pages`` is the (P, page_words) u32 array from the buffer
         pool. Nothing here reads the card back: the returned (models, gnorms)
         stay on the device for the caller to chain into the next chunk and
-        join once per epoch."""
+        join once per epoch. Under an active mesh each rank decodes its own
+        page range and the epoch runs sharded (the collectives wait on the
+        card)."""
+        mesh = self._active_mesh()
+        if mesh is not None:
+            return self._run_chunk_sharded(models, pages, layout, mesh)
         if self._stage is not None:
             pages = self._stage(pages)
         else:
@@ -316,9 +598,30 @@ class Engine:
         if self.chunk_kernel:
             # the kernel masks the ragged last batch itself: no padded copy
             return self._sgd_chunk(models, x, y, m, self.merge_coef)
-        return self.run_epoch(models, *batches_from_stream(x, y, m, self.merge_coef))
+        return self._epoch(models, *batches_from_stream(x, y, m, self.merge_coef))
+
+    def _stage_pages(self, pages: np.ndarray) -> torch.Tensor:
+        if self._stage is not None:
+            return self._stage(pages)
+        return strider_ops.pages_tensor(pages).to(self.device)
+
+    def _run_chunk_sharded(self, models, pages, layout, mesh):
+        path = self._chunk_paths.get(mesh)
+        if path is None:  # decided once per mesh, as repro traces once
+            path = self._chunk_paths[mesh] = self.sharded_path(mesh)
+        self.last_sharded_path = path
+        feats, labels, mask = strider_ops.decode_page_range(
+            np.asarray(pages), layout, mesh, self._stage_pages, rules=self._batch_rules()
+        )
+        t = feats.shape[0] * feats.shape[1]
+        X, Y, M = batches_from_stream(feats.reshape(t, layout.n_features),
+                                      labels.reshape(t), mask.reshape(t), self.merge_coef)
+        if path[0] == "gspmd":
+            self._batch_shardings(X, Y, M, mesh)
+        return self._sharded_epoch(mesh, path, models, X, Y, M)
 
     def converged(self, models, merged) -> bool:
+        models = [meshes.full_tensor(m) for m in models]
         return bool(self._conv(models, merged, self.metas))
 
     # -- sequential oracle ------------------------------------------------------
@@ -345,13 +648,23 @@ def make_engine(
     mesh=None,
     shard_model: bool = False,
     device=None,
+    shard_impl: str = "auto",
 ) -> Engine:
-    if mesh is not None or shard_model:
-        raise NotImplementedError(
-            "sharded epochs (mesh=, shard_model=) wait for the port's "
-            "distribution slice (ROADMAP A19)"
+    """``mesh``: a ``meshes.Mesh`` (its device type the engine's), an
+    ``AbstractMesh`` (sizes only: never dispatched) or None, when an
+    enclosing ``meshes.use_mesh`` may still shard the epochs.
+    ``shard_model`` without a mesh builds an unsharded engine, as in
+    ``repro``."""
+    if shard_impl not in ("auto", "shard_map", "gspmd"):
+        raise ValueError(f"unknown shard_impl {shard_impl!r}")
+    if mesh is not None and not meshes.is_mesh(mesh):
+        raise TypeError(
+            f"mesh must be a meshes.Mesh (make_mesh, make_host_mesh) or a "
+            f"meshes.AbstractMesh, not {type(mesh).__name__}"
         )
     device = resolve_device(device)
+    if isinstance(mesh, meshes.Mesh) and mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh for an engine on {device}")
     if g.merge_id is not None:
         op = g.node(g.merge_id).attrs["op"]
         coef = merge_coef or g.node(g.merge_id).attrs["coef"]
@@ -369,4 +682,7 @@ def make_engine(
         use_fused_kernel=use_fused_kernel and tmpl is not None,
         device=device,
         fused_update=match_sgd_update(g, part, metas) if tmpl is not None else None,
+        mesh=mesh,
+        shard_model=shard_model,
+        shard_impl=shard_impl,
     )

@@ -24,9 +24,17 @@ Executors (``pipelined=``):
 
 ``train`` and ``train_units`` run on the card unless the caller passes
 ``device="cpu"``, and raise when there is no card.
+
+``mesh=`` (or an enclosing ``meshes.use_mesh``) turns on the engine's
+sharded epoch mode, and ``shard_model=True`` also partitions the model's
+feature dim over the mesh's model axis (``Engine.sharded_path``). Every rank
+of the mesh calls ``train`` with the same arguments; ``TrainResult.models``
+holds the whole arrays on every rank, and ``device_syncs`` counts the
+solver's own joins (pipelined: one an epoch), not the collectives' waits.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -46,6 +54,7 @@ from repro_torch.core.translator import Partition
 from repro_torch.db.bufferpool import BufferPool
 from repro_torch.db.heap import HeapFile
 from repro_torch.db.page import parse_page
+from repro_torch.dist import meshes
 from repro_torch.kernels.strider import ops as strider_ops
 
 MAX_RESIDENT_PAGES = 512  # pages decoded per device chunk (16 MB of 32 KB pages)
@@ -84,6 +93,12 @@ def _device_sync(models, gnorm):
     return models, float(gnorm)
 
 
+def _whole(models) -> list[np.ndarray]:
+    """The trained models as whole arrays, the same on every rank (a model
+    the mesh shards is gathered by broadcasts)."""
+    return [meshes.full_tensor(m).cpu().numpy() for m in models]
+
+
 def _wait(t: torch.Tensor) -> None:
     """Block until the card has produced ``t`` (synchronous executor)."""
     if t.device.type == "cuda":
@@ -112,11 +127,20 @@ def _decode_chunk(pages_np, heap, mode, device):
     return feats, labels, torch.ones(feats.shape[0], dtype=torch.float32, device=device)
 
 
-def _setup(g, part, heap, pool, mode, engine, merge_coef, models, seed, device):
+def _setup(g, part, heap, pool, mode, engine, merge_coef, models, seed, device,
+           mesh, shard_model):
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    if engine is not None and shard_model and not engine.shard_model:
+        # silently training replicated when the caller asked for a
+        # partitioned model would be a lie; the flag belongs to make_engine
+        raise ValueError(
+            "shard_model=True but the pre-built engine was made without it; "
+            "pass make_engine(..., shard_model=True)"
+        )
     if engine is None:
-        engine = make_engine(g, part, merge_coef=merge_coef, device=device)
+        engine = make_engine(g, part, merge_coef=merge_coef, mesh=mesh,
+                             shard_model=shard_model, device=device)
     elif device is not None and resolve_device(device) != engine.device:
         raise ValueError(f"device {device} != the engine's {engine.device}")
     pool = pool or BufferPool(
@@ -150,6 +174,8 @@ def train_units(
     models=None,
     seed: int = 0,
     device=None,
+    mesh=None,
+    shard_model: bool = False,
 ):
     """Generator form of the pipelined executor: yields once per device chunk
     *dispatch* and returns the TrainResult via ``StopIteration.value``.
@@ -159,7 +185,8 @@ def train_units(
     ``train(pipelined=True)``'s, which drains this generator."""
     t_start = time.perf_counter()
     engine, pool, models, page_chunks = _setup(
-        g, part, heap, pool, mode, engine, merge_coef, models, seed, device
+        g, part, heap, pool, mode, engine, merge_coef, models, seed, device,
+        mesh, shard_model,
     )
     if not page_chunks:
         raise ValueError("train_units needs a non-empty heap (nothing to scan)")
@@ -174,63 +201,65 @@ def train_units(
     epochs_run = 0
     conv_cache: dict = {}  # decoded first-chunk convergence batch, per call
 
-    # -- double-buffered executor: fetch k+1 under compute on k --------------
-    handle = pool.prefetch_batch(heap, page_chunks[0])
-    try:
-        for epoch in range(epochs):
-            t_epoch = time.perf_counter()
-            exposed_epoch = decode_epoch = 0.0
-            gnorm_dev = None
-            for k, chunk_ids in enumerate(page_chunks):
-                t0 = time.perf_counter()
-                pages_np = handle.result()
-                waited = time.perf_counter() - t0
-                exposed_epoch += waited
-                overlapped_io_s += max(handle.fetch_s - waited, 0.0)
-                # enqueue the next fetch before dispatching compute; the
-                # epoch wrap primes chunk 0 for the next epoch, unless this
-                # is the last one (the convergence check reuses its cached
-                # batch, so it never needs pages)
-                if k + 1 < len(page_chunks) or epoch + 1 < epochs:
-                    nxt = page_chunks[(k + 1) % len(page_chunks)]
-                    handle = pool.prefetch_batch(heap, nxt)
-                if mode == "dana":
-                    # strider decode + batch reshape + epoch loop, queued on
-                    # the card with no intermediate join
-                    models, gnorms = engine.run_chunk(models, pages_np, heap.layout)
-                else:
-                    t1 = time.perf_counter()
-                    feats, labels, mask = _decode_chunk(
-                        pages_np, heap, mode, engine.device
-                    )
-                    decode_epoch += time.perf_counter() - t1
-                    X, Y, M = _batches(feats, labels, mask, coef)
-                    models, gnorms = engine.run_epoch(models, X, Y, M)
-                gnorm_dev = gnorms[-1]
-                yield  # chunk dispatched: the scheduling point
-            models, gnorm = _device_sync(models, gnorm_dev)
-            device_syncs += 1
-            exposed_io_s += exposed_epoch
-            decode_s += decode_epoch
-            compute_s += time.perf_counter() - t_epoch - exposed_epoch - decode_epoch
-            grad_norms.append(gnorm)
-            epochs_run = epoch + 1
-            if g.convergence_id is not None:
-                if _check_convergence(engine, models, heap, pool, mode, coef, conv_cache):
-                    converged = True
-                    break
-    finally:
-        # drain the trailing (speculative) prefetch so the pool is quiescent
-        # on return; its outcome can't affect a result already computed, so
-        # its error is dropped, and a generator closed early cleans up the
-        # same way
-        if not handle.cancel():
-            try:
-                handle.result()
-            except Exception:
-                pass
+    mesh_ctx = meshes.use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    with mesh_ctx:
+        # -- double-buffered executor: fetch k+1 under compute on k ----------
+        handle = pool.prefetch_batch(heap, page_chunks[0])
+        try:
+            for epoch in range(epochs):
+                t_epoch = time.perf_counter()
+                exposed_epoch = decode_epoch = 0.0
+                gnorm_dev = None
+                for k, chunk_ids in enumerate(page_chunks):
+                    t0 = time.perf_counter()
+                    pages_np = handle.result()
+                    waited = time.perf_counter() - t0
+                    exposed_epoch += waited
+                    overlapped_io_s += max(handle.fetch_s - waited, 0.0)
+                    # enqueue the next fetch before dispatching compute; the
+                    # epoch wrap primes chunk 0 for the next epoch, unless this
+                    # is the last one (the convergence check reuses its cached
+                    # batch, so it never needs pages)
+                    if k + 1 < len(page_chunks) or epoch + 1 < epochs:
+                        nxt = page_chunks[(k + 1) % len(page_chunks)]
+                        handle = pool.prefetch_batch(heap, nxt)
+                    if mode == "dana":
+                        # strider decode + batch reshape + epoch loop, queued on
+                        # the card with no intermediate join
+                        models, gnorms = engine.run_chunk(models, pages_np, heap.layout)
+                    else:
+                        t1 = time.perf_counter()
+                        feats, labels, mask = _decode_chunk(
+                            pages_np, heap, mode, engine.device
+                        )
+                        decode_epoch += time.perf_counter() - t1
+                        X, Y, M = _batches(feats, labels, mask, coef)
+                        models, gnorms = engine.run_epoch(models, X, Y, M)
+                    gnorm_dev = gnorms[-1]
+                    yield  # chunk dispatched: the scheduling point
+                models, gnorm = _device_sync(models, gnorm_dev)
+                device_syncs += 1
+                exposed_io_s += exposed_epoch
+                decode_s += decode_epoch
+                compute_s += time.perf_counter() - t_epoch - exposed_epoch - decode_epoch
+                grad_norms.append(gnorm)
+                epochs_run = epoch + 1
+                if g.convergence_id is not None:
+                    if _check_convergence(engine, models, heap, pool, mode, coef, conv_cache):
+                        converged = True
+                        break
+        finally:
+            # drain the trailing (speculative) prefetch so the pool is quiescent
+            # on return; its outcome can't affect a result already computed, so
+            # its error is dropped, and a generator closed early cleans up the
+            # same way
+            if not handle.cancel():
+                try:
+                    handle.result()
+                except Exception:
+                    pass
     return TrainResult(
-        models=[m.cpu().numpy() for m in models],
+        models=_whole(models),
         epochs_run=epochs_run,
         converged=converged,
         grad_norms=grad_norms,
@@ -258,17 +287,24 @@ def train(
     seed: int = 0,
     pipelined: bool = True,
     device=None,
+    mesh=None,
+    shard_model: bool = False,
 ) -> TrainResult:
     """Train the UDF ``(g, part)`` over ``heap``. ``pipelined=True``
     (default) drains the ``train_units`` generator, the double-buffered
     executor; ``pipelined=False`` keeps the fully synchronous per-chunk loop
     (the ablation both tests and benchmarks compare against). ``device=None``
-    means the card."""
+    means the card. ``mesh`` (or an enclosing ``meshes.use_mesh``) turns on
+    the engine's sharded epoch mode: the decoded tuple stream is split over
+    the mesh's data axes, parallel Striders feeding one merge tree.
+    ``shard_model=True`` also partitions the model's feature dim (GLM
+    coefficients, LRMF factors) over the mesh's model axis, per the logical
+    axes the algorithm declared."""
     if pipelined and heap.n_pages > 0:
         gen = train_units(
             g, part, heap, pool=pool, mode=mode, engine=engine,
             max_epochs=max_epochs, merge_coef=merge_coef, models=models,
-            seed=seed, device=device,
+            seed=seed, device=device, mesh=mesh, shard_model=shard_model,
         )
         while True:
             try:
@@ -279,7 +315,8 @@ def train(
     # -- synchronous executor (phases add; the ablation baseline) ------------
     t_start = time.perf_counter()
     engine, pool, models, page_chunks = _setup(
-        g, part, heap, pool, mode, engine, merge_coef, models, seed, device
+        g, part, heap, pool, mode, engine, merge_coef, models, seed, device,
+        mesh, shard_model,
     )
     epochs = max_epochs or g.epochs or 100
     coef = engine.merge_coef
@@ -290,34 +327,36 @@ def train(
     epochs_run = 0
     conv_cache: dict = {}  # decoded first-chunk convergence batch, per call
 
-    for epoch in range(epochs):
-        last_gnorm = None
-        for chunk_ids in page_chunks:
-            t0 = time.perf_counter()
-            pages_np = pool.fetch_batch(heap, chunk_ids)
-            t1 = time.perf_counter()
-            feats, labels, mask = _decode_chunk(pages_np, heap, mode, engine.device)
-            _wait(feats)
-            t2 = time.perf_counter()
-            X, Y, M = _batches(feats, labels, mask, coef)
-            models, gnorms = engine.run_epoch(models, X, Y, M)
-            _wait(models[0])
-            device_syncs += 2
-            t3 = time.perf_counter()
-            io_s += t1 - t0
-            decode_s += t2 - t1
-            compute_s += t3 - t2
-            last_gnorm = float(gnorms[-1])
-        grad_norms.append(last_gnorm if last_gnorm is not None else float("nan"))
-        epochs_run = epoch + 1
-        if g.convergence_id is not None and last_gnorm is not None:
-            # convergence is evaluated once per epoch (paper §4.4) on the
-            # cached first-chunk batch
-            if _check_convergence(engine, models, heap, pool, mode, coef, conv_cache):
-                converged = True
-                break
+    mesh_ctx = meshes.use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    with mesh_ctx:
+        for epoch in range(epochs):
+            last_gnorm = None
+            for chunk_ids in page_chunks:
+                t0 = time.perf_counter()
+                pages_np = pool.fetch_batch(heap, chunk_ids)
+                t1 = time.perf_counter()
+                feats, labels, mask = _decode_chunk(pages_np, heap, mode, engine.device)
+                _wait(feats)
+                t2 = time.perf_counter()
+                X, Y, M = _batches(feats, labels, mask, coef)
+                models, gnorms = engine.run_epoch(models, X, Y, M)
+                _wait(models[0])
+                device_syncs += 2
+                t3 = time.perf_counter()
+                io_s += t1 - t0
+                decode_s += t2 - t1
+                compute_s += t3 - t2
+                last_gnorm = float(gnorms[-1])
+            grad_norms.append(last_gnorm if last_gnorm is not None else float("nan"))
+            epochs_run = epoch + 1
+            if g.convergence_id is not None and last_gnorm is not None:
+                # convergence is evaluated once per epoch (paper §4.4) on the
+                # cached first-chunk batch
+                if _check_convergence(engine, models, heap, pool, mode, coef, conv_cache):
+                    converged = True
+                    break
     return TrainResult(
-        models=[m.cpu().numpy() for m in models],
+        models=_whole(models),
         epochs_run=epochs_run,
         converged=converged,
         grad_norms=grad_norms,

@@ -1,22 +1,185 @@
-"""Fallback registry of the distribution layer (counterpart of
-``repro.dist.meshes``, lines 233-271, which it is held against).
+"""Logical-axis sharding over ``torch.distributed``: rule tables, resolver,
+meshes, placements and the few collectives the port makes (counterpart of
+``repro.dist.meshes``, which it is held against).
 
-The port runs on one card, so there is no mesh: ``repro``'s ``shard_act``
-constraints are the identity here and the port's model code leaves them out,
-and every entry point that takes ``mesh=`` raises ``NotImplementedError``
-through ``no_mesh`` until the distribution slice (ROADMAP A19). What stays
-is the report of decisions a caller made against what it was asked for (a
-server that serves gather attention where the kernel was asked for, or
-chunked stepping where token stepping was), which callers record with ``record_fallback`` and read with ``fallbacks()``.
+Every parameter, activation, input and model tensor carries a tuple of
+*logical* axis names (``("vocab", "embed")``, ``("pages", "tuples",
+"features")``, ...). This module resolves those names onto the axes of a
+device mesh:
 
-The log is per thread, as in ``repro``; with no ``use_mesh`` block to scope
-it, ``clear_fallbacks`` starts a fresh report.
+  * ``resolve_spec(logical_axes, shape, mesh)`` -> ``PartitionSpec`` via a
+    rule table, with greedy multi-axis assignment (``batch`` spreads over
+    ``("pod", "data")``), no mesh axis used twice in one tensor, and a dim
+    that does not divide its mesh axis left replicated with the drop
+    recorded (``fallbacks()``), all as ``repro`` decides it.
+  * ``named_sharding`` / ``tree_shardings`` / ``replicated`` -> the port's
+    ``NamedSharding``: its mesh, its spec and the DTensor placements, one per
+    mesh dim (``Shard(dim)`` on each mesh axis that the spec names).
+  * ``device_put(x, sharding)`` -> a ``DTensor`` built from this rank's slice
+    of ``x`` (``DTensor.from_local``): nothing is scattered, since gloo on
+    CUDA tensors runs only ``all_reduce``, ``broadcast`` and ``barrier``.
+    ``full_tensor`` makes a DTensor whole again by broadcasts.
+  * ``shard_act(x, logical_axes, tag)`` -> the same object outside a mesh
+    or where the spec resolves fully replicated, else ``x`` placed by its
+    sharding. The port's model code runs on one card and leaves these
+    activation cut points out.
+  * ``use_mesh(mesh)`` installs the current mesh (the engine's sharded epoch
+    mode reads it) and gives the block a fresh fallback log.
+  * mesh constructors: ``make_mesh`` (a ``DeviceMesh`` over the ranks of the
+    default process group, which the caller set up: the port never picks a
+    backend for it), ``make_host_mesh`` and ``make_production_mesh``.
+  * ``all_reduce`` / ``broadcast`` over the ranks of some mesh axes, counted
+    in ``COLLECTIVES``: the only collectives the port issues itself.
+
+``AbstractMesh(sizes, names)`` sizes a mesh without ranks, for the resolver
+and the engine's path decision. ``repro``'s ``shard_map`` and its jax
+version compatibility code have no counterpart: the engine's sharded epoch
+calls the collectives itself (ROADMAP §A).
+
+The fallback log also takes the decisions a caller made against what it was
+asked for (a server that serves gather attention where the kernel was asked
+for), which callers record with ``record_fallback``. The log and the current
+mesh are per thread, as in ``repro``. ``BatchedServer(mesh=)`` still raises
+through ``no_mesh`` until the sharded server (ROADMAP A19c).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import datetime
+import itertools
+import math
+import sys
 import threading
 
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+Mesh = DeviceMesh
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: a mesh axis name, a tuple of them (the dim
+    split over several axes, the first the major one), or None
+    (replicated)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+class AbstractMesh:
+    """A mesh's axis names and sizes without ranks or devices:
+    ``AbstractMesh((2, 4), ("data", "model"))``. ``.shape`` maps each axis
+    name to its size."""
+
+    def __init__(self, sizes, names):
+        sizes, names = tuple(int(s) for s in sizes), tuple(names)
+        if len(sizes) != len(names):
+            raise ValueError(f"{len(sizes)} sizes for {len(names)} axis names")
+        self.axis_names = names
+        self.axis_sizes = sizes
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, AbstractMesh) and (
+            (self.axis_sizes, self.axis_names) == (other.axis_sizes, other.axis_names))
+
+    def __hash__(self) -> int:
+        return hash((self.axis_sizes, self.axis_names))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+def is_mesh(mesh) -> bool:
+    return isinstance(mesh, (DeviceMesh, AbstractMesh))
+
+
+# ---------------------------------------------------------------------------
+# Rule tables: logical axis -> mesh axis (str), joint axes (tuple), or None.
+# Tuples are assigned greedily left-to-right, each axis subject to the
+# divisibility check against the product accepted so far.
+# ---------------------------------------------------------------------------
+DEFAULT_RULES: dict[str, str | tuple[str, ...] | None] = {
+    # data parallelism (pod spans the DCN boundary when present)
+    "batch": ("pod", "data"),
+    # engine thread dim: the strider-decoded tuple stream (paper's parallel
+    # Striders feeding the multi-threaded execution engine)
+    "tuples": ("pod", "data"),
+    # heap pages streamed into the access engine: decode is page-parallel
+    # (each rank's Strider decodes its local page range)
+    "heap_pages": ("pod", "data"),
+    # paged serving KV: the block pool spreads over the data axes (blocks are
+    # the unit of placement, like heap pages for the Striders); the in-block
+    # token dim never shards
+    "kv_blocks": ("pod", "data"),
+    # ZeRO-partitioned optimizer-state dim (train.optimizer.state_specs)
+    "zero": ("pod", "data"),
+    # tensor parallelism (Megatron TP pattern)
+    "vocab": "model",
+    "ff": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "experts": "model",
+    "inner": "model",
+}
+
+# FSDP: params additionally shard their embed dim over the data axes
+# (gathered on use), on top of the standard TP rules.
+FSDP_PARAM_RULES: dict[str, str | tuple[str, ...] | None] = dict(
+    DEFAULT_RULES, embed=("pod", "data")
+)
+
+# Engine model-axis sharding (wide GLMs / LRMF): the feature dim of GLM
+# coefficient vectors, and of the decoded tuple stream feeding them, is
+# partitioned over the mesh's model axis; LRMF factor matrices reuse the
+# same "features" name for their item dim (rank stays replicated). Opt-in
+# via Engine/solver.train(shard_model=True); DEFAULT_RULES keeps "features"
+# unsharded so data-only meshes never pay feature collectives.
+MODEL_SHARD_RULES: dict[str, str | tuple[str, ...] | None] = dict(
+    DEFAULT_RULES, features="model", rank=None
+)
+
+# Serving KV/state caches: slots, the cache batch dim, spread over the data
+# axes, heads/features over the model axis. The sequence dim stays
+# rank-local on purpose: continuous batching writes every slot's row at its
+# own position each step (a per-row scatter), so sharding kv_seq would turn
+# each decode write into a cross-shard update. Explicit Nones document the
+# dims that must remain replicated.
+SERVE_CACHE_RULES: dict[str, str | tuple[str, ...] | None] = dict(
+    DEFAULT_RULES,
+    layers=None, kv_seq=None, seq=None, head_dim=None, lora=None,
+    state=None, conv=None, embed=None, block=None,
+)
+
+# Kernel-path variant: the paged-attention kernel walks the whole block pool
+# through a block table (any token may map any physical block), so the
+# pool's block dim must stay replicated.
+SERVE_KERNEL_CACHE_RULES: dict[str, str | tuple[str, ...] | None] = dict(
+    SERVE_CACHE_RULES, kv_blocks=None,
+)
+
+
+# ---------------------------------------------------------------------------
+# Current-mesh context + fallback bookkeeping (thread-local)
+# ---------------------------------------------------------------------------
 _STATE = threading.local()
+
+
+def current_mesh():
+    """The mesh installed by the innermost ``use_mesh``, or None."""
+    return getattr(_STATE, "mesh", None)
 
 
 def _fallback_log() -> list:
@@ -27,8 +190,8 @@ def _fallback_log() -> list:
 
 
 def fallbacks() -> list[tuple[str | None, tuple[str, int], str]]:
-    """Fallbacks recorded since ``clear_fallbacks`` (or the thread's start):
-    ``(tensor_name, (logical_axis, dim), why)``."""
+    """Drops recorded since the current ``use_mesh`` was entered (or since
+    ``clear_fallbacks``): ``(tensor_name, (logical_axis, dim), why)``."""
     return list(_fallback_log())
 
 
@@ -37,17 +200,513 @@ def clear_fallbacks() -> None:
 
 
 def record_fallback(tensor_name, logical_axis, dim, why) -> None:
-    """Record one fallback; an entry already in the log is not repeated."""
+    """Record one fallback; an entry already in the log is not repeated.
+    Callers that make their own decisions (the engine's sharded path, the
+    server) land in the same ``fallbacks()`` report as the resolver."""
     entry = (tensor_name, (logical_axis, dim), why)
     log = _fallback_log()
     if entry not in log:
         log.append(entry)
 
 
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Install ``mesh`` as the current mesh for ``shard_act`` and the engine's
+    sharded epoch mode. Each block gets a fresh fallback log so it reports
+    its own drops; the enclosing block's log is restored (not lost) on
+    exit."""
+    prev_mesh = current_mesh()
+    prev_log = _fallback_log()
+    _STATE.mesh = mesh
+    _STATE.fallbacks = []
+    try:
+        yield mesh
+    finally:
+        _STATE.mesh = prev_mesh
+        _STATE.fallbacks = prev_log
+
+
 def no_mesh(mesh, what: str) -> None:
     """Raise for a ``mesh=`` the port cannot serve yet."""
     if mesh is not None:
         raise NotImplementedError(
-            f"{what}: meshes and sharding wait for the distribution slice "
-            "(ROADMAP A19); the port runs on one card"
+            f"{what}: serving on a mesh waits for the sharded server "
+            "(ROADMAP A19c); the engine's TRAIN epochs shard (A19a)"
         )
+
+
+# ---------------------------------------------------------------------------
+# Resolver
+# ---------------------------------------------------------------------------
+def _axis_sizes(mesh) -> dict[str, int]:
+    if isinstance(mesh, DeviceMesh):
+        if mesh.mesh_dim_names is None:
+            raise ValueError("the port's meshes name their axes (make_mesh)")
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return {name: int(mesh.shape[name]) for name in mesh.axis_names}
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one ``PartitionSpec`` entry, as a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def resolve_spec(
+    logical_axes,
+    shape,
+    mesh,
+    rules: dict | None = None,
+    tensor_name: str | None = None,
+) -> PartitionSpec:
+    """Resolve logical axis names against ``mesh`` -> ``PartitionSpec``.
+
+    Per dim, the rule table yields a mesh axis (or a tuple tried greedily
+    left-to-right). An axis is assigned iff it exists in the mesh, has size
+    > 1, was not already used by an earlier dim of this tensor, and the dim
+    size is divisible by the accumulated shard count; a divisibility miss is
+    recorded in ``fallbacks()`` and the dim stays (partially) replicated.
+    """
+    logical_axes = tuple(logical_axes)
+    shape = tuple(shape)
+    if len(logical_axes) != len(shape):
+        raise ValueError(
+            f"rank mismatch for {tensor_name or 'tensor'}: "
+            f"axes {logical_axes} vs shape {shape}"
+        )
+    rules = DEFAULT_RULES if rules is None else rules
+    sizes = _axis_sizes(mesh)
+    used: set[str] = set()
+    out = []
+    for dim, (name, dim_size) in enumerate(zip(logical_axes, shape)):
+        cand = rules.get(name)
+        if cand is None:
+            out.append(None)
+            continue
+        if isinstance(cand, str):
+            cand = (cand,)
+        picked: list[str] = []
+        shards = 1
+        for axis in cand:
+            if axis not in sizes or sizes[axis] <= 1 or axis in used:
+                continue  # absent/degenerate/taken: not a fallback, just n/a
+            if dim_size % (shards * sizes[axis]) != 0:
+                record_fallback(
+                    tensor_name, name, dim,
+                    f"dim {dim_size} not divisible by mesh axis "
+                    f"'{axis}'={sizes[axis]} (x{shards} already assigned)",
+                )
+                continue
+            picked.append(axis)
+            shards *= sizes[axis]
+        used.update(picked)
+        if not picked:
+            out.append(None)
+        elif len(picked) == 1:
+            out.append(picked[0])
+        else:
+            out.append(tuple(picked))
+    return PartitionSpec(*out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A tensor's placement on ``mesh``: ``spec`` by tensor dim, and the same
+    as DTensor ``placements``, one per mesh dim."""
+
+    mesh: object
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> tuple:
+        from torch.distributed.tensor import Replicate, Shard
+
+        names = list(_axis_sizes(self.mesh))
+        out = [Replicate()] * len(names)
+        for dim, entry in enumerate(self.spec):
+            for axis in entry_axes(entry):
+                out[names.index(axis)] = Shard(dim)
+        return tuple(out)
+
+    @property
+    def is_replicated(self) -> bool:
+        return all(entry is None for entry in self.spec)
+
+
+def named_sharding(
+    logical_axes,
+    shape,
+    mesh,
+    *,
+    rules: dict | None = None,
+    tensor_name: str | None = None,
+) -> NamedSharding:
+    """``NamedSharding`` for one tensor from its logical axes."""
+    spec = resolve_spec(
+        logical_axes, shape, mesh, rules=rules, tensor_name=tensor_name
+    )
+    return NamedSharding(mesh, spec)
+
+
+def _is_spec(node) -> bool:
+    return isinstance(node, tuple) and all(
+        isinstance(e, (str, type(None))) for e in node
+    )
+
+
+def tree_shardings(specs, tree, mesh, rules: dict | None = None):
+    """NamedShardings for a tree of dicts, lists and tuples: ``specs`` is a
+    parallel tree whose leaves are logical-axis tuples (params, optimizer
+    state, caches); ``tree`` holds tensors or anything with a ``.shape``.
+    Key paths become the tensor names in the fallback report. Dict keys are
+    walked in sorted order, as ``jax.tree_util`` walks them, so the report
+    lists the drops in ``repro``'s order."""
+
+    def walk(spec, leaf, path):
+        if _is_spec(spec):
+            return named_sharding(
+                spec, tuple(leaf.shape), mesh, rules=rules,
+                tensor_name="/".join(path) or None,
+            )
+        if spec is None:
+            return None
+        if isinstance(spec, dict):
+            return {k: walk(spec[k], leaf[k], path + [str(k)]) for k in sorted(spec)}
+        if isinstance(spec, (list, tuple)):
+            return type(spec)(
+                walk(s, l, path + [str(i)]) for i, (s, l) in enumerate(zip(spec, leaf))
+            )
+        raise TypeError(f"spec tree node {spec!r} at {'/'.join(path) or 'root'}")
+
+    return walk(specs, tree, [])
+
+
+def replicated(mesh) -> NamedSharding:
+    """Fully-replicated NamedSharding (models, scalars)."""
+    return NamedSharding(mesh, PartitionSpec())
+
+
+def mesh_axis_size(mesh, *axis_names) -> int:
+    """Product of the named axes present in ``mesh`` (missing axes count 1)."""
+    sizes = _axis_sizes(mesh)
+    return math.prod(sizes.get(a, 1) for a in axis_names)
+
+
+def mesh_data_axes(mesh) -> tuple[str, ...]:
+    """The mesh's non-degenerate data-parallel axes, in rule order: the axes
+    the engine's sharded epoch splits the tuple stream over."""
+    sizes = _axis_sizes(mesh)
+    return tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1)
+
+
+# ---------------------------------------------------------------------------
+# This rank's place on a DeviceMesh
+# ---------------------------------------------------------------------------
+def shard_index(mesh: DeviceMesh, axes) -> tuple[int, int]:
+    """(this rank's index, the count) over ``axes`` taken together, the
+    first axis the major one: the shard of a dim split over ``axes`` that
+    this rank holds."""
+    sizes = _axis_sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    index, count = 0, 1
+    for axis in entry_axes(axes):
+        index = index * sizes[axis] + coord[axis]
+        count *= sizes[axis]
+    return index, count
+
+
+def shard_range(length: int, mesh: DeviceMesh, axes) -> tuple[int, int]:
+    """[start, stop) of this rank's shard of a dim of ``length`` split evenly
+    over ``axes``."""
+    index, count = shard_index(mesh, axes)
+    if length % count:
+        raise ValueError(f"dim {length} does not split evenly over {axes} ({count})")
+    step = length // count
+    return index * step, (index + 1) * step
+
+
+def axis_ranks(mesh: DeviceMesh, axes) -> list[int]:
+    """The global ranks of this rank's group over ``axes``: the ranks that
+    share its coordinates on every other mesh axis, in shard-index order."""
+    names = list(mesh.mesh_dim_names)
+    axes = entry_axes(axes)
+    coord = mesh.get_coordinate()
+    grid = mesh.mesh.permute(
+        [names.index(a) for a in names if a not in axes] + [names.index(a) for a in axes]
+    )
+    fixed = tuple(coord[names.index(a)] for a in names if a not in axes)
+    return grid[fixed].reshape(-1).tolist()
+
+
+_GROUPS: dict = {}  # (id(mesh), axes) -> (mesh, this rank's group)
+
+
+def axis_group(mesh: DeviceMesh, axes):
+    """This rank's process group over ``axes``, or None where they hold one
+    rank. Groups over several axes are made on first use, by every rank in
+    the same order (``new_group`` over each of the mesh's groups)."""
+    sizes = _axis_sizes(mesh)
+    axes = tuple(a for a in entry_axes(axes) if sizes.get(a, 1) > 1)
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (id(mesh), axes)
+    hit = _GROUPS.get(key)
+    if hit is None:
+        names = list(mesh.mesh_dim_names)
+        others = [names.index(a) for a in names if a not in axes]
+        grid = mesh.mesh.permute(others + [names.index(a) for a in axes])
+        grid = grid.reshape(-1, math.prod(sizes[a] for a in axes))
+        mine = None
+        for ranks in grid.tolist():
+            group = dist.new_group(ranks)
+            if dist.get_rank() in ranks:
+                mine = group
+        hit = _GROUPS[key] = (mesh, mine)
+    return hit[1]
+
+
+# ---------------------------------------------------------------------------
+# The collectives the port issues: all_reduce and broadcast only (gloo on
+# CUDA tensors runs nothing else), each counted
+# ---------------------------------------------------------------------------
+COLLECTIVES = {"all_reduce": 0, "broadcast": 0}
+REDUCE_OPS = {"+": "SUM", "*": "PRODUCT", "max": "MAX"}  # the merge operators
+
+
+def all_reduce(t: torch.Tensor, mesh: DeviceMesh, axes, op: str = "+") -> torch.Tensor:
+    """Reduce ``t`` in place over this rank's group on ``axes`` (no-op where
+    the axes hold one rank). ``op`` is a merge operator: ``+``, ``*`` or
+    ``max``."""
+    group = axis_group(mesh, axes) if entry_axes(axes) else None
+    if group is None:
+        return t
+    dist.all_reduce(t, op=getattr(dist.ReduceOp, REDUCE_OPS[op]), group=group)
+    COLLECTIVES["all_reduce"] += 1
+    return t
+
+
+def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """Broadcast ``t`` in place from global rank ``src`` over ``group``."""
+    dist.broadcast(t, src=src, group=group)
+    COLLECTIVES["broadcast"] += 1
+    return t
+
+
+def reset_collectives() -> None:
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Placing tensors
+# ---------------------------------------------------------------------------
+def is_dtensor(x) -> bool:
+    if "torch.distributed.tensor" not in sys.modules:  # nothing made one yet
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def local_slice(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's slice of the whole tensor ``x`` under ``sharding``
+    (contiguous; ``x`` itself where the spec is fully replicated)."""
+    if sharding.is_replicated:
+        return x
+    index = []
+    for dim, entry in enumerate(sharding.spec):
+        axes = entry_axes(entry)
+        if not axes:
+            index.append(slice(None))
+            continue
+        start, stop = shard_range(x.shape[dim], sharding.mesh, axes)
+        index.append(slice(start, stop))
+    return x[tuple(index)].contiguous()
+
+
+def from_local(local: torch.Tensor, sharding: NamedSharding, shape) -> torch.Tensor:
+    """``local`` as this rank's part of a tensor of ``shape`` placed by
+    ``sharding``: a DTensor where the spec shards a dim, else ``local``
+    itself (the whole tensor, the same on every rank). No communication."""
+    if sharding.is_replicated:
+        return local
+    from torch.distributed.tensor import DTensor
+
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, sharding.mesh, sharding.placements,
+                              run_check=False, shape=torch.Size(shape), stride=stride)
+
+
+def device_put(x: torch.Tensor, sharding: NamedSharding):
+    """``x`` (whole, the same on every rank) placed by ``sharding``: a
+    DTensor built from this rank's slice. Nothing is sent."""
+    from torch.distributed.tensor import DTensor
+
+    if is_dtensor(x):
+        x = full_tensor(x)
+    stride = torch.empty(x.shape, device="meta").stride()
+    return DTensor.from_local(local_slice(x, sharding), sharding.mesh, sharding.placements,
+                              run_check=False, shape=x.shape, stride=stride)
+
+
+def full_tensor(x):
+    """The whole tensor of a DTensor on every rank, from one broadcast per
+    shard (its holder with coordinate 0 on each replicated mesh dim sends);
+    any other tensor as it is. Every rank of the mesh must call it."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    mesh, placements, local = x.device_mesh, x.placements, x.to_local()
+    if mesh.size() == 1:
+        return local
+    if mesh.size() != dist.get_world_size():
+        raise ValueError("full_tensor needs a mesh over the whole process group")
+    out = torch.empty(x.shape, dtype=local.dtype, device=local.device)
+    me = dist.get_rank()
+    coords = itertools.product(*(range(s) for s in mesh.shape))
+    for rank, coord in zip(mesh.mesh.reshape(-1).tolist(), coords):
+        if any(c and isinstance(p, Replicate) for c, p in zip(coord, placements)):
+            continue
+        index = []
+        for tdim in range(x.dim()):
+            # the mesh dims that split this tensor dim, the first the major one
+            index_in, count = 0, 1
+            for d, p in enumerate(placements):
+                if not isinstance(p, Replicate) and p.dim == tdim:
+                    index_in, count = index_in * mesh.shape[d] + coord[d], count * mesh.shape[d]
+            step = x.shape[tdim] // count
+            index.append(slice(index_in * step, (index_in + 1) * step))
+        part = local.clone() if rank == me else torch.empty_like(local)
+        broadcast(part, src=rank)
+        out[tuple(index)] = part
+    return out
+
+
+def shard_act(x, logical_axes, tag: str | None = None, rules: dict | None = None):
+    """``x`` placed by its resolved sharding under the current mesh; the
+    same object when no mesh is installed, when the spec resolves fully
+    replicated, or under an ``AbstractMesh`` (which has no ranks)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    spec = resolve_spec(
+        logical_axes, x.shape, mesh, rules=rules, tensor_name=tag
+    )
+    if all(s is None for s in spec) or not isinstance(mesh, DeviceMesh):
+        return x
+    sharding = NamedSharding(mesh, spec)
+    if is_dtensor(x) and x.device_mesh is mesh and tuple(x.placements) == sharding.placements:
+        return x
+    return device_put(x, sharding)
+
+
+# ---------------------------------------------------------------------------
+# Mesh constructors
+# ---------------------------------------------------------------------------
+def _device_type(device) -> str:
+    """``None`` means the card, as everywhere in the port; asking for a card
+    that is not there raises."""
+    kind = torch.device("cuda" if device is None else device).type
+    if kind == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return kind
+
+
+def make_mesh(axis_shapes, axis_names, *, device=None) -> DeviceMesh:
+    """A ``DeviceMesh`` of ``axis_shapes`` named ``axis_names`` over the ranks
+    of the default process group, in rank order. The caller sets the group
+    up (``torch.distributed.init_process_group``, its backend its choice);
+    the mesh's size must be the group's."""
+    device_type = _device_type(device)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_mesh needs a process group: call "
+            "torch.distributed.init_process_group first (make_host_mesh makes "
+            "a one-rank group for a lone process)"
+        )
+    axis_shapes, axis_names = tuple(int(s) for s in axis_shapes), tuple(axis_names)
+    n, world = math.prod(axis_shapes), dist.get_world_size()
+    if n != world:
+        raise ValueError(f"a mesh of {axis_shapes} needs {n} ranks; the group has {world}")
+    return DeviceMesh(device_type, torch.arange(n).reshape(axis_shapes),
+                      mesh_dim_names=axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> DeviceMesh:
+    """Single pod: 16x16 = 256 ranks (data, model). Multi-pod: 2x16x16 = 512
+    ranks (pod, data, model); the pod axis carries pure data parallelism."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != math.prod(shape):
+        raise ValueError(
+            f"the production mesh {dict(zip(axes, shape))} needs {math.prod(shape)} "
+            f"ranks; this process group has {world}"
+        )
+    return make_mesh(shape, axes, device=device)
+
+
+def make_host_mesh(model_parallel: int = 1, *, device=None) -> DeviceMesh:
+    """(world // mp, mp) named ("data", "model") over the default process
+    group's ranks. A lone process with no group first makes a one-rank group
+    (its backend torch's default), so it gets a (1, 1) mesh, as ``repro``
+    does on one device."""
+    _device_type(device)
+    if not dist.is_initialized():
+        dist.init_process_group(store=dist.HashStore(), rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=60))
+    n = dist.get_world_size()
+    mp = max(1, min(model_parallel, n))
+    if n % mp:
+        raise ValueError(f"model_parallel {mp} does not divide the {n} ranks")
+    return make_mesh((n // mp, mp), ("data", "model"), device=device)
+
+
+__all__ = [
+    "AbstractMesh",
+    "COLLECTIVES",
+    "DEFAULT_RULES",
+    "FSDP_PARAM_RULES",
+    "MODEL_SHARD_RULES",
+    "Mesh",
+    "NamedSharding",
+    "PartitionSpec",
+    "SERVE_CACHE_RULES",
+    "SERVE_KERNEL_CACHE_RULES",
+    "all_reduce",
+    "axis_group",
+    "axis_ranks",
+    "broadcast",
+    "clear_fallbacks",
+    "current_mesh",
+    "device_put",
+    "fallbacks",
+    "entry_axes",
+    "from_local",
+    "full_tensor",
+    "is_dtensor",
+    "is_mesh",
+    "local_slice",
+    "make_host_mesh",
+    "make_mesh",
+    "make_production_mesh",
+    "mesh_axis_size",
+    "mesh_data_axes",
+    "named_sharding",
+    "no_mesh",
+    "record_fallback",
+    "replicated",
+    "reset_collectives",
+    "resolve_spec",
+    "shard_act",
+    "shard_index",
+    "shard_range",
+    "tree_shardings",
+    "use_mesh",
+]

@@ -2,6 +2,8 @@
 ``repro.launch.common``, which it is held against): the same concept is
 spelled the same way, with the same default, in every launcher:
 
+  mesh flags       ``--mesh none|host`` + ``--model-parallel N``
+                   (``mesh_from_args`` builds the host mesh or returns None)
   kv flags         ``--kv dense|paged`` + ``--block-size`` + ``--kv-blocks``
                    + ``--prefix-cache``
   scheduler flags  ``--scheduler`` + ``--deadline-ttft`` / ``--deadline``;
@@ -11,8 +13,9 @@ spelled the same way, with the same default, in every launcher:
 
 ``launch/score.py`` offers ``--scheduler priority|fifo`` only: ``wdrr``
 weighs a request by its prompt, a SQL statement has none, so the query
-executor cannot run it. The mesh flags wait for the distribution slice
-(ROADMAP A19).
+executor cannot run it. ``launch/train.py`` and ``launch/serve.py`` take
+no mesh flags yet: they wait for LM training on a mesh and the sharded
+server (ROADMAP A19b, A19c).
 
 Every helper takes the ``argparse.ArgumentParser`` (or a group) and only
 *adds* arguments; launchers keep their workload-specific flags alongside.
@@ -21,6 +24,26 @@ from __future__ import annotations
 
 import argparse
 import json
+
+
+def add_mesh_flags(ap: argparse.ArgumentParser, *, default_mesh: str = "none") -> None:
+    """--mesh / --model-parallel: device-mesh topology, shared vocabulary."""
+    ap.add_argument("--mesh", choices=["none", "host"], default=default_mesh,
+                    help="host: build a mesh over the ranks of the process "
+                         "group (data x model axes)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="model-axis size of the host mesh")
+
+
+def mesh_from_args(args):
+    """The mesh the flags asked for: a host mesh on ``args.device`` (the
+    card unless it says ``cpu``), or None (unsharded)."""
+    if getattr(args, "mesh", "none") != "host":
+        return None
+    from repro_torch.dist import meshes
+
+    return meshes.make_host_mesh(model_parallel=args.model_parallel,
+                                 device=getattr(args, "device", None))
 
 
 def add_kv_flags(ap: argparse.ArgumentParser) -> None:

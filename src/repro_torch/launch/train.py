@@ -19,8 +19,8 @@ parameters do not fit one card), and from ``--data-path synthetic`` the VLM
 gives those two no patches or frames, and their loss raises ``KeyError``.
 
 Like the reference, ``--microbatch`` is parsed and not passed on: the train
-loop always steps with one microbatch. The reference's mesh flags wait for
-ROADMAP A19.
+loop always steps with one microbatch. The reference's mesh flags
+(``common.add_mesh_flags``) wait for LM training on a mesh (ROADMAP A19b).
 """
 from __future__ import annotations
 

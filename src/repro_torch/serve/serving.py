@@ -102,7 +102,8 @@ Where the port differs from ``repro``:
     ``attn_mlp`` falls back to chunked stepping (``serve_step``), and an
     explicit ``prefix_cache=True`` without paged attention-only segments
     falls back to unshared serving (``serve_prefix``), both recorded in
-    ``meshes.fallbacks()``; ``mesh=`` raises until ROADMAP A19.
+    ``meshes.fallbacks()``; ``mesh=`` raises until the sharded server
+    (ROADMAP A19c).
   * **MoE's idle rows.** A decode sub-step routes the whole batch as one
     group, so the rows that do not run it (empty slots, finished or parked
     rows, fed token 0 at their frozen position as in ``repro``) claim

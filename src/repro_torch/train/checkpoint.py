@@ -17,7 +17,7 @@ checkpoint written by either package restores into the other.
 
 Restored leaves are tensors on the device of the template's matching leaf,
 in the stored dtype. The reference's ``shardings=`` (elastic reshard onto a
-mesh) waits for ROADMAP A19.
+mesh) waits for LM training on a mesh (ROADMAP A19b).
 """
 from __future__ import annotations
 

@@ -10,7 +10,7 @@ state leaves 18 GB of the card); a smaller leaf is one piece. Nothing is read ba
 the host: the step counter, the learning rate, the gradient norm and the clip
 scale stay tensors on the parameters' device. ``state_specs`` is a copy of
 the reference's logical-spec rule (the ZeRO 'zero' axis), kept for the
-distribution slice (ROADMAP A19); nothing shards by it yet.
+LM training on a mesh (ROADMAP A19b); nothing shards by it yet.
 """
 from __future__ import annotations
 

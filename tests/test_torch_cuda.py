@@ -146,6 +146,58 @@ def test_train_on_card_matches_cpu(card, tmp_path, algo, labels):
     np.testing.assert_allclose(a.models[0], b.models[0], rtol=1e-4, atol=1e-5)
 
 
+def test_sharded_epochs_on_two_gloo_ranks_of_one_card(card, tmp_path):
+    """Two gloo ranks on cuda:0 (tests/test_torch_dist_util.py's engine
+    case): the data mesh (2 x 1) launches B2's glm_grad a merge batch and
+    never the vmap thread path, the model mesh (1 x 2) holds w Shard(0),
+    LRMF takes the gspmd path, the solver trains on the model mesh; only
+    all_reduce and broadcast are issued (gloo on CUDA runs nothing else),
+    and each result is held against the unsharded card run."""
+    import test_torch_dist_util as dist_util
+    from repro_torch.algorithms import lrmf
+    from repro_torch.core.engine import init_models, make_engine
+
+    inp = dist_util.toy_inputs()
+    write_table(str(tmp_path / "t.heap"), inp["Xt"], inp["yt"], page_bytes=8192)
+    started = dist_util.start("engine", 2, str(tmp_path), device="cuda")
+    try:
+        g, part = trace(lambda: logistic_regression(16, lr=0.3, merge_coef=64))
+        eng = make_engine(g, part)
+        Xb = torch.from_numpy(inp["X"]).reshape(-1, 64, 16).cuda()
+        Yb = torch.from_numpy(inp["y"]).reshape(-1, 64).cuda()
+        want, wantg = eng.run_epoch(init_models(g), Xb, Yb, torch.ones_like(Yb))
+        gm, pm = trace(lambda: lrmf(24, rank=4, lr=1e-2, merge_coef=8))
+        Rb = torch.from_numpy(inp["R"]).reshape(-1, 8, 24).cuda()
+        m0 = init_models(gm, np.random.default_rng(1), scale=0.05)
+        wantm, _ = make_engine(gm, pm).run_epoch(m0, Rb, torch.zeros(Rb.shape[:2], device="cuda"),
+                                                 torch.ones(Rb.shape[:2], device="cuda"))
+        gt, pt = trace(lambda: linear_regression(16, lr=0.3, merge_coef=64, epochs=4))
+        base = solver.train(gt, pt, HeapFile(str(tmp_path / "t.heap")), mode="dana", seed=2)
+    finally:
+        ranks = dist_util.collect(started)
+    for rank, r in enumerate(ranks):
+        data, model = r["data"], r["model"]
+        assert data["path"] == ("shard_map", ("data",), None)
+        assert data["calls"] == data["launches"] == 16  # B2 a batch on each rank
+        assert data["collectives"] == {"all_reduce": 16, "broadcast": 0}
+        np.testing.assert_allclose(data["w"], want[0].cpu().numpy(), rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(data["gnorms"], wantg.cpu().numpy(), rtol=1e-3, atol=1e-4)
+        assert model["mesh"] == {"data": 1, "model": 2}
+        assert model["path"] == ("shard_map", (), "model")
+        assert model["placements"] == ["R", "S(0)"]
+        np.testing.assert_allclose(model["local"], model["w"][8 * rank:8 * rank + 8])
+        np.testing.assert_allclose(model["w"], want[0].cpu().numpy(), rtol=1e-4, atol=1e-5)
+        assert r["lrmf"]["path"] == ("gspmd", (), None)
+        assert r["lrmf"]["placements"] == ["R", "S(0)"]
+        np.testing.assert_allclose(r["lrmf"]["M"], wantm[0].cpu().numpy(), rtol=1e-4,
+                                   atol=1e-5)
+        assert r["train"]["device_syncs"] == r["train"]["epochs_run"] == 4
+        np.testing.assert_allclose(r["train"]["w"], base.models[0], rtol=1e-4, atol=1e-5)
+        assert r["forbidden"] == []
+    for key in (("data", "w"), ("model", "w"), ("lrmf", "M"), ("train", "w")):
+        assert np.array_equal(ranks[0][key[0]][key[1]], ranks[1][key[0]][key[1]]), key
+
+
 # plans over a d-column layout: one column, scattered runs, all, label only
 def _plans(layout):
     d = layout.n_features

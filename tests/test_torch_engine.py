@@ -299,8 +299,10 @@ def test_make_engine_device_and_mesh_policy(monkeypatch):
         init_models(g)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         models_from_numpy([np.zeros(4, np.float32)])
-    with pytest.raises(NotImplementedError, match="distribution"):
+    # a non-mesh is refused; shard_model without a mesh builds an unsharded
+    # engine, as in repro (the sharded epochs: test_torch_shard_engine.py)
+    with pytest.raises(TypeError, match="mesh"):
         make_engine(g, part, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        make_engine(g, part, shard_model=True, device=CPU)
+    eng = make_engine(g, part, shard_model=True, device=CPU)
+    assert eng.shard_model and eng.mesh is None and eng._active_mesh() is None
     assert make_engine(g, part, device=CPU).device == torch.device("cpu")

@@ -258,8 +258,22 @@ _ISOLATION_SCRIPT = textwrap.dedent(
                  "serve.metrics", "serve.faults", "serve.serving", "launch.serve",
                  "kernels.wkv.ref", "kernels.wkv.kernel", "kernels.wkv.ops", "models.ssm",
                  "train.optimizer", "train.grad_compress", "train.checkpoint",
-                 "train.train_loop", "data.pipeline", "launch.train"):
+                 "train.train_loop", "data.pipeline", "launch.train", "dist",
+                 "launch.mesh", "kernels.strider.ops", "kernels.engine.ops"):
         assert "repro_torch." + name in sys.modules, name
+    # the mesh layer's lazy imports: a one-rank mesh, a DTensor, a sharded epoch
+    import torch
+    from repro_torch.algorithms import linear_regression
+    from repro_torch.core.engine import init_models, make_engine
+    from repro_torch.core.translator import trace
+    from repro_torch.dist import meshes
+    mesh = meshes.make_host_mesh(device="cpu")
+    meshes.full_tensor(meshes.device_put(torch.zeros(4), meshes.replicated(mesh)))
+    g, part = trace(lambda: linear_regression(4, merge_coef=4))
+    eng = make_engine(g, part, device="cpu")
+    eng.run_epoch_sharded(init_models(g, device="cpu"), torch.zeros(2, 4, 4),
+                          torch.zeros(2, 4), torch.ones(2, 4), mesh=mesh)
+    assert "torch.distributed.tensor" in sys.modules
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "jax"
     bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
     assert not bad, bad
