@@ -6,7 +6,8 @@ hymba-1.5b (hybrid), olmoe-1b-7b (MoE) and rwkv6-3b and LM training of
 rwkv6-3b, minicpm3-4b, hymba-1.5b and seamless-m4t-medium (enc-dec, with its
 greedy decode) at full width and depth, LM serving of mistral-nemo-12b
 (GQA), minicpm3-4b (MLA) and internvl2-26b (the VLM) and LM training of
-olmoe-1b-7b and internvl2-26b at full width and cut depth, through the
+olmoe-1b-7b and internvl2-26b at full width and cut depth (and of rwkv6-3b
+on meshes of 4 gloo ranks, a checkpoint resharded between them), through the
 port's hand-written CUDA kernels, and LM PREDICT of mistral-nemo-12b from
 SQL over a token table.
 
@@ -229,7 +230,30 @@ Phases, one JSON line each:
            B5's calls at step 100 and at the decode-only step with the most
            context captured for the kernels line
   launch-train  launch/train.py's main() at full width for 2 steps
-  kernels  each kernel's launches on the main path (B3's: the GLM scans' and
+  train-elastic  LM training on a mesh: rwkv6-3b at full width, its depth cut
+           to 2 layers, 8 x 512 tokens from pages, full remat, AdamW; the
+           same 5 steps unsharded on the card first, on the whole batch and
+           split in microbatches as the meshes split the rows (both also
+           with f32 activations, their changes within 5e-3), then 4
+           gloo ranks on the card (``chip_smoke.py --elastic-rank``) run
+           launch/elastic_restart.py's flow: 3 steps on a (2 data x 2
+           model) mesh, save, the (4 x 1) mesh, restore(shardings=), 2
+           steps. Each loss within 2e-2 of the whole batch's, the first
+           step's gradient within 5e-2 of it (relative norm, by leaf), each
+           leaf's change over a mesh's steps within 5e-2 of the split
+           run's and of the whole batch's (a leaf off the whole batch's by
+           more: at most 1e-3 of its elements flipped in sign and the rest
+           within 5e-2), the
+           ranks that hold a region the same bits, opt.step 5, the
+           placements as state_specs resolves them, the checkpoint's
+           manifest an unsharded save's, B1, B6 and B6-bwd launched on
+           every rank, and each rank's first B6 and B6-bwd calls of each
+           mesh against their plain versions (r, k, v in f32 at
+           rtol=atol=2e-4; as captured, bf16 outputs within one bf16
+           step); per rank and step its seconds, busy and idle share, peak
+           memory, and the all_reduce and broadcast counts and bytes
+  kernels  each kernel's launches on the main path (B1's, B6's and
+           B6-bwd's on the mesh path too, per rank; B3's: the GLM scans' and
            the LM statements'; B2's one-batch gradient: the sharded ranks',
            and its time at their shares, (64, 54) and (128, 54)), error,
            time, bound,
@@ -263,7 +287,7 @@ lm-predict, serve-rwkv and serve-vlm beside serve-mla, then serve-moe and
 serve-hybrid (which starts its own gather run) beside serve and launch;
 train-sharded (which starts its 4 ranks) runs through both stages. The peak device memory of the phases
 that run together adds to at most 72 GB; the training phases, each near its
-own peak of 28-73 GB, run alone. Each phase's line carries the time it ended
+own peak of 28-73 GB, run alone, and so does train-elastic (its 4 ranks). Each phase's line carries the time it ended
 (``ended_unix_s``). Every kernel-line time is taken with no other process on
 the card (B2's one-batch gradient at the ranks' shares, (64, 54) and (128,
 54), before the serving phases; its launches are the ranks'). Every process
@@ -275,6 +299,7 @@ non-zero and prints no such line. Without a CUDA card the script exits 1.
 
     python3 chip_smoke.py
 """
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -2785,7 +2810,8 @@ def _beside_phases():
     phase, by name."""
     return {"serve-moe": phase_serve_moe, "serve-rwkv": phase_serve_rwkv,
             "serve-hybrid": phase_serve_hybrid, "lm-predict": phase_lm_predict,
-            "serve-vlm": phase_serve_vlm, "train-sharded": phase_train_sharded}
+            "serve-vlm": phase_serve_vlm, "train-sharded": phase_train_sharded,
+            "train-elastic": phase_train_elastic}
 
 
 def _beside_result(name):
@@ -5067,6 +5093,590 @@ def phase_launch_train():
         raise AssertionError(f"launch/train.py: {lines[:3]}, {hist}, {launches}")
 
 
+# ---------------------------------------------------------------------------
+# train-elastic: LM training on a mesh of gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+# rwkv6-3b at its published width, its depth cut to ELASTIC_LAYERS: in a step
+# each of the ELASTIC_WORLD ranks holds the whole weights and their gradient
+# (f32), besides its slices of the weights and the moments
+ELASTIC_WORLD = 4
+# 4 layers took 196 s of the phase and 830 s of the whole smoke on an H100
+# (gloo moves every byte of the weights and the gradient through the host);
+# at 2 the phase fits the smoke's time
+ELASTIC_LAYERS = 2
+# the first mesh (data x model) and its steps; then save, the second mesh
+# over the same ranks, restore(shardings=) and its steps
+ELASTIC_MESHES = {"a": ((2, 2), 3), "b": ((4, 1), 2)}
+ELASTIC_TIMEOUT_S = 600  # the ranks' limit; the process group's is below it
+ELASTIC_PG_TIMEOUT_S = 300
+# against unsharded card runs from the same seed and batches. On the whole
+# batch: each loss (relative) and each leaf of the first step's summed
+# gradient (relative norm, the bound of tests/test_torch_attention.py's bf16
+# gradients: bf16 activations round apart where a rank's matmuls see fewer
+# rows), and each leaf's change over a mesh's steps (relative norm). AdamW's
+# first steps move each element by about lr whatever its gradient's size, so
+# an element whose tiny gradient the rounding flips moves 2 lr the other
+# way: a leaf whose change is off by more is held instead by the share of
+# its elements whose change has the other sign (at most ELASTIC_FLIP_SHARE)
+# and by the relative norm over the elements whose sign agrees. On the
+# meshes' own row splits (each step in as many microbatches as the mesh has
+# data ranks): each leaf's change. The witness that the whole-batch gap is
+# bf16's rounding of a row split: the whole-batch and the split run again
+# with every activation in f32 (the tables uncast), their changes within
+# ELASTIC_F32_SPLIT_REL, a tenth of the change's bound
+ELASTIC_LOSS_REL, ELASTIC_GRAD_REL, ELASTIC_UPDATE_REL = 2e-2, 5e-2, 5e-2
+ELASTIC_FLIP_SHARE, ELASTIC_F32_SPLIT_REL = 1e-3, 5e-3
+
+
+def _elastic_args(work):
+    """The arguments of ``launch/elastic_restart.py``'s flow for this phase:
+    rwkv6-3b at full width on ELASTIC_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ
+    tokens from pages, full remat, AdamW (lr 3e-4, warmup 2)."""
+    from repro_torch.launch import elastic_restart
+
+    (ma, sa), (mb, sb) = ELASTIC_MESHES["a"], ELASTIC_MESHES["b"]
+    return elastic_restart.build_parser().parse_args([
+        "--device", "cuda", "--ranks", str(ELASTIC_WORLD), "--arch", TRAIN_ARCH,
+        "--full-width", "--layers", str(ELASTIC_LAYERS), "--batch", str(TRAIN_BATCH),
+        "--seq", str(TRAIN_SEQ), "--steps", str(sa), "--steps-after", str(sb), "--lr", "3e-4",
+        "--remat", TRAIN_REMAT, "--data-path", "pages",
+        "--mesh-a", f"{ma[0]}x{ma[1]}", "--mesh-b", f"{mb[0]}x{mb[1]}", "--workdir", work])
+
+
+def _leaf_copies(tree):
+    """{path: a copy on its device} of a tree's (whole) tensors: the
+    snapshots the phase compares on the card."""
+    return {name: t.detach().clone() for name, t in _named_leaves(tree)}
+
+
+def _placement_names(x):
+    """A tensor's or a NamedSharding's placements as "R" / "S(dim)", None
+    for a whole (replicated) tensor."""
+    from repro_torch.dist import meshes
+
+    if isinstance(x, meshes.NamedSharding):
+        if x.is_replicated:
+            return None
+        return ["R" if not hasattr(p, "dim") else f"S({p.dim})" for p in x.placements]
+    if not meshes.is_dtensor(x):
+        return None
+    return ["R" if not hasattr(p, "dim") else f"S({p.dim})" for p in x.placements]
+
+
+@contextlib.contextmanager
+def _f32_activations():
+    """The embedding and the unembedding uncast (as the CPU tests'
+    ``uncast``): the table's rows enter the stack in f32, so every
+    activation and the logits stay in f32."""
+    from repro_torch.models import layers, model_zoo, transformer
+
+    saved = (transformer.embed, transformer.unembed, layers.unembed, model_zoo.unembed)
+    transformer.embed = lambda p, t, cfg: p["table"][t]
+    transformer.unembed = layers.unembed = model_zoo.unembed = \
+        lambda p, x, cfg: x @ p["unembed"]
+    try:
+        yield
+    finally:
+        transformer.embed, transformer.unembed, layers.unembed, model_zoo.unembed = saved
+
+
+def _elastic_unsharded(cfg, args, work, name, micro, split):
+    """``len(micro)`` steps unsharded on the card from the flow's seed, step
+    ``s`` in ``micro[s]`` microbatches: losses, seconds, peak memory,
+    launches, the first step's gradients and the weights at steps 0,
+    ``split`` and the last (copies on the card), and the state's manifest."""
+    import gc
+
+    import torch
+
+    from repro_torch.data.pipeline import PageTokenDataset
+    from repro_torch.launch import elastic_restart
+    from repro_torch.models import model_zoo
+    from repro_torch.models.params import count_params
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptConfig, adamw_init, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, _ = model_zoo.init_params(cfg, elastic_restart.SEED, "cuda", dtype=torch.float32)
+    out = {"params": count_params(params), "snaps": {0: _leaf_copies(params)}, "grads": {}}
+    ds = PageTokenDataset(os.path.join(work, f"tokens.{name}.heap"),
+                          n_seqs=max(args.batch * 8, 64), seq_len=args.seq,
+                          vocab=cfg.vocab_size, seed=elastic_restart.SEED, device="cuda")
+    opt_cfg = OptConfig(lr=args.lr, warmup_steps=elastic_restart.WARMUP_STEPS)
+
+    def keep_first(grads, error_fb):  # the first step's gradients, to the host
+        if not out["grads"]:
+            out["grads"] = _leaf_copies(grads)
+        return grads, error_fb
+
+    loss_fn = model_zoo.loss_fn(cfg, remat=args.remat)
+    step_fns = {m: make_train_step(loss_fn, opt_cfg, compress=keep_first, microbatches=m)
+                for m in set(micro)}
+    opt = adamw_init(params, opt_cfg)
+    losses, step_s = [], []
+    zero_launches()
+    for s, m in enumerate(micro):
+        t0 = time.perf_counter()
+        params, opt, _, metrics = step_fns[m](params, opt, ds.batch(s, args.batch), None)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        if s + 1 == split:
+            out["snaps"][split] = _leaf_copies(params)
+    out["snaps"][len(micro)] = _leaf_copies(params)
+    out.update(losses=losses, step_s=step_s, launches=read_launches(),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               manifest=ckpt.manifest({"params": params, "opt": opt}))
+    del params, opt, ds, step_fns, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_elastic():
+    """LM training on a mesh: the baselines, the same steps unsharded on the
+    card from seed 0 on the same page batches (whole, and split as the
+    meshes split the rows; both also with f32 activations, the witness of
+    the split's rounding), then ELASTIC_WORLD gloo ranks
+    on the one card (``chip_smoke.py --elastic-rank``) run
+    ``elastic_restart.flow``: the first mesh's steps, save, the second
+    mesh, ``restore(shardings=)``, its steps. One line for each baseline,
+    one per mesh and one of the checks. Returns the ranks' B1, B6 and B6-bwd
+    launches and their WKV parity for the kernels line."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    build.build(*KERNEL_SOURCES)  # a hash hit after the build phase: nvcc stays out of the ranks
+    full = _published(TRAIN_ARCH, TRAIN_FIELDS, TRAIN_WIDTH)
+    cfg = dataclasses.replace(full, n_layers=ELASTIC_LAYERS)
+    work = os.path.join(SCRATCH, "elastic")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    args = _elastic_args(work)
+    split, steps = args.steps, args.steps + args.steps_after
+
+    spans = {"a": (0, split), "b": (split, steps)}
+
+    def changes(got, want, first, last):
+        """Each leaf's change over steps first..last against ``want``'s: the
+        relative norm of the difference, the share of elements whose change
+        has the other sign, and the relative norm over the others."""
+        rel, flipped, unflipped = {}, {}, {}
+        for name, d in got.items():
+            w = want[last][name] - want[first][name]
+            rel[name] = _rel_norm_err(d, w)
+            agree = (d.float() * w) >= 0
+            flipped[name] = 1.0 - float(agree.sum()) / max(w.numel(), 1)
+            unflipped[name] = _rel_norm_err(d.float() * agree, w * agree)
+        return rel, flipped, unflipped
+
+    # the baseline: the same steps unsharded on the card, on the whole batch
+    # (the yardstick) and on the meshes' own row splits (each step in as many
+    # microbatches as the mesh has data ranks: the same rows a rank takes,
+    # summed in f32); first the witness, both again in f32 activations
+    whole_micro = [1] * steps
+    split_micro = ([ELASTIC_MESHES["a"][0][0]] * split
+                   + [ELASTIC_MESHES["b"][0][0]] * (steps - split))
+    runs, witness = {}, {}
+    for name, micro in (("baseline_f32", whole_micro), ("same_split_f32", split_micro),
+                        ("baseline", whole_micro), ("same_split", split_micro)):
+        with _f32_activations() if name.endswith("_f32") else contextlib.nullcontext():
+            runs[name] = _elastic_unsharded(cfg, args, work, name, micro, split)
+        emit({"phase": "train-elastic", "run": f"unsharded {name}", "arch": TRAIN_ARCH,
+              "layers": cfg.n_layers, "depth_cut": _depth_cut(full, cfg),
+              "d_model": cfg.d_model, "params": runs[name]["params"], "batch": args.batch,
+              "seq": args.seq, "steps": steps, "microbatches": micro,
+              **{k: runs[name][k] for k in ("losses", "step_s", "peak_memory_bytes",
+                                            "launches")}})
+        if name == "same_split_f32":
+            whole32, split32 = runs.pop("baseline_f32")["snaps"], runs.pop(name)["snaps"]
+            for phase, (lo, hi) in spans.items():
+                witness[phase] = changes({k: split32[hi][k] - split32[lo][k]
+                                          for k in split32[hi]}, whole32, lo, hi)
+            del whole32, split32
+            torch.cuda.empty_cache()
+    base_losses, first = runs["baseline"]["losses"], runs["baseline"]["grads"]
+    snaps, split_snaps = runs["baseline"]["snaps"], runs["same_split"]["snaps"]
+    want_manifest = runs["baseline"]["manifest"]
+
+    # the ranks
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+    procs = []
+    t_ranks = time.perf_counter()
+    try:
+        for rank in range(ELASTIC_WORLD):
+            out = open(os.path.join(work, f"rank{rank}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--elastic-rank", str(rank),
+                 str(ELASTIC_WORLD), work], stdout=out, stderr=subprocess.STDOUT, env=env),
+                out))
+        deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+        for rank, (proc, _) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                raise AssertionError(f"train-elastic: rank {rank} ended with {rc}")
+    except BaseException:
+        for rank in range(ELASTIC_WORLD):
+            path = os.path.join(work, f"rank{rank}.log")
+            if os.path.exists(path):
+                with open(path) as f:
+                    sys.stderr.write(f"--- rank {rank} ---\n{f.read()[-4000:]}\n")
+        raise
+    finally:
+        for proc, out in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            out.close()
+    ranks_s = time.perf_counter() - t_ranks
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(ELASTIC_WORLD)]
+    deltas = torch.load(os.path.join(work, "deltas.pt"), map_location="cuda",
+                        weights_only=False)
+    grads = deltas.pop("grads")
+    grad_rel = {name: _rel_norm_err(g, first[name]) for name, g in grads.items()}
+    split_grad_rel = {name: _rel_norm_err(g, runs["same_split"]["grads"][name])
+                      for name, g in grads.items()}
+
+    failures = []
+    first_step = {"a": grad_rel, "b": None}
+    summary = {"launches_per_rank": {}, "parity": {}}
+    for phase, (first, last) in spans.items():
+        shape = dict(zip(("data", "model"), ELASTIC_MESHES[phase][0]))
+        got = [r["phases"][phase] for r in ranks]
+        losses = got[0]["losses"]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(losses, base_losses[first:last])]
+        update, _, _ = changes(deltas[phase], split_snaps, first, last)
+        update_base, flipped, unflipped = changes(deltas[phase], snaps, first, last)
+        # a leaf off the whole batch's change by more than the bound: held
+        # by its flipped share and the rest
+        held_whole = {k: v <= ELASTIC_UPDATE_REL or (flipped[k] <= ELASTIC_FLIP_SHARE
+                                                     and unflipped[k] <= ELASTIC_UPDATE_REL)
+                      for k, v in update_base.items()}
+        # the same-split run's own distance from the whole-batch one: what
+        # the rounding of the row split alone moves
+        floor, floor_flipped, _ = changes(
+            {k: (split_snaps[last][k] - split_snaps[first][k]).to(torch.bfloat16)
+             for k in deltas[phase]}, snaps, first, last)
+        f32_rel, f32_flipped, _ = witness[phase]
+        # each (leaf, region)'s bits: the ranks that hold the same region agree
+        held = {}
+        for r in ranks:
+            for name, (region, bits) in r["phases"][phase]["bits"].items():
+                held.setdefault((name, region), set()).add(bits)
+        same_bits = all(len(v) == 1 for v in held.values())
+        launches = [r["phases"][phase]["launches"] for r in ranks]
+        n = last - first
+        want_launches = {k: 0 for k in launches[0]}
+        want_launches.update(strider_decode=n, wkv=2 * cfg.n_layers * n,
+                             wkv_bwd=cfg.n_layers * n)
+        placed_ok = all(r["phases"][phase]["placements"] == r["phases"][phase]["resolved"]
+                        for r in ranks)
+        parity = [r["parity"][phase] for r in ranks]
+        summary["launches_per_rank"][f"{shape['data']}x{shape['model']}"] = {
+            k: [x[k] for x in launches] for k in ("strider_decode", "wkv", "wkv_bwd")}
+        summary["parity"][f"{shape['data']}x{shape['model']}"] = parity
+        steps_of = [r["phases"][phase]["steps"] for r in ranks]
+        emit({"phase": "train-elastic", "mesh": shape, "ranks": ELASTIC_WORLD,
+              "steps": list(range(first + 1, last + 1)), "backend": ranks[0]["backend"],
+              "losses": losses, "baseline_losses": base_losses[first:last],
+              "loss_rel_gap": gaps, "loss_tolerance": ELASTIC_LOSS_REL,
+              "same_split_losses": runs["same_split"]["losses"][first:last],
+              "same_losses_on_every_rank": all(g["losses"] == losses for g in got),
+              "grad_norms": got[0]["grad_norms"],
+              **({"first_step_grad_rel_norm_max": max(first_step[phase].values()),
+                  "first_step_grad_rel_norm": first_step[phase],
+                  "first_step_grad_rel_norm_same_split_max": max(split_grad_rel.values()),
+                  "grad_tolerance": ELASTIC_GRAD_REL} if first_step[phase] else {}),
+              "update_rel_norm_max": max(update.values()), "update_rel_norm": update,
+              "update_tolerance": ELASTIC_UPDATE_REL,
+              "update_vs_baseline_rel_norm": update_base, "flipped_share": flipped,
+              "update_vs_baseline_unflipped_rel_norm": unflipped,
+              "flipped_share_tolerance": ELASTIC_FLIP_SHARE,
+              "update_vs_baseline_held": all(held_whole.values()),
+              "same_split_vs_baseline_rel_norm": floor,
+              "same_split_vs_baseline_flipped_share": floor_flipped,
+              "f32_same_split_vs_baseline_rel_norm": f32_rel,
+              "f32_same_split_vs_baseline_rel_norm_max": max(f32_rel.values()),
+              "f32_same_split_vs_baseline_flipped_share": f32_flipped,
+              "f32_tolerance": ELASTIC_F32_SPLIT_REL,
+              "same_bits_on_every_rank": same_bits, "regions_compared": len(held),
+              "opt_step": [r["phases"][phase]["opt_step"] for r in ranks],
+              "placements": got[0]["placements"], "placed_as_resolved": placed_ok,
+              "launches_per_rank": launches, "launches_expected": want_launches,
+              "per_step_per_rank": steps_of,
+              "seconds_per_rank": [g["seconds"] for g in got],
+              "collectives_per_rank": [g["collectives"] for g in got],
+              "collective_bytes_per_rank": [g["collective_bytes"] for g in got],
+              "barriers_per_rank": [g["barriers"] for g in got],
+              "wkv_parity_per_rank": parity})
+        if max(gaps) > ELASTIC_LOSS_REL:
+            failures.append(f"mesh {shape}: loss gaps {gaps}")
+        if max(update.values()) > ELASTIC_UPDATE_REL:
+            bad = {k: v for k, v in update.items() if v > ELASTIC_UPDATE_REL}
+            failures.append(f"mesh {shape}: updates {bad}")
+        if not all(held_whole.values()):
+            bad = {k: (update_base[k], flipped[k], unflipped[k])
+                   for k, ok in held_whole.items() if not ok}
+            failures.append(f"mesh {shape}: updates against the whole batch "
+                            f"(rel, flipped share, rel unflipped) {bad}")
+        if max(f32_rel.values()) > ELASTIC_F32_SPLIT_REL:
+            bad = {k: v for k, v in f32_rel.items() if v > ELASTIC_F32_SPLIT_REL}
+            failures.append(f"mesh {shape}: the f32 split run's changes {bad}")
+        if first_step[phase] and max(first_step[phase].values()) > ELASTIC_GRAD_REL:
+            bad = {k: v for k, v in first_step[phase].items() if v > ELASTIC_GRAD_REL}
+            failures.append(f"mesh {shape}: first step's gradients {bad}")
+        if not same_bits:
+            failures.append(f"mesh {shape}: the ranks' bits differ")
+        if not placed_ok:
+            failures.append(f"mesh {shape}: placements differ from the resolution")
+        if any(x != want_launches for x in launches):
+            failures.append(f"mesh {shape}: launches {launches}, expected {want_launches}")
+        if not all(p["within"] for p in parity):
+            failures.append(f"mesh {shape}: WKV parity {parity}")
+    r0 = ranks[0]
+    checks = {
+        "restored_step": [r["restored_step"] for r in ranks], "opt_step": [r["step"] for r in ranks],
+        "manifest_as_unsharded": r0["manifest"]["arrays"] == want_manifest
+        and r0["manifest"]["step"] == split,
+        "manifest_leaves": len(want_manifest), "save_s": [r["save_s"] for r in ranks],
+        "restore_s": [r["restore_s"] for r in ranks],
+        "forbidden_collectives": [r["forbidden"] for r in ranks],
+        "fallbacks": r0["fallbacks"], "ranks_s": ranks_s,
+        "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "train-elastic", "checks": checks})
+    if any(r["step"] != steps or r["restored_step"] != split for r in ranks):
+        failures.append(f"opt steps {checks['opt_step']}, restored {checks['restored_step']}")
+    if not checks["manifest_as_unsharded"]:
+        failures.append("the mesh checkpoint's manifest differs from an unsharded save's")
+    if any(checks["forbidden_collectives"]):
+        failures.append(f"forbidden collectives {checks['forbidden_collectives']}")
+    if failures:
+        raise AssertionError("train-elastic: " + "; ".join(failures))
+    return summary
+
+
+class _ElasticHooks:
+    """What one rank of train-elastic watches in ``elastic_restart.flow``:
+    per step its seconds, the card's busy time (the device's own events),
+    peak memory, and the collectives' counts and bytes; on rank 0 the first
+    step's gradients; per mesh the
+    launches of every kernel (counted from zero at the mesh's first step),
+    the first B6 and B6-bwd calls, the placements beside their resolution,
+    and each leaf's local bits; on rank 0 the whole weights' change over
+    each mesh's steps."""
+
+    def __init__(self, rank):
+        self.rank = rank
+        self.phases = {}
+        self.captured = {}
+        self.before = None
+        self.deltas = {}
+
+    def start(self, params, specs, opt_cfg):
+        self.specs, self.opt_cfg = specs, opt_cfg
+        if self.rank == 0:
+            self.before = _leaf_copies(params)
+
+    def grads(self, grads):
+        # the first step's gradients (whole, summed over the ranks), bf16 on
+        # the host: every rank holds the same bits, rank 0 keeps them
+        import torch
+
+        if self.rank == 0 and "grads" not in self.deltas:
+            self.deltas["grads"] = {n: g.detach().to("cpu", torch.bfloat16)
+                                    for n, g in _named_leaves(grads)}
+
+    @contextlib.contextmanager
+    def phase(self, phase, mesh):
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.dist import meshes
+        from repro_torch.kernels.wkv import kernel as wkv_kernel
+        from repro_torch.kernels.wkv import ops as wkv_ops
+
+        captured = self.captured.setdefault(phase, {})
+
+        def fwd(*a, **kw):
+            if "fwd" not in captured:
+                captured["fwd"] = ([x.clone() if torch.is_tensor(x) else x for x in a], kw)
+            return wkv_kernel.wkv_forward(*a, **kw)
+
+        def bwd(*a):
+            if "bwd" not in captured:
+                captured["bwd"] = [x.clone() if torch.is_tensor(x) else x for x in a]
+            return wkv_kernel.wkv_backward(*a)
+
+        rec = self.phases[phase] = {"steps": []}
+        dist.barrier()
+        torch.cuda.synchronize()
+        zero_launches()
+        meshes.reset_collectives()
+        # the capture sits between ops and the kernel module: the wrappers
+        # count on themselves
+        wkv_ops.kernel = types.SimpleNamespace(wkv_forward=fwd, wkv_backward=bwd)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            wkv_ops.kernel = wkv_kernel
+        torch.cuda.synchronize()
+        rec.update(seconds=time.perf_counter() - t0, launches=read_launches(),
+                   collectives=dict(meshes.COLLECTIVES),
+                   collective_bytes=dict(meshes.COLLECTIVE_BYTES),
+                   barriers=dict(meshes.BARRIERS))
+
+    @contextlib.contextmanager
+    def step(self, phase, step):
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.dist import meshes
+
+        counts, nbytes = dict(meshes.COLLECTIVES), dict(meshes.COLLECTIVE_BYTES)
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            yield
+            seconds = time.perf_counter() - t0
+        busy_s, _ = _device_busy([e for e in prof.events() if e.device_type == DeviceType.CUDA
+                                  and not getattr(e, "is_user_annotation", False)])
+        self.phases[phase]["steps"].append({
+            "step": step + 1, "seconds": seconds, "device_busy_s": busy_s,
+            "device_idle_share": 1.0 - busy_s / seconds,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "collectives": {k: v - counts[k] for k, v in meshes.COLLECTIVES.items()},
+            "collective_bytes": {k: v - nbytes[k] for k, v in meshes.COLLECTIVE_BYTES.items()}})
+
+    def end(self, phase, mesh, params, opt):
+        import torch
+
+        from repro_torch.dist import meshes
+        from repro_torch.train.optimizer import param_shardings, state_shardings
+
+        rec = self.phases[phase]
+        state = {"params": params, "opt": opt}
+        want = {"params": param_shardings(params, mesh, self.specs),
+                "opt": state_shardings(params, self.opt_cfg, mesh, self.specs)}
+        rec["placements"] = {n: _placement_names(x) for n, x in _named_leaves(state)}
+        rec["resolved"] = {n: _placement_names(x) for n, x in _named_leaves(want)}
+        rec["bits"] = {n: (tuple((s.start, s.stop) for s in meshes.region(x)),
+                           int(_bit_sum(meshes.local(x).detach())))
+                       for n, x in _named_leaves(state)}
+        rec["opt_step"] = int(opt["step"])
+        whole = {}
+        for name, x in _named_leaves(params):
+            w = meshes.whole(x)  # every rank gathers; rank 0 keeps a copy
+            if self.rank == 0:
+                whole[name] = w.detach().clone()
+            del w
+        if self.rank == 0:
+            self.deltas[phase] = {k: (v - self.before[k]).to("cpu", torch.bfloat16)
+                                  for k, v in whole.items()}
+            self.before = whole
+
+    def wkv_parity(self):
+        """Each mesh's first B6 and B6-bwd calls against their plain versions
+        on the same tensors with r, k and v in f32, at WKV_TOL (the tolerance
+        ratio at most 1), and as captured (bf16 r, k, v; the parity phase's
+        tolerances by output type)."""
+        import torch
+
+        from repro_torch.kernels.wkv import kernel, ref
+
+        out = {}
+        for phase, cap in self.captured.items():
+            fargs, fkw = cap["fwd"]
+            r, k, v, lw, u, state, chunk = fargs
+            res = {"shape": list(r.shape), "dtype": str(r.dtype)[6:]}
+            y, s_out, _ = kernel.wkv_forward(*fargs, **fkw)
+            y_ref, s_ref = ref.wkv_chunked_ref(r, k, v, lw, u, state, chunk)
+            bargs = cap["bwd"]
+            br, bk, bv, blw, bu, bstate, _, _, dy, dstate, _ = bargs
+            got = kernel.wkv_backward(*bargs)
+            want = ref.wkv_bwd_ref(br, bk, bv, blw, bu, bstate, chunk, dy, dstate)
+            tol = lambda x: WKV_BF16_TOL if x.dtype == torch.bfloat16 else WKV_TOL
+            res["as_captured_tol_ratio"] = max(
+                _tol_ratio(g.float(), w.float(), tol(g))
+                for g, w in zip((y, s_out, *got), (y_ref, s_ref, *want)))
+            # f32 r, k, v: the forward and its chunk states again, then the
+            # backward of the captured cotangent
+            f32 = [x.float() for x in (r, k, v)]
+            y32, s32, states32 = kernel.wkv_forward(*f32, lw, u, state, chunk, save_states=True)
+            y32_ref, s32_ref = ref.wkv_chunked_ref(*f32, lw, u, state, chunk)
+            b32 = [x.float() for x in (br, bk, bv)]
+            dy32 = dy.float()
+            _, sb_out, states_b = kernel.wkv_forward(*b32, blw, bu, bstate, chunk,
+                                                     save_states=True)
+            got32 = kernel.wkv_backward(*b32, blw, bu, bstate, states_b, sb_out, dy32, dstate,
+                                        chunk)
+            want32 = ref.wkv_bwd_ref(*b32, blw, bu, bstate, chunk, dy32, dstate)
+            ratios = [_tol_ratio(g, w, WKV_TOL) for g, w in
+                      zip((y32, s32, *got32), (y32_ref, s32_ref, *want32))]
+            res["f32_tol_ratio"] = max(ratios)
+            res["f32_max_abs_err"] = max(float((g.double() - w.double()).abs().max())
+                                         for g, w in zip((y32, s32, *got32),
+                                                         (y32_ref, s32_ref, *want32)))
+            res["within"] = res["f32_tol_ratio"] <= 1.0 and res["as_captured_tol_ratio"] <= 1.0
+            res["tolerance"] = {"f32": WKV_TOL, "bf16_outputs": WKV_BF16_TOL}
+            out[phase] = res
+        return out
+
+
+def elastic_rank(rank: int, world: int, work: str) -> int:
+    """``chip_smoke.py --elastic-rank RANK WORLD DIR``: one gloo rank of
+    train-elastic on cuda:0, through ``elastic_restart.flow`` with
+    ``_ElasticHooks``; every collective gloo cannot run on CUDA tensors made
+    to raise. Saves its results to DIR/rank{RANK}.pt (rank 0 also its whole
+    weights' changes, DIR/deltas.pt)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import elastic_restart
+    from test_torch_dist_util import _guard_collectives
+
+    parent = os.getppid()
+
+    def watch():  # a rank whose parent is gone (killed with its phase) ends
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+    torch.cuda.set_device(0)
+    forbidden = _guard_collectives()
+    dist.init_process_group("gloo", init_method=f"file://{work}/store", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=ELASTIC_PG_TIMEOUT_S))
+    hooks = _ElasticHooks(rank)
+    args = _elastic_args(work)
+    res = elastic_restart.flow(args, rank, torch.device("cuda"), hooks=hooks)
+    out = {"phases": hooks.phases, "parity": hooks.wkv_parity(), "step": res["step"],
+           "restored_step": res["restored_step"], "save_s": res["save_s"],
+           "restore_s": res["restore_s"], "fallbacks": res["fallbacks"],
+           "backend": dist.get_backend(), "forbidden": list(forbidden)}
+    for phase, losses in res["losses"].items():
+        out["phases"][phase].update(losses=losses, grad_norms=res["grad_norms"][phase])
+    if rank == 0:
+        with open(os.path.join(work, "ck", f"step_{args.steps:08d}", "manifest.json")) as f:
+            out["manifest"] = json.load(f)
+        torch.save(hooks.deltas, os.path.join(work, "deltas.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    return 0
+
+
 def _wkv_work(b, t, h, kd, vd, c, bwd):
     """(f32 operations, exponentials) a WKV call does at these shapes: a
     multiply-add counts 2, every other arithmetic operation 1."""
@@ -5216,6 +5826,8 @@ def main() -> int:
         return run_beside(sys.argv[2])
     if sys.argv[1:2] == ["--sharded-rank"]:  # one gloo rank of train-sharded
         return sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--elastic-rank"]:  # one gloo rank of train-elastic
+        return elastic_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
 
     smi = nvidia_smi()
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
@@ -5292,7 +5904,21 @@ def main() -> int:
         phase_decode_encdec()
         phase_train_vlm()
         phase_launch_train()
+        # LM training on a mesh of 4 gloo ranks, alone on the card
+        elastic = phase_train_elastic()
         rows.extend(kernel_rows_wkv(wkv_calls, train_launches, *wkv_kernels))
+        # B6 and B6-bwd on the mesh path: each rank's launches and its calls'
+        # parity at its own shape
+        for row in rows:
+            if row["name"] in ("wkv", "wkv_bwd"):
+                row["elastic"] = {
+                    "launches_per_rank": {mesh: per[row["name"]] for mesh, per in
+                                          elastic["launches_per_rank"].items()},
+                    "parity_per_rank": elastic["parity"]}
+            if row["name"] == "strider_decode":
+                row["elastic_launches_per_rank"] = {
+                    mesh: per["strider_decode"]
+                    for mesh, per in elastic["launches_per_rank"].items()}
         emit({"kernels": rows})
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)

@@ -29,7 +29,15 @@ device mesh:
     default process group, which the caller set up: the port never picks a
     backend for it), ``make_host_mesh`` and ``make_production_mesh``.
   * ``all_reduce`` / ``broadcast`` over the ranks of some mesh axes, counted
-    in ``COLLECTIVES``: the only collectives the port issues itself.
+    in ``COLLECTIVES`` (and their bytes in ``COLLECTIVE_BYTES``), and
+    ``barrier`` (``BARRIERS``): the only collectives the port issues itself.
+  * LM training on a mesh (``train.optimizer``): ``batch_rows`` (a rank's
+    rows of every batch leaf over the data axes), ``whole`` (a weight whole
+    on use), ``place`` / ``place_tree`` / ``zeros`` (placed from whole
+    tensors or allocated as slices), ``region`` (the slice a rank holds),
+    ``all_reduce_buckets`` (a fixed-order bucketed sum) and
+    ``broadcast_regions`` (the ZeRO update's regions sent over the data
+    axes).
 
 ``AbstractMesh(sizes, names)`` sizes a mesh without ranks, for the resolver
 and the engine's path decision. ``repro``'s ``shard_map`` and its jax
@@ -47,7 +55,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
-import itertools
 import math
 import sys
 import threading
@@ -231,7 +238,8 @@ def no_mesh(mesh, what: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
             f"{what}: serving on a mesh waits for the sharded server "
-            "(ROADMAP A19c); the engine's TRAIN epochs shard (A19a)"
+            "(ROADMAP A19c); the engine's TRAIN epochs (A19a) and LM training "
+            "(A19b) shard"
         )
 
 
@@ -473,6 +481,8 @@ def axis_group(mesh: DeviceMesh, axes):
 # CUDA tensors runs nothing else), each counted
 # ---------------------------------------------------------------------------
 COLLECTIVES = {"all_reduce": 0, "broadcast": 0}
+COLLECTIVE_BYTES = {"all_reduce": 0, "broadcast": 0}  # the bytes each rank passed in
+BARRIERS = {"barrier": 0}
 REDUCE_OPS = {"+": "SUM", "*": "PRODUCT", "max": "MAX"}  # the merge operators
 
 
@@ -485,6 +495,7 @@ def all_reduce(t: torch.Tensor, mesh: DeviceMesh, axes, op: str = "+") -> torch.
         return t
     dist.all_reduce(t, op=getattr(dist.ReduceOp, REDUCE_OPS[op]), group=group)
     COLLECTIVES["all_reduce"] += 1
+    COLLECTIVE_BYTES["all_reduce"] += t.numel() * t.element_size()
     return t
 
 
@@ -492,12 +503,20 @@ def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """Broadcast ``t`` in place from global rank ``src`` over ``group``."""
     dist.broadcast(t, src=src, group=group)
     COLLECTIVES["broadcast"] += 1
+    COLLECTIVE_BYTES["broadcast"] += t.numel() * t.element_size()
     return t
 
 
+def barrier() -> None:
+    """Wait for every rank of the default group (counted in ``BARRIERS``)."""
+    dist.barrier()
+    BARRIERS["barrier"] += 1
+
+
 def reset_collectives() -> None:
-    for k in COLLECTIVES:
-        COLLECTIVES[k] = 0
+    for counts in (COLLECTIVES, COLLECTIVE_BYTES, BARRIERS):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -511,20 +530,26 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
-def local_slice(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
-    """This rank's slice of the whole tensor ``x`` under ``sharding``
-    (contiguous; ``x`` itself where the spec is fully replicated)."""
-    if sharding.is_replicated:
-        return x
+def shard_slices(shape, sharding: NamedSharding) -> tuple:
+    """The slices of a tensor of ``shape`` that this rank holds under
+    ``sharding``."""
     index = []
     for dim, entry in enumerate(sharding.spec):
         axes = entry_axes(entry)
         if not axes:
             index.append(slice(None))
             continue
-        start, stop = shard_range(x.shape[dim], sharding.mesh, axes)
+        start, stop = shard_range(shape[dim], sharding.mesh, axes)
         index.append(slice(start, stop))
-    return x[tuple(index)].contiguous()
+    return tuple(index)
+
+
+def local_slice(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's slice of the whole tensor ``x`` under ``sharding``
+    (contiguous; ``x`` itself where the spec is fully replicated)."""
+    if sharding.is_replicated:
+        return x
+    return x[shard_slices(x.shape, sharding)].contiguous()
 
 
 def from_local(local: torch.Tensor, sharding: NamedSharding, shape) -> torch.Tensor:
@@ -552,25 +577,30 @@ def device_put(x: torch.Tensor, sharding: NamedSharding):
                               run_check=False, shape=x.shape, stride=stride)
 
 
-def full_tensor(x):
-    """The whole tensor of a DTensor on every rank, from one broadcast per
-    shard (its holder with coordinate 0 on each replicated mesh dim sends);
-    any other tensor as it is. Every rank of the mesh must call it."""
+def full_tensor(x, device=None):
+    """The whole tensor of a DTensor on every rank (on ``device``, the local
+    tensor's by default: ``"cpu"`` gathers through the host), from one
+    broadcast per shard within the group of ranks that share this rank's
+    coordinates on the replicated mesh dims (every such group holds all the
+    shards); any other tensor as it is. Every rank of the mesh must call
+    it, for the same tensors in the same order."""
     if not is_dtensor(x):
         return x
     from torch.distributed.tensor import Replicate
 
     mesh, placements, local = x.device_mesh, x.placements, x.to_local()
+    device = local.device if device is None else torch.device(device)
     if mesh.size() == 1:
-        return local
+        return local.to(device)
     if mesh.size() != dist.get_world_size():
         raise ValueError("full_tensor needs a mesh over the whole process group")
-    out = torch.empty(x.shape, dtype=local.dtype, device=local.device)
+    names = mesh.mesh_dim_names
+    axes = tuple(n for n, p in zip(names, placements) if not isinstance(p, Replicate))
+    group = axis_group(mesh, axes)
+    out = torch.empty(x.shape, dtype=local.dtype, device=device)
     me = dist.get_rank()
-    coords = itertools.product(*(range(s) for s in mesh.shape))
-    for rank, coord in zip(mesh.mesh.reshape(-1).tolist(), coords):
-        if any(c and isinstance(p, Replicate) for c, p in zip(coord, placements)):
-            continue
+    for rank in axis_ranks(mesh, axes):
+        coord = _coord_of(mesh, rank)
         index = []
         for tdim in range(x.dim()):
             # the mesh dims that split this tensor dim, the first the major one
@@ -580,8 +610,12 @@ def full_tensor(x):
                     index_in, count = index_in * mesh.shape[d] + coord[d], count * mesh.shape[d]
             step = x.shape[tdim] // count
             index.append(slice(index_in * step, (index_in + 1) * step))
-        part = local.clone() if rank == me else torch.empty_like(local)
-        broadcast(part, src=rank)
+        if rank == me:
+            part = local.to(device, copy=True)
+        else:
+            part = torch.empty(local.shape, dtype=local.dtype, device=device)
+        if group is not None:
+            broadcast(part, src=rank, group=group)
         out[tuple(index)] = part
     return out
 
@@ -602,6 +636,224 @@ def shard_act(x, logical_axes, tag: str | None = None, rules: dict | None = None
     if is_dtensor(x) and x.device_mesh is mesh and tuple(x.placements) == sharding.placements:
         return x
     return device_put(x, sharding)
+
+
+# ---------------------------------------------------------------------------
+# LM training on a mesh: the batch's rows, weights whole on use, placed
+# trees, and the fixed-order buckets of the gradient sum and the region
+# broadcast
+# ---------------------------------------------------------------------------
+BUCKET_BYTES = 256 << 20  # the largest flat buffer one collective carries
+
+
+def is_multi_rank(mesh) -> bool:
+    """Whether ``mesh`` has ranks to shard over: a ``DeviceMesh`` of more
+    than one rank (None, an ``AbstractMesh`` and a one-rank mesh do not)."""
+    return isinstance(mesh, DeviceMesh) and mesh.size() > 1
+
+
+def batch_rows(batch: dict, mesh: DeviceMesh):
+    """This rank's rows of every leaf of ``batch`` (leading dim ``batch``)
+    and the mesh axes they were split over. A batch whose rows do not
+    divide the data axes stays whole on every rank, with the drop recorded
+    as the resolver records it, and the axes are then ``()``."""
+    axes = None
+    for key in sorted(batch):
+        x = batch[key]
+        spec = resolve_spec(("batch",) + (None,) * (x.dim() - 1), x.shape, mesh,
+                            tensor_name=key)
+        picked = entry_axes(spec[0])
+        if axes is not None and picked != axes:
+            raise ValueError(f"batch leaf {key!r} has {x.shape[0]} rows, not the "
+                             "other leaves' count")
+        axes = picked
+    if not axes:
+        return dict(batch), ()
+    out = {}
+    for key, x in batch.items():
+        start, stop = shard_range(x.shape[0], mesh, axes)
+        out[key] = x[start:stop]
+    return out, axes
+
+
+def whole(x, device=None):
+    """The whole tensor of ``x`` on this rank: a DTensor that shards a dim
+    gathered by ``full_tensor`` (every rank of the mesh must call it; onto
+    ``device`` where given), a replicated one its local tensor, any other
+    tensor itself."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    if all(isinstance(p, Replicate) for p in x.placements):
+        return x.to_local()
+    return full_tensor(x, device)
+
+
+def local(x):
+    """This rank's part of ``x``: a DTensor's local tensor (an alias, so an
+    in-place update lands in ``x``), any other tensor itself."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def place(x, sharding: NamedSharding):
+    """``x`` (whole, the same on every rank; a DTensor is made whole first)
+    placed by ``sharding`` with no communication: a DTensor of this rank's
+    slice where the spec shards a dim, else the whole tensor itself."""
+    x = whole(x)
+    return from_local(local_slice(x, sharding), sharding, tuple(x.shape))
+
+
+def zeros(shape, sharding: NamedSharding, dtype, device):
+    """Zeros of ``shape`` placed by ``sharding``: only this rank's slice is
+    allocated."""
+    part = local_slice(torch.empty(shape, device="meta"), sharding)
+    return from_local(torch.zeros(part.shape, dtype=dtype, device=device), sharding,
+                      tuple(shape))
+
+
+def _walk_pair(tree, shardings, fn, path):
+    if isinstance(tree, dict):
+        if not isinstance(shardings, dict) or set(shardings) != set(tree):
+            raise ValueError(f"shardings do not match the tree at {path or 'root'}: "
+                             f"{sorted(tree)} vs {shardings!r:.80}")
+        return {k: _walk_pair(v, shardings[k], fn, f"{path}/{k}") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        if not isinstance(shardings, (list, tuple)) or len(shardings) != len(tree):
+            raise ValueError(f"shardings do not match the tree at {path or 'root'}")
+        out = [_walk_pair(v, shardings[i], fn, f"{path}/{i}") for i, v in enumerate(tree)]
+        return type(tree)(out) if isinstance(tree, tuple) else out
+    if not isinstance(shardings, NamedSharding):
+        raise ValueError(f"shardings do not match the tree at {path or 'root'}: "
+                         f"a leaf, and {type(shardings).__name__} where a NamedSharding goes")
+    return fn(tree, shardings)
+
+
+def check_tree_shardings(tree, shardings) -> None:
+    """Raise ``ValueError`` unless ``shardings`` has ``tree``'s structure, a
+    ``NamedSharding`` at every leaf."""
+    _walk_pair(tree, shardings, lambda x, sh: None, "")
+
+
+def place_tree(tree, shardings):
+    """Each leaf of ``tree`` placed by the matching ``NamedSharding`` of
+    ``shardings`` (``place``); the tree keeps its own key order. Raises
+    ``ValueError`` where the two trees do not match."""
+    return _walk_pair(tree, shardings, place, "")
+
+
+def region(x, coord=None) -> tuple:
+    """The slices of the whole tensor that the rank at mesh coordinate
+    ``coord`` (this rank's by default) holds of ``x``: its shard of a
+    DTensor (a dim split over several mesh dims, the first the major one,
+    as ``full_tensor`` reads it), all of any other tensor."""
+    if not is_dtensor(x):
+        return tuple(slice(0, n) for n in x.shape)
+    from torch.distributed.tensor import Replicate
+
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate() if coord is None else coord
+    out = []
+    for tdim, n in enumerate(x.shape):
+        index, count = 0, 1
+        for d, p in enumerate(x.placements):
+            if not isinstance(p, Replicate) and p.dim == tdim:
+                index, count = index * mesh.shape[d] + coord[d], count * mesh.shape[d]
+        step = n // count
+        out.append(slice(index * step, (index + 1) * step))
+    return tuple(out)
+
+
+def _pieces(views, bucket_bytes):
+    """``views`` in order, each one larger than a bucket split along its
+    leading dim into pieces of at most ``bucket_bytes``."""
+    for v in views:
+        nbytes = v.numel() * v.element_size()
+        if v.dim() == 0 or nbytes <= bucket_bytes:
+            yield v
+            continue
+        row = nbytes // v.shape[0]
+        yield from torch.split(v, max(1, bucket_bytes // max(row, 1)))
+
+
+def _buckets(views, bucket_bytes):
+    """Consecutive runs of ``_pieces(views)`` of one dtype and at most
+    ``bucket_bytes`` together: the flat buffers of the collectives, the same
+    on every rank."""
+    run, size = [], 0
+    for v in _pieces(views, bucket_bytes):
+        nbytes = v.numel() * v.element_size()
+        if run and (size + nbytes > bucket_bytes or v.dtype != run[0].dtype):
+            yield run
+            run, size = [], 0
+        run.append(v)
+        size += nbytes
+    if run:
+        yield run
+
+
+def _unpack(flat, views):
+    offset = 0
+    for v in views:
+        v.copy_(flat[offset:offset + v.numel()].view(v.shape))
+        offset += v.numel()
+
+
+def all_reduce_buckets(tensors, mesh: DeviceMesh, axes, bucket_bytes: int = BUCKET_BYTES):
+    """Sum each of ``tensors`` in place over ``axes``, in fixed-order flat
+    buckets of at most ``bucket_bytes`` (a lone contiguous piece is reduced
+    where it lies). Every rank of the group gets the same bits."""
+    if axis_group(mesh, axes) is None:
+        return
+    for run in _buckets(tensors, bucket_bytes):
+        if len(run) == 1 and run[0].is_contiguous():
+            all_reduce(run[0], mesh, axes)
+            continue
+        flat = torch.cat([v.reshape(-1) for v in run])
+        all_reduce(flat, mesh, axes)
+        _unpack(flat, run)
+
+
+def _coord_of(mesh: DeviceMesh, rank: int) -> list[int]:
+    return [int(i) for i in (mesh.mesh == rank).nonzero()[0]]
+
+
+def broadcast_regions(pairs, mesh: DeviceMesh, axes, bucket_bytes: int = BUCKET_BYTES) -> None:
+    """Make whole, on every rank of this rank's group over ``axes``, the
+    parts of targets that the group's ranks updated each on its own region.
+    ``pairs`` holds (target, owner): the target a weight (a DTensor or a
+    whole tensor), the owner a DTensor of the same shape (its moment) whose
+    placement gives each rank's region of it. A region is sent by the first
+    rank of the group that holds it, in fixed-order buckets, one broadcast
+    each; pairs whose owner does not split the target over ``axes`` send
+    nothing."""
+    group = axis_group(mesh, axes)
+    if group is None:
+        return
+    members = axis_ranks(mesh, axes)
+    me = dist.get_rank()
+    sends = {r: [] for r in members}
+    for target, owner in pairs:
+        mine = region(target)
+        seen = set()
+        for r in members:
+            reg = region(owner, _coord_of(mesh, r))
+            key = tuple((s.start, s.stop) for s in reg)
+            if reg == mine or key in seen:
+                continue
+            seen.add(key)
+            rel = tuple(slice(a.start - b.start, a.stop - b.start) for a, b in zip(reg, mine))
+            sends[r].append(local(target)[rel])
+    for src in members:
+        for run in _buckets(sends[src], bucket_bytes):
+            if src == me:
+                flat = torch.cat([v.reshape(-1) for v in run])
+            else:
+                flat = torch.empty(sum(v.numel() for v in run), dtype=run[0].dtype,
+                                   device=run[0].device)
+            broadcast(flat, src=src, group=group)
+            if src != me:
+                _unpack(flat, run)
 
 
 # ---------------------------------------------------------------------------
@@ -679,10 +931,18 @@ __all__ = [
     "PartitionSpec",
     "SERVE_CACHE_RULES",
     "SERVE_KERNEL_CACHE_RULES",
+    "BARRIERS",
+    "BUCKET_BYTES",
+    "COLLECTIVE_BYTES",
     "all_reduce",
+    "all_reduce_buckets",
     "axis_group",
     "axis_ranks",
+    "barrier",
+    "batch_rows",
     "broadcast",
+    "broadcast_regions",
+    "check_tree_shardings",
     "clear_fallbacks",
     "current_mesh",
     "device_put",
@@ -690,8 +950,11 @@ __all__ = [
     "entry_axes",
     "from_local",
     "full_tensor",
+    "shard_slices",
     "is_dtensor",
     "is_mesh",
+    "is_multi_rank",
+    "local",
     "local_slice",
     "make_host_mesh",
     "make_mesh",
@@ -700,7 +963,10 @@ __all__ = [
     "mesh_data_axes",
     "named_sharding",
     "no_mesh",
+    "place",
+    "place_tree",
     "record_fallback",
+    "region",
     "replicated",
     "reset_collectives",
     "resolve_spec",
@@ -709,4 +975,6 @@ __all__ = [
     "shard_range",
     "tree_shardings",
     "use_mesh",
+    "whole",
+    "zeros",
 ]

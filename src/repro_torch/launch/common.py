@@ -13,9 +13,13 @@ spelled the same way, with the same default, in every launcher:
 
 ``launch/score.py`` offers ``--scheduler priority|fifo`` only: ``wdrr``
 weighs a request by its prompt, a SQL statement has none, so the query
-executor cannot run it. ``launch/train.py`` and ``launch/serve.py`` take
-no mesh flags yet: they wait for LM training on a mesh and the sharded
-server (ROADMAP A19b, A19c).
+executor cannot run it. ``launch/train.py`` takes the mesh flags (default
+``--mesh host``, as in the reference): under torchrun's variables
+(``WORLD_SIZE`` > 1, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``)
+``mesh_from_args`` first opens the default group with gloo (the one
+backend that runs two ranks on one card), and a lone process gets the
+(1, 1) mesh. ``launch/serve.py`` takes no mesh flags yet: it waits for the
+sharded server (ROADMAP A19c).
 
 Every helper takes the ``argparse.ArgumentParser`` (or a group) and only
 *adds* arguments; launchers keep their workload-specific flags alongside.
@@ -35,15 +39,52 @@ def add_mesh_flags(ap: argparse.ArgumentParser, *, default_mesh: str = "none") -
                     help="model-axis size of the host mesh")
 
 
+def init_from_env(device=None) -> bool:
+    """Open the default process group with gloo from torchrun's variables
+    (``WORLD_SIZE`` > 1, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), each
+    rank on card ``LOCAL_RANK`` modulo the cards there are unless ``device``
+    is the CPU. Returns whether this process is one of several ranks; a
+    lone process opens nothing."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return False
+    if not dist.is_initialized():
+        if torch.device("cuda" if device is None else device).type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "no CUDA device is available; pass device='cpu' to run on the CPU")
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                                  % torch.cuda.device_count())
+        dist.init_process_group("gloo", init_method="env://", world_size=world,
+                                rank=int(os.environ["RANK"]))
+    return True
+
+
+def is_rank0() -> bool:
+    """Whether this process prints and writes a launcher's summary: a lone
+    process, or global rank 0 of the group."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def mesh_from_args(args):
     """The mesh the flags asked for: a host mesh on ``args.device`` (the
-    card unless it says ``cpu``), or None (unsharded)."""
+    card unless it says ``cpu``) over the ranks of the default group
+    (opened from torchrun's variables where they are set), or None
+    (unsharded)."""
     if getattr(args, "mesh", "none") != "host":
         return None
     from repro_torch.dist import meshes
 
-    return meshes.make_host_mesh(model_parallel=args.model_parallel,
-                                 device=getattr(args, "device", None))
+    device = getattr(args, "device", None)
+    init_from_env(device)
+    return meshes.make_host_mesh(model_parallel=args.model_parallel, device=device)
 
 
 def add_kv_flags(ap: argparse.ArgumentParser) -> None:

@@ -19,8 +19,23 @@ parameters do not fit one card), and from ``--data-path synthetic`` the VLM
 gives those two no patches or frames, and their loss raises ``KeyError``.
 
 Like the reference, ``--microbatch`` is parsed and not passed on: the train
-loop always steps with one microbatch. The reference's mesh flags
-(``common.add_mesh_flags``) wait for LM training on a mesh (ROADMAP A19b).
+loop always steps with one microbatch.
+
+The mesh flags are the reference's (``--mesh host`` by default,
+``--model-parallel N``): the run goes through ``meshes.use_mesh`` with the
+weights placed by their logical specs (``run(param_specs=)``). A lone
+process gets the (1, 1) mesh, which trains to the same bits as ``--mesh
+none``. Started by torchrun (``WORLD_SIZE`` > 1 and ``RANK``,
+``MASTER_ADDR``, ``MASTER_PORT`` set), each process is a gloo rank of a
+(world / N, N) mesh: it takes its rows of every batch, its slice of the
+moments, and rank 0 alone prints the summary and writes ``--bench-out``
+and the checkpoints; on the page data path each rank keeps its own copy of
+the token heap. For example, two ranks of the CPU::
+
+    WORLD_SIZE=2 RANK=0 MASTER_ADDR=localhost MASTER_PORT=29511 \
+        python -m repro_torch.launch.train --arch rwkv6-3b --reduced --device cpu &
+    WORLD_SIZE=2 RANK=1 MASTER_ADDR=localhost MASTER_PORT=29511 \
+        python -m repro_torch.launch.train --arch rwkv6-3b --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -28,10 +43,12 @@ import argparse
 import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced_config
 from repro_torch.core.engine import resolve_device
 from repro_torch.data.pipeline import PageTokenDataset, synthetic_data_fn
+from repro_torch.dist import meshes
 from repro_torch.launch import common
 from repro_torch.models import model_zoo
 from repro_torch.train.optimizer import OptConfig
@@ -57,6 +74,8 @@ def main(argv=None):
                     choices=["synthetic", "pages"],
                     help="'pages' = DB-page-backed tokens decoded on the device "
                          "by the strider kernel (the paper's data path)")
+    # training always ran over the host mesh; --mesh none opts out
+    common.add_mesh_flags(ap, default_mesh="host")
     common.add_bench_out_flag(ap)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -64,16 +83,19 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    mesh = common.mesh_from_args(args)
+    say = print if common.is_rank0() else (lambda *a, **k: None)
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    print(f"[train] {cfg.name} ({'reduced' if args.reduced else 'full'}): "
-          f"{cfg.n_params()/1e6:.1f}M params on {device}")
+    say(f"[train] {cfg.name} ({'reduced' if args.reduced else 'full'}): "
+        f"{cfg.n_params()/1e6:.1f}M params on {device}")
 
-    params, _ = model_zoo.init_params(cfg, args.seed, device,
-                                      dtype=getattr(torch, cfg.param_dtype))
+    params, specs = model_zoo.init_params(cfg, args.seed, device,
+                                          dtype=getattr(torch, cfg.param_dtype))
 
     if args.data_path == "pages":
+        heap = "tokens.heap" if common.is_rank0() else f"tokens.{dist.get_rank()}.heap"
         ds = PageTokenDataset(
-            os.path.join(args.ckpt_dir, "tokens.heap"), n_seqs=max(args.batch * 8, 64),
+            os.path.join(args.ckpt_dir, heap), n_seqs=max(args.batch * 8, 64),
             seq_len=args.seq, vocab=cfg.vocab_size, seed=args.seed, device=device,
         )
         data_fn = lambda step: ds.batch(step, args.batch)
@@ -90,22 +112,26 @@ def main(argv=None):
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=min(50, args.steps // 4 + 1))
     guard = PreemptionGuard(install=True)
 
-    params, opt_state, history = run(
-        model_zoo.loss_fn(cfg, remat=args.remat),
-        params,
-        data_fn,
-        loop_cfg,
-        opt_cfg,
-        preemption=guard,
-        hooks=[lambda r: print(
-            f"  step {r['step']:5d}  loss {r['loss']:.4f}  "
-            f"gnorm {r['grad_norm']:.3f}  {r['s_per_step']*1e3:.0f} ms/step"
-        )],
-    )
+    with meshes.use_mesh(mesh):
+        params, opt_state, history = run(
+            model_zoo.loss_fn(cfg, remat=args.remat),
+            params,
+            data_fn,
+            loop_cfg,
+            opt_cfg,
+            preemption=guard,
+            hooks=[lambda r: say(
+                f"  step {r['step']:5d}  loss {r['loss']:.4f}  "
+                f"gnorm {r['grad_norm']:.3f}  {r['s_per_step']*1e3:.0f} ms/step"
+            )],
+            param_specs=specs,
+        )
     if history:
         first, last = history[0]["loss"], history[-1]["loss"]
-        print(f"[train] loss {first:.4f} -> {last:.4f} "
-              f"({'improved' if last < first else 'NOT improved'})")
+        say(f"[train] loss {first:.4f} -> {last:.4f} "
+            f"({'improved' if last < first else 'NOT improved'})")
+    if not common.is_rank0():
+        return history
     common.write_bench_out(args, {
         "arch": cfg.name,
         "steps": len(history),

@@ -10,8 +10,17 @@ weights stored already cast, see ``params``). The cross-entropy losses
 (lines 89-145 of the reference) read the target's logit with a ``gather``
 where the reference multiplies by ``one_hot(targets)``: the same value,
 without a (B, S, V) f32 tensor.
+
+Each loss term divides by its token count, ``mask.sum()``. On a mesh the
+train step first sums every term's count over the data axes and installs
+the sums with ``global_counts``: each rank then divides its own rows' sum
+by the global batch's count, so the ranks' losses add up to the global
+batch's mean (ROADMAP §C).
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -118,10 +127,34 @@ def _token_nll(logits, targets, true_vocab: int):
     return lse - tgt
 
 
-def softmax_xent(logits, targets, mask, true_vocab: int):
+_COUNTS = threading.local()
+
+
+@contextlib.contextmanager
+def global_counts(counts: dict):
+    """Divide each loss term named in ``counts`` (``"xent"``, ``"mtp"``) by
+    its count there, a tensor: the term's tokens over the whole batch,
+    where the rows at hand are one rank's share of it."""
+    prev = getattr(_COUNTS, "counts", None)
+    _COUNTS.counts = counts
+    try:
+        yield
+    finally:
+        _COUNTS.counts = prev
+
+
+def token_count(mask, term: str = "xent"):
+    """The divisor of the loss term ``term``: its count under
+    ``global_counts``, else the tokens where ``mask`` is set; at least 1."""
+    counts = getattr(_COUNTS, "counts", None)
+    n = mask.sum() if counts is None else counts[term]
+    return torch.clamp(n, min=1.0)
+
+
+def softmax_xent(logits, targets, mask, true_vocab: int, term: str = "xent"):
     """Mean cross-entropy over the tokens where ``mask`` is set."""
     nll = _token_nll(logits, targets, true_vocab) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.sum() / token_count(mask, term)
 
 
 def chunked_xent(p_embed, h, targets, mask, cfg: ModelConfig, chunk: int):
@@ -144,4 +177,4 @@ def chunked_xent(p_embed, h, targets, mask, cfg: ModelConfig, chunk: int):
     for c in range(0, h.shape[1], chunk):
         total = total + checkpoint(chunk_loss, h[:, c:c + chunk], targets[:, c:c + chunk],
                                    mask[:, c:c + chunk], use_reentrant=False)
-    return total / torch.clamp(mask.sum(), min=1.0)
+    return total / token_count(mask)

@@ -44,12 +44,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=torch.bfloat
     return transformer.init_lm(cfg, gen, device, dtype)
 
 
+def loss_counts(batch, cfg: ModelConfig) -> dict:
+    """The token count of each term of the loss of ``batch``'s rows, by the
+    term's name in ``layers.global_counts``: the next-token cross-entropy,
+    and deepseek-v3's multi-token prediction (one position fewer)."""
+    mask = batch["loss_mask"]
+    counts = {"xent": mask.sum()}
+    if cfg.mtp and cfg.family != "encdec":
+        counts["mtp"] = mask[:, 1:].sum()
+    return counts
+
+
 def loss_fn(cfg: ModelConfig, remat: str = "full", wkv_impl: str = "kernel"):
     """f(params, batch) -> the mean next-token loss (``encdec.encdec_loss``
-    or ``transformer.lm_loss``)."""
+    or ``transformer.lm_loss``). Its ``counts(batch)`` gives the count of
+    each loss term (``loss_counts``), which a train step on a mesh sums over
+    the data axes."""
     if cfg.family == "encdec":
-        return partial(encdec.encdec_loss, cfg=cfg, remat=remat)
-    return partial(transformer.lm_loss, cfg=cfg, remat=remat, wkv_impl=wkv_impl)
+        fn = partial(encdec.encdec_loss, cfg=cfg, remat=remat)
+    else:
+        fn = partial(transformer.lm_loss, cfg=cfg, remat=remat, wkv_impl=wkv_impl)
+    fn.counts = partial(loss_counts, cfg=cfg)
+    return fn
 
 
 def prefill_fn(cfg: ModelConfig, remat: str = "none", wkv_impl: str = "kernel"):

@@ -293,7 +293,7 @@ def _mtp_loss(params, h, batch, cfg: ModelConfig, positions):
     z = _layer_train(p["layer"], z, positions[:, :-1], cfg, _mtp_kind(cfg))
     logits = unembed(params["embed"], z, cfg)
     # the target at offset +2: position t predicts targets[t + 1]
-    return softmax_xent(logits, targets[:, 1:], mask[:, 1:], cfg.vocab_size)
+    return softmax_xent(logits, targets[:, 1:], mask[:, 1:], cfg.vocab_size, term="mtp")
 
 
 # --------------------------------------------------------------------------

@@ -16,8 +16,16 @@ checkpoint written by either package restores into the other.
     tensor to the host before it returns.
 
 Restored leaves are tensors on the device of the template's matching leaf,
-in the stored dtype. The reference's ``shardings=`` (elastic reshard onto a
-mesh) waits for LM training on a mesh (ROADMAP A19b).
+in the stored dtype. ``restore(shardings=)`` is the elastic reshard: the
+stored arrays are logical, so each is placed on any mesh by its
+``NamedSharding``: this rank's slice goes to the device, with no
+communication (as ``meshes.place`` places a whole tensor).
+
+In a process group of more than one rank, ``save`` and
+``AsyncCheckpointer.submit`` first make every leaf whole on every rank (a
+placed leaf is gathered by broadcasts, a collective every rank calls);
+global rank 0 alone writes the ``.tmp`` directory and renames it, then
+every rank waits at a barrier (the async writer's at ``close``).
 """
 from __future__ import annotations
 
@@ -29,6 +37,9 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.dist import meshes
 
 
 def _flatten(tree, prefix=""):
@@ -42,52 +53,127 @@ def _flatten(tree, prefix=""):
         yield prefix[:-1], tree
 
 
-def _unflatten_into(template, flat: dict, prefix=""):
+def _unflatten_into(template, data, shardings=None, prefix=""):
+    """``template``'s structure filled leaf by leaf from ``data`` (the
+    checkpoint's arrays, memory maps read one at a time), each leaf on its
+    template leaf's device; with ``shardings`` only this rank's slice of a
+    leaf is read and goes to the device."""
+    sub = (lambda k: None) if shardings is None else (lambda k: shardings[k])
     if isinstance(template, dict):
-        return {k: _unflatten_into(template[k], flat, f"{prefix}{k}/") for k in template}
+        return {k: _unflatten_into(template[k], data, sub(k), f"{prefix}{k}/") for k in template}
     if isinstance(template, (list, tuple)):
-        out = [_unflatten_into(v, flat, f"{prefix}{i}/") for i, v in enumerate(template)]
+        out = [_unflatten_into(v, data, sub(i), f"{prefix}{i}/") for i, v in enumerate(template)]
         return type(template)(out) if isinstance(template, tuple) else out
-    arr = flat[prefix[:-1]]
-    device = template.device if isinstance(template, torch.Tensor) else "cpu"
-    return torch.from_numpy(np.array(arr)).to(device)
+    arr = data[prefix[:-1].replace("/", "__")]
+    device = meshes.local(template).device if isinstance(template, torch.Tensor) else "cpu"
+    if shardings is None:
+        return torch.from_numpy(np.array(arr)).to(device)
+    # this rank's slice alone is read (a memory map of the member) and copied
+    part = np.array(arr if shardings.is_replicated
+                    else arr[meshes.shard_slices(arr.shape, shardings)])
+    return meshes.from_local(torch.from_numpy(part).to(device), shardings, tuple(arr.shape))
 
 
-def _host_copy(leaf) -> np.ndarray:
-    """A numpy array of ``leaf`` that shares no memory with it."""
+def _members(path: str):
+    """The arrays of an ``np.savez`` file by key, each a read-only memory
+    map of its member: both packages write their checkpoints with
+    ``np.savez``, which stores members uncompressed. Anything else raises
+    ``ValueError``."""
+    import struct
+    import zipfile
+
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            if info.compress_type != zipfile.ZIP_STORED or not info.filename.endswith(".npy"):
+                raise ValueError(f"{path}: {info.filename} is not an uncompressed .npy member")
+            f.seek(info.header_offset)
+            name_len, extra_len = struct.unpack("<HH", f.read(30)[26:30])
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            version = np.lib.format.read_magic(f)
+            if version not in ((1, 0), (2, 0)):
+                raise ValueError(f"{path}: {info.filename} has .npy format {version}")
+            shape, fortran, dtype = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                                     else np.lib.format.read_array_header_2_0)(f)
+            if dtype.hasobject:
+                raise ValueError(f"{path}: {info.filename} holds Python objects")
+            key = info.filename[:-len(".npy")]
+            if not shape or 0 in shape:  # nothing to map
+                n = int(np.prod(shape))
+                out[key] = np.frombuffer(f.read(dtype.itemsize * n), dtype=dtype).reshape(shape)
+            else:
+                out[key] = np.memmap(path, dtype=dtype, mode="r", offset=f.tell(), shape=shape,
+                                     order="F" if fortran else "C")
+    return out
+
+
+def _ranks() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _writer() -> bool:
+    """Whether this process writes: always alone, global rank 0 in a group."""
+    return _ranks() == 1 or dist.get_rank() == 0
+
+
+def _host_copy(leaf, keep: bool = True) -> np.ndarray | None:
+    """A numpy array of ``leaf`` that shares no memory with it (a placed
+    leaf made whole first, by every rank); None where ``keep`` is false."""
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError("bfloat16 leaves have no numpy dtype; checkpoint the f32 masters")
-        return leaf.detach().to("cpu", copy=True).numpy()
-    return np.array(leaf)
+        if meshes.is_dtensor(leaf):  # gathered through the host: a fresh host tensor
+            leaf = meshes.whole(leaf, device="cpu")
+            return leaf.detach().numpy() if keep else None
+        return leaf.detach().to("cpu", copy=True).numpy() if keep else None
+    return np.array(leaf) if keep else None
 
 
-def _to_host(tree):
-    if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_to_host(v) for v in tree]
-    return _host_copy(tree)
+def _to_host(tree, keep: bool = True):
+    """``tree`` with every leaf whole on the host, in ``_flatten``'s order
+    (the order of the collectives on a mesh)."""
+    return {name: _host_copy(leaf, keep) for name, leaf in _flatten(tree)}
 
 
 def save(ckpt_dir: str, step: int, state: dict) -> str:
     """Atomic checkpoint write. ``state`` is any tree (dicts, lists) of
-    tensors or arrays."""
+    tensors or arrays. In a group of ranks every rank calls it: rank 0
+    writes, then all meet at a barrier."""
+    arrays = _to_host(state, keep=_writer())
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _writer():
+        _write(ckpt_dir, step, arrays)
+    if _ranks() > 1:
+        meshes.barrier()
+    return final
+
+
+def _np_dtype(leaf) -> str:
+    if isinstance(leaf, torch.Tensor):
+        return str(torch.empty((), dtype=leaf.dtype).numpy().dtype)
+    return str(np.asarray(leaf).dtype)
+
+
+def manifest(state) -> dict:
+    """The ``arrays`` entry of the manifest a save of ``state`` writes:
+    dtype and logical shape by path (placed leaves count whole)."""
+    return {name: {"dtype": _np_dtype(leaf), "shape": list(np.shape(leaf))
+                   if not isinstance(leaf, torch.Tensor) else list(leaf.shape)}
+            for name, leaf in _flatten(state)}
+
+
+def _write(ckpt_dir: str, step: int, host: dict) -> str:
+    """Write the leaves ``host`` (path -> numpy array) atomically."""
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    manifest = {}
-    arrays = {}
-    for name, leaf in _flatten(state):
-        arr = leaf if isinstance(leaf, np.ndarray) else _host_copy(leaf)
-        arrays[name.replace("/", "__")] = arr
-        manifest[name] = {"dtype": str(arr.dtype), "shape": list(arr.shape)}
-    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    np.savez(os.path.join(tmp, "arrays.npz"),
+             **{name.replace("/", "__"): arr for name, arr in host.items()})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump({"step": step, "arrays": manifest}, f)
+        json.dump({"step": step, "arrays": manifest(host)}, f)
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
@@ -102,15 +188,18 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, template, step: int | None = None):
-    """Load a checkpoint into ``template``'s structure: (state, step)."""
+def restore(ckpt_dir: str, template, step: int | None = None, shardings=None):
+    """Load a checkpoint into ``template``'s structure: (state, step). With
+    ``shardings`` (a matching tree of ``NamedSharding``) each leaf is placed
+    by its sharding, on any mesh: the elastic reshard. A ``shardings`` tree
+    that does not match ``template`` raises ``ValueError``."""
+    if shardings is not None:
+        meshes.check_tree_shardings(template, shardings)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-    path = os.path.join(ckpt_dir, f"step_{step:08d}")
-    with np.load(os.path.join(path, "arrays.npz")) as data:
-        flat = {k.replace("__", "/"): data[k] for k in data.files}
-    return _unflatten_into(template, flat), step
+    members = _members(os.path.join(ckpt_dir, f"step_{step:08d}", "arrays.npz"))
+    return _unflatten_into(template, members, shardings), step
 
 
 class AsyncCheckpointer:
@@ -128,9 +217,9 @@ class AsyncCheckpointer:
             item = self._q.get()
             if item is None:
                 return
-            step, state = item
+            step, host = item
             try:
-                save(self.ckpt_dir, step, state)
+                _write(self.ckpt_dir, step, host)
             except Exception as e:  # surfaced on next submit/close
                 self._err = e
 
@@ -138,11 +227,15 @@ class AsyncCheckpointer:
         if self._err:
             raise self._err
         # copy to the host NOW: the train step updates the tensors in place
-        self._q.put((step, _to_host(state)))  # blocks if previous write is behind
+        host = _to_host(state, keep=_writer())
+        if _writer():
+            self._q.put((step, host))  # blocks if previous write is behind
 
     def close(self):
         self._q.put(None)
         self._thread.join()
+        if _ranks() > 1:
+            meshes.barrier()
         if self._err:
             raise self._err
 

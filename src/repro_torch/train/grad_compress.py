@@ -4,8 +4,11 @@
 Gradients are quantized to int8 (per-tensor symmetric scale) before the
 data-parallel all-reduce would run, quartering its bytes; the quantization
 residual is carried to the next step (error feedback, Karimireddy et al.,
-2019). On one card there is no all-reduce: the step sees the gradients as
-the all-reduce would deliver them.
+2019). The port's train step compresses the gradients it holds: on one
+card there is no all-reduce, and on a mesh the gradient the ranks' sum
+delivered (whole, the same on every rank, with a whole error feedback), so
+the step sees them as the reference's compressed all-reduce would deliver
+them; the collective itself still carries f32.
 """
 from __future__ import annotations
 

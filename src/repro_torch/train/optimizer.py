@@ -8,16 +8,40 @@ leading axis, so its temporaries are two pieces and not two copies of the
 leaf (a 4 GB stacked matrix at minicpm3-4b's full width, where the training
 state leaves 18 GB of the card); a smaller leaf is one piece. Nothing is read back to
 the host: the step counter, the learning rate, the gradient norm and the clip
-scale stay tensors on the parameters' device. ``state_specs`` is a copy of
-the reference's logical-spec rule (the ZeRO 'zero' axis), kept for the
-LM training on a mesh (ROADMAP A19b); nothing shards by it yet.
+scale stay tensors on the parameters' device.
+
+On a mesh (``meshes.current_mesh()`` a ``DeviceMesh`` of more than one
+rank, read at each call) the step is an explicit data-parallel step, where
+the reference's jitted step lets GSPMD place the collectives (ROADMAP §C):
+
+  * each rank takes its rows of the batch over the data axes
+    (``meshes.batch_rows``); a batch that does not divide them stays whole;
+  * the weights that the model axis shards are made whole for the step
+    (``meshes.whole``) and freed after it: forward and backward run on the
+    whole weights and the rank's rows (no tensor-parallel compute);
+  * every loss term divides by its count summed over the data axes (one
+    ``all_reduce`` of the loss function's ``counts``, ``layers.global_counts``),
+    so the ranks' losses sum to the global batch's mean: one ``all_reduce``;
+  * the gradients are summed over the data axes in fixed-order flat buckets
+    of at most ``meshes.BUCKET_BYTES``: every rank holds the global gradient,
+    and the clip norm is the same bits everywhere;
+  * each rank runs AdamW on its region only, its model slice of a weight
+    intersected with its ``zero`` slice of the moments (``state_specs``,
+    placed by ``adamw_init(param_specs=)``), then broadcasts the region over
+    the data axes (``meshes.broadcast_regions``).
+
+Only ``all_reduce`` and ``broadcast`` are issued; there are no float
+atomics, and a second run gives the same bits.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 
+from repro_torch.dist import meshes
+from repro_torch.models.layers import global_counts
 from repro_torch.models.params import leaves, tree_map
 
 
@@ -34,12 +58,45 @@ class OptConfig:
     zero_sharding: bool = True
 
 
-def adamw_init(params, cfg: OptConfig):
+def adamw_init(params, cfg: OptConfig, param_specs=None):
+    """Zero moments and step counter. On a mesh the moments are placed by
+    ``state_specs`` (``state_shardings``): each rank allocates its slice
+    only. ``param_specs`` (the port's own keyword) gives the weights'
+    logical axes; without it every dim counts as unnamed."""
     dt = getattr(torch, cfg.state_dtype)
-    device = next(leaves(params)).device
+    device = meshes.local(next(leaves(params))).device
+    mesh = meshes.current_mesh()
+    if meshes.is_multi_rank(mesh):
+        sh = state_shardings(params, cfg, mesh, param_specs)
+        zeros = lambda p, s: meshes.zeros(p.shape, s, dt, meshes.local(p).device)
+        return {"mu": tree_map(zeros, params, sh["mu"]), "nu": tree_map(zeros, params, sh["nu"]),
+                "step": torch.zeros((), dtype=torch.int32, device=device)}
     zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def unnamed_specs(params):
+    """A logical spec of unnamed dims for every leaf of ``params``: what the
+    weights resolve to without specs (replicated), and what ``state_specs``
+    takes for pure data parallelism."""
+    return tree_map(lambda p: (None,) * p.dim(), params)
+
+
+def param_shardings(params, mesh, param_specs=None):
+    """The weights' ``NamedSharding`` tree on ``mesh`` under the default
+    rules; every leaf replicated without ``param_specs``."""
+    specs = unnamed_specs(params) if param_specs is None else param_specs
+    return meshes.tree_shardings(specs, params, mesh)
+
+
+def state_shardings(params, cfg: OptConfig, mesh, param_specs=None):
+    """The optimizer state's ``NamedSharding`` tree on ``mesh``: the moments
+    by ``state_specs`` (the ``zero`` axis on the data axes), the step
+    replicated."""
+    specs = unnamed_specs(params) if param_specs is None else param_specs
+    shapes = {"mu": params, "nu": params, "step": torch.empty(())}
+    return meshes.tree_shardings(state_specs(specs, cfg, params), shapes, mesh)
 
 
 def state_specs(param_specs, cfg: OptConfig, param_shapes=None):
@@ -90,10 +147,27 @@ def _pieces(n_elements: int, rows: int) -> int:
     return max(1, -(-rows // n))
 
 
+def _region_views(p, g, mu, nu):
+    """The part of a leaf this rank updates: the moments' region of the
+    whole tensor (all of it where they are not placed), as views of the
+    weight's local tensor and of the whole gradient, with the local
+    moments."""
+    if not (meshes.is_dtensor(mu) or meshes.is_dtensor(p)):
+        return p, g, mu, nu
+    held = meshes.region(p)
+    if not meshes.is_dtensor(mu):  # whole moments of a placed weight: its slice of them
+        return meshes.local(p), g[held], mu[held], nu[held]
+    reg = meshes.region(mu)
+    rel = tuple(slice(a.start - b.start, a.stop - b.start) for a, b in zip(reg, held))
+    return meshes.local(p)[rel], g[reg], meshes.local(mu), meshes.local(nu)
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state, cfg: OptConfig):
     """One AdamW step, in place on ``params`` and ``state``. Returns (params, state, {"grad_norm",
-    "lr"}), the last two as device tensors."""
+    "lr"}), the last two as device tensors. ``grads`` are whole tensors;
+    where the moments are placed on a mesh, each rank updates its region of
+    each weight and broadcasts it over the data axes."""
     step = state["step"] + 1
     lr = lr_at(step, cfg)
     flat_g = list(leaves(grads))
@@ -104,7 +178,11 @@ def adamw_update(params, grads, state, cfg: OptConfig):
     stepf = step.to(torch.float32)
     c1 = 1.0 - torch.pow(b1, stepf)
     c2 = 1.0 - torch.pow(b2, stepf)
-    for leaf in zip(leaves(params), flat_g, leaves(state["mu"]), leaves(state["nu"])):
+    placed = []  # (weight, moment) pairs placed on a mesh
+    for p, g, mu, nu in zip(leaves(params), flat_g, leaves(state["mu"]), leaves(state["nu"])):
+        if meshes.is_dtensor(mu):
+            placed.append((p, mu))
+        leaf = _region_views(p, g, mu, nu)
         if leaf[0].dim() == 0:
             pieces = [leaf]
         else:
@@ -122,6 +200,9 @@ def adamw_update(params, grads, state, cfg: OptConfig):
             for x, x32 in ((mu, mu32), (nu, nu32), (p, p32)):
                 if x32 is not x:
                     x.copy_(x32)
+    if placed:
+        mesh = placed[0][1].device_mesh
+        meshes.broadcast_regions(placed, mesh, meshes.mesh_data_axes(mesh))
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
 
@@ -163,8 +244,51 @@ def make_train_step(loss_fn, opt_cfg: OptConfig, compress=None, microbatches: in
         inv = 1.0 / microbatches
         return loss_sum * inv, [g.mul_(inv) for g in gsum]
 
+    def _mesh_grads(params, batch, mesh):
+        """The loss of the global batch and its whole gradients, summed over
+        the data axes the batch was split over."""
+        rows, axes = meshes.batch_rows(batch, mesh)
+        flat = [meshes.whole(p) for p in leaves(params)]
+        for p in flat:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+        it = iter(flat)
+        whole = tree_map(lambda _: next(it), params)
+        counts_fn = getattr(loss_fn, "counts", None)
+        ranks = meshes.mesh_axis_size(mesh, *axes)
+        counts = None
+        if counts_fn is not None and axes:
+            local = counts_fn(rows)
+            names = sorted(local)
+            summed = torch.stack([local[k].to(torch.float32) for k in names])
+            meshes.all_reduce(summed, mesh, axes)
+            counts = dict(zip(names, summed.unbind()))
+        with global_counts(counts) if counts is not None else contextlib.nullcontext():
+            loss = loss_fn(whole, rows)
+        if counts is None and axes:
+            # a loss without counts is a mean over its rows: the ranks' equal
+            # shares weigh 1 / ranks each
+            loss = loss / ranks
+        grads = [g if g.is_contiguous() else g.contiguous()
+                 for g in torch.autograd.grad(loss, flat)]
+        del whole, flat
+        loss = loss.detach()
+        if axes:
+            meshes.all_reduce_buckets(grads, mesh, axes)
+            loss = loss.to(torch.float32).reshape(1).clone()
+            meshes.all_reduce(loss, mesh, axes)
+            loss = loss[0]
+        return loss, grads
+
     def step(params, opt_state, batch, error_fb=None):
-        loss, flat_g = _grads(params, batch)
+        mesh = meshes.current_mesh()
+        if meshes.is_multi_rank(mesh):
+            if microbatches > 1:
+                raise NotImplementedError("microbatches on a mesh: each rank takes its own "
+                                          "rows of the batch instead")
+            loss, flat_g = _mesh_grads(params, batch, mesh)
+        else:
+            loss, flat_g = _grads(params, batch)
         it = iter(flat_g)
         grads = tree_map(lambda _: next(it), params)
         if compress is not None:

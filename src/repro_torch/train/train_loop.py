@@ -8,6 +8,14 @@ data keyed by (step, shard) so a restarted worker reproduces its shard
 exactly. The step runs eagerly (the reference jits it) and reads one value
 back to the host per step, the loss; logging steps also read the gradient
 norm and the learning rate, as the reference does.
+
+Under ``meshes.use_mesh`` of more than one rank, ``run`` places the weights
+by ``param_specs`` (the port's own keyword: in the reference XLA places
+them) under the default rules, replicated without it, and the moments by
+``state_specs``; the train step then runs on the mesh (``optimizer``), a
+resumed checkpoint is placed with the current mesh's shardings, and every
+rank saves (rank 0 writes). ``None``, an ``AbstractMesh`` or a one-rank mesh
+keep the unsharded path and its bits.
 """
 from __future__ import annotations
 
@@ -18,9 +26,16 @@ from typing import Callable
 
 import numpy as np
 
+from repro_torch.dist import meshes
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.grad_compress import compress_grads, init_error_fb
-from repro_torch.train.optimizer import OptConfig, adamw_init, make_train_step
+from repro_torch.train.optimizer import (
+    OptConfig,
+    adamw_init,
+    make_train_step,
+    param_shardings,
+    state_shardings,
+)
 
 
 @dataclasses.dataclass
@@ -55,25 +70,34 @@ def run(
     opt_cfg: OptConfig = OptConfig(),
     preemption: PreemptionGuard | None = None,
     hooks: list[Callable] | None = None,
+    param_specs=None,
 ):
     """Train until total_steps, resuming from the latest checkpoint if any.
 
-    data_fn(step) must be deterministic in step (replay-safe). ``params`` is
-    updated in place unless a checkpoint is restored, whose tensors replace
-    it. Returns (params, opt_state, history).
+    data_fn(step) must be deterministic in step (replay-safe); on a mesh it
+    gives the global batch, the same on every rank. ``params`` is updated in
+    place unless a checkpoint is restored or the weights are placed on a
+    mesh, whose tensors replace it. Returns (params, opt_state, history).
     """
     preemption = preemption or PreemptionGuard()
     compress = compress_grads if loop_cfg.grad_compression else None
     step_fn = make_train_step(loss_fn, opt_cfg, compress=compress)
 
-    opt_state = adamw_init(params, opt_cfg)
+    mesh = meshes.current_mesh()
+    shardings = None
+    if meshes.is_multi_rank(mesh):
+        shardings = {"params": param_shardings(params, mesh, param_specs)}
+        params = meshes.place_tree(params, shardings["params"])
+        shardings["opt"] = state_shardings(params, opt_cfg, mesh, param_specs)
+    opt_state = adamw_init(params, opt_cfg, param_specs=param_specs)
     error_fb = init_error_fb(params) if compress else None
     start_step = 0
 
     latest = ckpt.latest_step(loop_cfg.ckpt_dir)
     if latest is not None:
         state_template = {"params": params, "opt": opt_state}
-        restored, start_step = ckpt.restore(loop_cfg.ckpt_dir, state_template)
+        restored, start_step = ckpt.restore(loop_cfg.ckpt_dir, state_template,
+                                            step=latest, shardings=shardings)
         params, opt_state = restored["params"], restored["opt"]
 
     saver = (

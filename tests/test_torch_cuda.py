@@ -198,6 +198,51 @@ def test_sharded_epochs_on_two_gloo_ranks_of_one_card(card, tmp_path):
         assert np.array_equal(ranks[0][key[0]][key[1]], ranks[1][key[0]][key[1]]), key
 
 
+def test_lm_train_on_two_gloo_ranks_of_one_card(card, tmp_path):
+    """Reduced rwkv6-3b (f32 activations) on two gloo ranks of cuda:0
+    (tests/test_torch_dist_util.py's lm_card case), on (2 x 1) and (1 x 2),
+    through ``train_loop.run(param_specs=)``: the async checkpointer on the
+    mesh, then a resume placed with the mesh's shardings. B6 and B6-bwd
+    launched on each rank, the losses and gradient norms at the bounds of
+    the single-card train-loop test, the weights at F32_GRAD of the
+    unsharded card run, the weights placed on the model axis, the same bits
+    on both ranks, and only all_reduce and broadcast."""
+    import test_torch_dist_util as dist_util
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import model_zoo
+    from repro_torch.models.params import leaves, tree_map
+
+    cfg = get_reduced_config("rwkv6-3b")
+    p, _ = model_zoo.init_params(cfg, 0, "cpu", dtype=torch.float32)
+    weights = tree_map(lambda t: t.numpy(), p)
+    torch.save(weights, str(tmp_path / "lm_card_weights.pt"))
+    started = dist_util.start("lm_card", 2, str(tmp_path), device="cuda")
+    try:
+        want = dist_util.lm_card_run(cfg, weights, card, str(tmp_path / "ck_unsharded"))
+    finally:
+        ranks = dist_util.collect(started)
+    steps, layers = dist_util.LM_CARD_STEPS, cfg.n_layers
+    # no remat: one forward and one backward launch a layer a step
+    assert want["launches"] == {"wkv": layers * steps, "wkv_bwd": layers * steps}
+    for r in ranks:
+        for name in ("data", "model"):
+            got = r[name]
+            assert got["launches"] == want["launches"], name
+            np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
+            np.testing.assert_allclose(got["grad_norms"], want["grad_norms"], rtol=1e-3)
+            for key, v in got["params"].items():
+                np.testing.assert_allclose(v, want["params"][key], rtol=1e-4, atol=1e-5,
+                                           err_msg=f"{name} {key}")
+            assert set(got["collectives"]) == {"all_reduce", "broadcast"}
+        assert r["forbidden"] == []
+    assert ranks[0]["data"]["collectives"]["all_reduce"] > 0  # the data mesh sums
+    assert ranks[0]["model"]["placements"]["embed/table"] == ["R", "S(0)"]  # vocab on model
+    for name in ("data", "model"):
+        for key, v in ranks[0][name]["params"].items():
+            assert np.array_equal(v, ranks[1][name]["params"][key]), (name, key)
+    assert len(list(leaves(p))) == len(ranks[0]["data"]["params"])
+
+
 # plans over a d-column layout: one column, scattered runs, all, label only
 def _plans(layout):
     d = layout.n_features

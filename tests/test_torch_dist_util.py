@@ -15,6 +15,7 @@ On the CPU each rank runs one intra-op thread; on the card every rank binds
 from __future__ import annotations
 
 import datetime
+import json
 import os
 import subprocess
 import sys
@@ -255,7 +256,300 @@ def case_engine(rank, world, workdir, device):
     return out
 
 
-CASES = {"engine": case_engine}
+# ---------------------------------------------------------------------------
+# LM training on a mesh
+# ---------------------------------------------------------------------------
+MESH_BATCH, MESH_SEQ = 8, 16
+MESH_OPT = {"lr": 1e-3, "warmup_steps": 2}
+
+
+def unequal_mask_batch(vocab: int, rows: int = 8, seq: int = 16) -> dict:
+    """A batch whose loss masks give the ranks of a 4-way data axis unequal
+    counts: 32, 21, 9 and 0 tokens."""
+    rng = np.random.default_rng(11)
+    tok = rng.integers(0, vocab, (rows, seq + 1))
+    keep = np.array([16, 16, 16, 5, 9, 0, 0, 0])[:rows, None]
+    mask = (np.arange(seq)[None, :] < keep).astype(np.float32)
+    return {"tokens": tok[:, :-1].astype(np.int32), "targets": tok[:, 1:].astype(np.int32),
+            "loss_mask": mask}
+
+
+def uncast():
+    """f32 embedding and unembedding in the port (test_torch_rwkv._uncast's
+    patches of the port's side); returns the function that undoes them."""
+    from repro_torch.models import model_zoo, transformer
+
+    saved = (transformer.embed, transformer.unembed, model_zoo.unembed)
+    transformer.embed = lambda p, t, cfg: p["table"][t]
+    transformer.unembed = lambda p, x, cfg: x @ p["unembed"]
+    model_zoo.unembed = lambda p, x, cfg: x @ p["unembed"]
+
+    def undo():
+        transformer.embed, transformer.unembed, model_zoo.unembed = saved
+
+    return undo
+
+
+def first_grads(loss_fn, opt_cfg):
+    """A train step that keeps its first step's gradients (as numpy, by
+    path) in the dict it returns with it: the step's ``compress`` hook sees
+    the gradients the update takes, whole and summed over the ranks."""
+    from repro_torch.train.checkpoint import _flatten
+    from repro_torch.train.optimizer import make_train_step
+
+    first = {}
+
+    def keep(grads, error_fb):
+        if not first:
+            first.update({k: g.detach().cpu().numpy().copy() for k, g in _flatten(grads)})
+        return grads, error_fb
+
+    return first, make_train_step(loss_fn, opt_cfg, compress=keep)
+
+
+def _whole_tree(tree):
+    """Every leaf of a placed tree whole, as numpy, keyed by its path."""
+    from repro_torch.dist import meshes
+    from repro_torch.train.checkpoint import _flatten
+
+    return {name: meshes.whole(x).detach().cpu().numpy() for name, x in _flatten(tree)}
+
+
+def _placements_tree(tree):
+    from repro_torch.train.checkpoint import _flatten
+
+    return {name: placements(x) for name, x in _flatten(tree)}
+
+
+def case_train_mesh(rank, world, workdir, device):
+    """LM training on a (4 x 2) mesh: reduced rwkv6-3b with f32 activations
+    through train_loop.run from the parent's numpy weights; the async and
+    the sync checkpoint of the placed state; one step on a batch whose
+    masks give the ranks unequal counts, and one on a batch of 6 rows (it
+    does not divide 4 data ranks); the parent's repro checkpoint restored
+    with shardings=."""
+    import torch
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data.pipeline import synthetic_data_fn
+    from repro_torch.dist import meshes
+    from repro_torch.models import model_zoo
+    from repro_torch.models.params import params_from_numpy
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import (
+        OptConfig,
+        adamw_init,
+        make_train_step,
+        param_shardings,
+        state_shardings,
+    )
+    from repro_torch.train.train_loop import TrainLoopConfig, run
+
+    forbidden = _guard_collectives()
+    out = {}
+    mesh = meshes.make_mesh((4, 2), ("data", "model"), device=device)
+    cfg = get_reduced_config("rwkv6-3b")
+    weights = torch.load(os.path.join(workdir, "rwkv_weights.pt"), weights_only=False)
+    _, specs = model_zoo.init_params(cfg, 0, device, dtype=torch.float32)
+    opt_cfg = OptConfig(**MESH_OPT)
+
+    # 1. six steps of train_loop.run, f32 activations
+    undo = uncast()
+    try:
+        params = params_from_numpy(cfg, weights, device=device, dtype=torch.float32)
+        meshes.reset_collectives()
+        with meshes.use_mesh(mesh):
+            p, opt, hist = run(model_zoo.loss_fn(cfg, remat="none"), params,
+                               synthetic_data_fn(cfg, MESH_BATCH, MESH_SEQ, device=device),
+                               TrainLoopConfig(total_steps=6, ckpt_every=1000, log_every=1,
+                                               ckpt_dir=os.path.join(workdir, f"run.{rank}")),
+                               opt_cfg, param_specs=specs)
+            collectives = dict(meshes.COLLECTIVES)
+            want_sh = state_shardings(p, opt_cfg, mesh, specs)
+            out["run"] = {"history": hist, "params": _whole_tree(p),
+                          "opt": _whole_tree(opt), "collectives": collectives,
+                          "placements": _placements_tree(p),
+                          "opt_placements": _placements_tree(opt),
+                          "opt_specs": {k: tuple(v.spec) for k, v in
+                                        ckpt._flatten(want_sh)}}
+            # 2. the checkpoints of the placed state: async, then sync
+            saver = ckpt.AsyncCheckpointer(os.path.join(workdir, "async_ck"))
+            saver.submit(6, {"params": p, "opt": opt})
+            saver.close()
+            ckpt.save(os.path.join(workdir, "sync_ck"), 6, {"params": p, "opt": opt})
+
+        # 3. one step on unequal masks; one on a batch that does not divide
+        step_fn = make_train_step(model_zoo.loss_fn(cfg, remat="none"), opt_cfg)
+        for name, batch in (("unequal", unequal_mask_batch(cfg.vocab_size)),
+                            ("six_rows", {k: v[:6] for k, v in
+                                          unequal_mask_batch(cfg.vocab_size).items()})):
+            with meshes.use_mesh(mesh):
+                tp = params_from_numpy(cfg, weights, device=device, dtype=torch.float32)
+                tp = meshes.place_tree(tp, param_shardings(tp, mesh, specs))
+                opt = adamw_init(tp, opt_cfg, param_specs=specs)
+                meshes.reset_collectives()
+                tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+                tp, opt, m = step_fn(tp, opt, tb)
+                out[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                             "params": _whole_tree(tp), "fallbacks": meshes.fallbacks(),
+                             "collectives": dict(meshes.COLLECTIVES)}
+    finally:
+        undo()
+
+    # 4. the parent's repro checkpoint placed with shardings= on this mesh
+    with meshes.use_mesh(mesh):
+        tp = params_from_numpy(cfg, weights, device=device, dtype=torch.float32)
+        template = {"params": tp, "opt": adamw_init(tp, opt_cfg)}
+        shardings = {"params": param_shardings(tp, mesh, specs),
+                     "opt": state_shardings(tp, opt_cfg, mesh, specs)}
+        got, step = ckpt.restore(os.path.join(workdir, "repro_ck"), template,
+                                 shardings=shardings)
+        out["restored"] = {"step": step, "whole": _whole_tree(got),
+                           "placements": _placements_tree(got),
+                           "local": {k: meshes.local(v).cpu().numpy()
+                                     for k, v in ckpt._flatten(got)}}
+
+    out["forbidden"] = list(forbidden)
+    return out
+
+
+def case_train_families(rank, world, workdir, device):
+    """Two steps on a (4 x 2) mesh of each family named in the parent's
+    ``families.json``, from the port's ``init_params`` (seed 0) and
+    ``synthetic_data_fn``'s batches: the losses, the gradient norms, the
+    first step's summed gradients and the final weights, whole."""
+    import torch
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data.pipeline import synthetic_data_fn
+    from repro_torch.dist import meshes
+    from repro_torch.models import model_zoo
+    from repro_torch.train.optimizer import OptConfig, adamw_init, param_shardings
+
+    forbidden = _guard_collectives()
+    with open(os.path.join(workdir, "families.json")) as f:
+        archs = json.load(f)
+    mesh = meshes.make_mesh((4, 2), ("data", "model"), device=device)
+    opt_cfg = OptConfig(**MESH_OPT)
+    out = {}
+    for arch in archs:
+        fcfg = get_reduced_config(arch)
+        data_fn = synthetic_data_fn(fcfg, MESH_BATCH, MESH_SEQ, device=device)
+        fp, fspecs = model_zoo.init_params(fcfg, 0, device, dtype=torch.float32)
+        first, step_fn = first_grads(model_zoo.loss_fn(fcfg, remat="none"), opt_cfg)
+        with meshes.use_mesh(mesh):
+            fp = meshes.place_tree(fp, param_shardings(fp, mesh, fspecs))
+            opt = adamw_init(fp, opt_cfg, param_specs=fspecs)
+            losses, norms = [], []
+            for s in range(2):
+                fp, opt, _, m = step_fn(fp, opt, data_fn(s), None)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            out[arch] = {"losses": losses, "grad_norms": norms, "grads": first,
+                         "params": _whole_tree(fp), "placements": _placements_tree(fp)}
+    out["forbidden"] = list(forbidden)
+    return out
+
+
+def case_elastic(rank, world, workdir, device):
+    """The elastic flow of examples/elastic_restart.py through
+    ``repro_torch.launch.elastic_restart.flow``: (4 x 2), save, restore onto
+    (2 x 4), from the parent's numpy weights (repro's ``init_params``)."""
+    import torch
+
+    from repro_torch.dist import meshes
+    from repro_torch.launch import elastic_restart
+
+    forbidden = _guard_collectives()
+    args = elastic_restart.build_parser().parse_args(
+        ["--device", device, "--ranks", str(world), "--workdir", workdir])
+    weights = torch.load(os.path.join(workdir, "elastic_weights.pt"), weights_only=False)
+    meshes.reset_collectives()
+    res = elastic_restart.flow(args, rank, device, weights)
+    with meshes.use_mesh(res["mesh_b"]):
+        whole = _whole_tree({"params": res["params"], "opt": res["opt"]})
+    return {"losses": res["losses"], "grad_norms": res["grad_norms"], "step": res["step"],
+            "restored_step": res["restored_step"], "whole": whole,
+            "placements": _placements_tree(res["params"]),
+            "opt_placements": _placements_tree(res["opt"]),
+            "collectives": dict(meshes.COLLECTIVES), "barriers": dict(meshes.BARRIERS),
+            "forbidden": list(forbidden)}
+
+
+LM_CARD_STEPS, LM_CARD_BATCH, LM_CARD_SEQ = 3, 4, 32
+
+
+def lm_card_run(cfg, weights, device, ckpt_dir, mesh=None):
+    """LM_CARD_STEPS steps of reduced rwkv6-3b with f32 activations from
+    ``weights`` (a numpy tree), on ``mesh`` or unsharded, through
+    ``train_loop.run(param_specs=)`` in two calls: the first trains all but
+    the last step and saves through the async checkpointer, the second
+    resumes from that checkpoint (on a mesh, placed with the mesh's
+    shardings) and trains the last step. The losses, the gradient norms,
+    the whole final weights, B6's and B6-bwd's launches."""
+    import torch
+
+    from repro_torch.data.pipeline import synthetic_data_fn
+    from repro_torch.dist import meshes
+    from repro_torch.kernels.wkv import kernel as wkv_kernel
+    from repro_torch.models import model_zoo
+    from repro_torch.models.params import params_from_numpy
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_loop import TrainLoopConfig, run
+
+    _, specs = model_zoo.init_params(cfg, 0, "cpu", dtype=torch.float32)
+    data_fn = synthetic_data_fn(cfg, LM_CARD_BATCH, LM_CARD_SEQ, device=device)
+    loss_fn = model_zoo.loss_fn(cfg, remat="none")
+    undo = uncast()
+    try:
+        with meshes.use_mesh(mesh):
+            wkv_kernel.wkv_forward.launches = wkv_kernel.wkv_backward.launches = 0
+            hist = []
+            for total in (LM_CARD_STEPS - 1, LM_CARD_STEPS):
+                p = params_from_numpy(cfg, weights, device=device, dtype=torch.float32)
+                p, opt, h = run(loss_fn, p, data_fn,
+                                TrainLoopConfig(total_steps=total, ckpt_every=LM_CARD_STEPS - 1,
+                                                log_every=1, ckpt_dir=ckpt_dir,
+                                                async_checkpoint=True),
+                                OptConfig(**MESH_OPT), param_specs=specs)
+                hist += h
+            assert [h["step"] for h in hist] == list(range(1, LM_CARD_STEPS + 1))
+            assert int(opt["step"]) == LM_CARD_STEPS
+            return {"losses": [h["loss"] for h in hist],
+                    "grad_norms": [h["grad_norm"] for h in hist], "params": _whole_tree(p),
+                    "placements": _placements_tree(p),
+                    "launches": {"wkv": wkv_kernel.wkv_forward.launches,
+                                 "wkv_bwd": wkv_kernel.wkv_backward.launches}}
+    finally:
+        undo()
+
+
+def case_lm_card(rank, world, workdir, device):
+    """Reduced rwkv6-3b on the card's gloo ranks, on (world x 1) and
+    (1 x world), from the parent's numpy weights (lm_card_run: through
+    ``train_loop.run``, a checkpoint and its resume)."""
+    import torch
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.dist import meshes
+
+    forbidden = _guard_collectives()
+    cfg = get_reduced_config("rwkv6-3b")
+    weights = torch.load(os.path.join(workdir, "lm_card_weights.pt"), weights_only=False)
+    out = {}
+    for name, shape in (("data", (world, 1)), ("model", (1, world))):
+        mesh = meshes.make_mesh(shape, ("data", "model"), device=device)
+        meshes.reset_collectives()
+        out[name] = lm_card_run(cfg, weights, device, os.path.join(workdir, f"ck_{name}"),
+                                mesh)
+        out[name]["collectives"] = dict(meshes.COLLECTIVES)
+    out["forbidden"] = list(forbidden)
+    return out
+
+
+CASES = {"engine": case_engine, "train_mesh": case_train_mesh,
+         "train_families": case_train_families, "elastic": case_elastic,
+         "lm_card": case_lm_card}
 
 
 def main(argv) -> int:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Latency of the collectives the sharded TRAIN path makes: gloo ranks on
+"""Latency and bandwidth of the collectives the sharded paths make: gloo ranks on
 one NVIDIA card, as ``chip_smoke.py``'s train-sharded phase starts them
 (each rank bound to cuda:0, gloo over loopback, one CPU thread).
 
@@ -15,10 +15,16 @@ of:
                    collective, the cost of several processes taking turns
                    on the card
 
-and rank 0 prints one JSON line per world size: microseconds a round, and
+then, for the LM training step's buckets, ``SIZE_ITERS`` rounds (after one
+of warm-up) of ``all_reduce`` and of ``broadcast`` (from rank 0) of f32
+CUDA tensors of each of ``--sizes-mb`` (4 to 256 MB: the gradient's
+buckets are at most 256 MB), each round ended by ``torch.cuda.synchronize``;
+
+and rank 0 prints one JSON line per world size: microseconds a round,
+milliseconds and GB/s (the tensor's bytes over the time) at each size, and
 the card's name and power limit.
 
-    python3 tools/gloo_latency.py [--iters 300]
+    python3 tools/gloo_latency.py [--iters 300] [--sizes-mb 4,16,64,256]
 """
 import argparse
 import datetime
@@ -32,7 +38,10 @@ import time
 FEATURES = 54  # remote_sensing_lr's gradient: the merge a batch sends
 
 
-def rank_main(rank: int, world: int, work: str, iters: int) -> None:
+SIZE_ITERS = 5
+
+
+def rank_main(rank: int, world: int, work: str, iters: int, sizes_mb: list[int]) -> None:
     import torch
     import torch.distributed as dist
 
@@ -72,12 +81,29 @@ def rank_main(rank: int, world: int, work: str, iters: int) -> None:
             fn()
         torch.cuda.synchronize()
         out[name] = 1e6 * (time.perf_counter() - t0) / iters
+    by_size = {"all_reduce": {}, "broadcast": {}}
+    for mb in sizes_mb:
+        big = torch.ones(mb * (1 << 20) // 4, device="cuda")
+        for name, fn in (("all_reduce", lambda: dist.all_reduce(big)),
+                         ("broadcast", lambda: dist.broadcast(big, src=0))):
+            fn()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(SIZE_ITERS):
+                fn()
+                torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / SIZE_ITERS
+            by_size[name][mb] = {"ms": ms, "gb_per_s": big.numel() * 4 / ms / 1e6}
+        del big
+        torch.cuda.empty_cache()
     dist.barrier()
     if rank == 0:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              timeout=60).stdout.strip().splitlines()[0]
         print(json.dumps({"ranks": world, "us_per_round": out, "iters": iters,
+                          "cuda_f32_by_mb": by_size, "size_iters": SIZE_ITERS,
                           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
                           "torch": torch.__version__}), flush=True)
     dist.destroy_process_group()
@@ -85,16 +111,19 @@ def rank_main(rank: int, world: int, work: str, iters: int) -> None:
 
 def main() -> int:
     if sys.argv[1:2] == ["--rank"]:
-        rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], int(sys.argv[5]))
+        rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], int(sys.argv[5]),
+                  [int(x) for x in sys.argv[6].split(",")])
         return 0
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=300)
+    ap.add_argument("--sizes-mb", default="4,16,64,256")
     args = ap.parse_args()
     env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
     with tempfile.TemporaryDirectory() as work:
         for world in (1, 2, 4):
             procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank",
-                                       str(r), str(world), work, str(args.iters)], env=env)
+                                       str(r), str(world), work, str(args.iters),
+                                       args.sizes_mb], env=env)
                      for r in range(world)]
             try:
                 rcs = [p.wait(timeout=300) for p in procs]
