@@ -252,6 +252,25 @@ Phases, one JSON line each:
            rtol=atol=2e-4; as captured, bf16 outputs within one bf16
            step); per rank and step its seconds, busy and idle share, peak
            memory, and the all_reduce and broadcast counts and bytes
+  serve-sharded  the sharded server (BatchedServer(mesh=, param_specs=)):
+           mistral-nemo-12b at full width on 2 of 40 layers, bf16 from seed
+           0, the serve phase's first 16 requests with 32 new tokens,
+           SERVE's settings, unsharded on the card first (and the 4
+           shortest on dense caches through the gather path), then 4 gloo
+           ranks on the card (``chip_smoke.py --serve-rank``) on a (2 data
+           x 2 model) mesh: the pool replicated over data with repro's
+           fallback recorded, the KV heads over model, so B5 at KVH 4, G 4,
+           D 128 over each rank's own contiguous pools; every request
+           FINISHED, B5 once a layer a fused decode on every rank, every
+           call of the first fused step against its plain version at 2e-5,
+           no rank's tokens other than rank 0's, the tokens the unsharded
+           run's except at reported near-ties (the sharded decode
+           teacher-forced against the unsharded one, within
+           DEVIATION_LIMIT); the dense check (slots over data, heads over
+           model) the same way; per rank its seconds and tokens/s, the
+           collectives and their bytes a fused step, busy and idle share
+           and peak memory; rank 0's B5 call of step 20 kept for the
+           kernels line
   kernels  each kernel's launches on the main path (B1's, B6's and
            B6-bwd's on the mesh path too, per rank; B3's: the GLM scans' and
            the LM statements'; B2's one-batch gradient: the sharded ranks',
@@ -275,7 +294,9 @@ Phases, one JSON line each:
            layer's), with and without runs, and their launches; under
            "moe" serve-moe's call (KVH 16, G 1, D 128, 16 one-row runs),
            with its launches; under "vlm" serve-vlm's two calls (KVH 8, G
-           6, D 128), with and without runs, and their launches; B6's
+           6, D 128), with and without runs, and their launches; under
+           "sharded" serve-sharded's per-rank call (KVH 4, G 4, D 128) and
+           each rank's launches; B6's
            two kernels and B6-bwd's three a call, each one's time,
            registers and CTAs per SM, beside the bytes its design moves
 
@@ -287,7 +308,7 @@ lm-predict, serve-rwkv and serve-vlm beside serve-mla, then serve-moe and
 serve-hybrid (which starts its own gather run) beside serve and launch;
 train-sharded (which starts its 4 ranks) runs through both stages. The peak device memory of the phases
 that run together adds to at most 72 GB; the training phases, each near its
-own peak of 28-73 GB, run alone, and so does train-elastic (its 4 ranks). Each phase's line carries the time it ended
+own peak of 28-73 GB, run alone, and so do train-elastic and serve-sharded (4 ranks each). Each phase's line carries the time it ended
 (``ended_unix_s``). Every kernel-line time is taken with no other process on
 the card (B2's one-batch gradient at the ranks' shares, (64, 54) and (128,
 54), before the serving phases; its launches are the ranks'). Every process
@@ -1673,44 +1694,61 @@ class _PlainCheck:
         return record
 
 
-def _teacher_forced(cfg, params, seq, impl, chunk, block):
-    """Logits (f32, true vocab) of ``seq`` teacher-forced through the paged
-    decode of one slot, ``chunk`` tokens per call, yielded ``block`` rows at
-    a time."""
+def _teacher_forced(cfg, params, seq, side, block):
+    """Logits (f32, true vocab) of ``seq`` teacher-forced through one slot,
+    ``block`` rows at a time. ``side`` is (impl, tokens per call) for the
+    paged decode, optionally followed by a mesh (the cache placed on it as
+    the sharded server places its own: every rank of the mesh calls this
+    with the same arguments) and ``"dense"`` (a dense cache of as many slots
+    as the mesh has data ranks, the sequence in slot 0)."""
     import torch
 
+    from repro_torch.dist import meshes
     from repro_torch.models import model_zoo
+    from repro_torch.serve import serving
 
+    impl, chunk, mesh, kv = (tuple(side) + (None, "paged"))[:4]
     bs = SERVE["block_size"]
     nb = -(-len(seq) // bs)
     dev = params["embed"]["table"].device
-    cache = model_zoo.make_paged_cache(cfg, nb, bs, dev)
+    if kv == "dense":
+        cache = model_zoo.make_cache(cfg, SERVE_SHARDED_MESH[0], len(seq), dev)
+    else:
+        cache = model_zoo.make_paged_cache(cfg, nb, bs, dev)
+    if mesh is not None:
+        cache = serving.place_cache(cache, mesh, paged=kv != "dense", kernel=impl == "kernel")
     row = torch.arange(nb, dtype=torch.int32, device=dev)
     decode = model_zoo.decode_fn(cfg)
-    for b0 in range(0, len(seq), block):
-        parts = []
-        for s in range(b0, min(b0 + block, len(seq)), chunk):
-            toks = seq[s:min(s + chunk, b0 + block, len(seq))]
-            t = len(toks)
-            ctx = {"table": row.expand(t, nb).contiguous(), "block_size": bs,
-                   "write_ok": torch.ones(t, dtype=torch.bool, device=dev),
-                   "max_seq": len(seq), "impl": impl}
-            logits, _ = decode(params, torch.tensor(toks, dtype=torch.int32, device=dev),
-                               cache, torch.arange(s, s + t, dtype=torch.int32, device=dev),
-                               paged=ctx)
-            parts.append(logits[:, :cfg.vocab_size].float())
-        yield torch.cat(parts)
+    with meshes.use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        for b0 in range(0, len(seq), block):
+            parts = []
+            for s in range(b0, min(b0 + block, len(seq)), chunk):
+                toks = seq[s:min(s + chunk, b0 + block, len(seq))]
+                t = len(toks)
+                live = torch.ones(t, dtype=torch.bool, device=dev)
+                pos = torch.arange(s, s + t, dtype=torch.int32, device=dev)
+                tok = torch.tensor(toks, dtype=torch.int32, device=dev)
+                if kv == "dense":
+                    logits, _ = decode(params, tok, cache, pos, write_ok=live,
+                                       slot=torch.zeros(t, dtype=torch.int64, device=dev))
+                else:
+                    ctx = {"table": row.expand(t, nb).contiguous(), "block_size": bs,
+                           "write_ok": live, "max_seq": len(seq), "impl": impl}
+                    logits, _ = decode(params, tok, cache, pos, paged=ctx)
+                parts.append(logits[:, :cfg.vocab_size].float())
+            yield torch.cat(parts)
 
 
 def _deviation(cfg, params, seq, side, ref_side):
     """The logits' measured deviation along ``seq``: the largest spread (max
     minus min over the vocab) of the difference between two computations
-    (``side`` and ``ref_side``, each (impl, tokens per call)),
-    teacher-forced; and the reference's logits at the last position."""
+    (``side`` and ``ref_side``, each (impl, tokens per call[, mesh[,
+    "dense"]]), see ``_teacher_forced``), teacher-forced; and the
+    reference's logits at the last position."""
     block = max(side[1], ref_side[1])
     deviation, last = 0.0, None
-    for a, b in zip(_teacher_forced(cfg, params, seq, *side, block),
-                    _teacher_forced(cfg, params, seq, *ref_side, block)):
+    for a, b in zip(_teacher_forced(cfg, params, seq, side, block),
+                    _teacher_forced(cfg, params, seq, ref_side, block)):
         d = a - b
         deviation = max(deviation, float((d.max(1).values - d.min(1).values).max()))
         last = b[-1]
@@ -2811,7 +2849,7 @@ def _beside_phases():
     return {"serve-moe": phase_serve_moe, "serve-rwkv": phase_serve_rwkv,
             "serve-hybrid": phase_serve_hybrid, "lm-predict": phase_lm_predict,
             "serve-vlm": phase_serve_vlm, "train-sharded": phase_train_sharded,
-            "train-elastic": phase_train_elastic}
+            "train-elastic": phase_train_elastic, "serve-sharded": phase_serve_sharded}
 
 
 def _beside_result(name):
@@ -3199,6 +3237,309 @@ def sharded_rank(rank: int, world: int, work: str) -> int:
         raise AssertionError(f"lrmf: {out['lrmf']['path']}, {out['lrmf']['placements']}")
     dist.barrier()
     dist.destroy_process_group()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# serve-sharded: the sharded server on a mesh of gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+SERVE_SHARDED_WORLD = 4
+# (data, model): the kernel path keeps the block pool replicated over data
+# (repro's SERVE_KERNEL_CACHE_RULES), and nemo's 8 KV heads go over model,
+# so each rank calls B5 at KVH 4, G 4, D 128
+SERVE_SHARDED_MESH = (2, 2)
+# mistral-nemo-12b at full width on 2 of its 40 layers, for the smoke's
+# time: the phase runs alone after train-elastic (every rank holds the whole
+# weights, 3.8 GB at 2 layers, and its 4 ranks peak at 5.6 GB each, which
+# beside train-elastic's 4 ranks and its snapshots would pass the 72 GB
+# budget), each layer adds a join over gloo to every fused step, and every
+# layer has the same shapes
+SERVE_SHARDED_LAYERS = 2
+# the serve phase's first 16 requests (all arriving at step 0), 32 new
+# tokens each; the dense check serves the 4 shortest of them
+SERVE_SHARDED_REQUESTS, SERVE_SHARDED_MAX_NEW, SERVE_SHARDED_DENSE = 16, 32, 4
+# rank 0's first B5 call of this fused step is kept for the kernels line (a
+# mixed step: prefill runs beside decode rows)
+SERVE_SHARDED_CAPTURE_STEP = 20
+SERVE_SHARDED_TIMEOUT_S = 600  # the ranks' limit; the process group's is below it
+SERVE_SHARDED_PG_TIMEOUT_S = 300
+
+
+def _serve_sharded_setup():
+    """The phase's model (full width, SERVE_SHARDED_LAYERS layers), its
+    stream and the dense check's."""
+    from repro_torch.configs import get_config
+
+    full = get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=SERVE_SHARDED_LAYERS)
+    stream = _serve_stream(cfg.vocab_size)[:SERVE_SHARDED_REQUESTS]
+    dense = [(rid, p, prio, 0) for rid, p, prio, _ in
+             sorted(stream, key=lambda r: (len(r[1]), r[0]))[:SERVE_SHARDED_DENSE]]
+    return full, cfg, stream, dense
+
+
+_SERVE_SHARDED_DENSE_KW = {"batch_slots": SERVE_SHARDED_DENSE, "kv": "dense",
+                           "attn_impl": "gather"}
+
+
+def phase_serve_sharded():
+    """The sharded server (A19c). The baselines: the unsharded server on the
+    card, mistral-nemo-12b at full width on SERVE_SHARDED_LAYERS layers,
+    bf16 weights from seed 0, SERVE's settings (paged, token stepping, the
+    kernel), the serve phase's first 16 requests with 32 new tokens each;
+    and the 4 shortest on dense caches through the gather path. Then
+    SERVE_SHARDED_WORLD gloo ranks on the one card (``chip_smoke.py
+    --serve-rank``) serve the same on a (2 data x 2 model) mesh, each
+    checking its own run (see ``serve_rank``). One line of the baselines and
+    one of the ranks. Returns rank 0's captured B5 call and each rank's
+    launches for the kernels line."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.serving import BatchedServer
+
+    build.build(*KERNEL_SOURCES)  # a hash hit after the build phase: nvcc stays out of the ranks
+    full, cfg, stream, dense = _serve_sharded_setup()
+    work = os.path.join(SCRATCH, "serve-sharded")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    params, _ = model_zoo.init_params(cfg, seed=0, device="cuda")
+    base, seconds = {}, {}
+    for name, kw, sub in (("paged", {}, stream), ("dense", _SERVE_SHARDED_DENSE_KW, dense)):
+        srv = BatchedServer(cfg, params, max_seq=SERVE_MAX_SEQ, device="cuda",
+                            **dict(SERVE, **kw))
+        t0 = time.perf_counter()
+        done = _Arrivals(srv, sub, SERVE_SHARDED_MAX_NEW).run()
+        seconds[name] = {"wall_s": time.perf_counter() - t0, "steps": srv.metrics.steps,
+                         "tokens": srv.metrics.tokens_generated}
+        base[name] = {rid: r.out for rid, r in done.items()}
+        del srv
+    torch.save(base, os.path.join(work, "baseline.pt"))
+    emit({"phase": "serve-sharded", "run": "unsharded baselines", "arch": SERVE_ARCH,
+          "layers": cfg.n_layers, "published_layers": full.n_layers,
+          "depth_cut": "the smoke's time: each layer adds a join over gloo a fused step",
+          "d_model": cfg.d_model, "requests": len(stream), "dense_requests": len(dense),
+          "max_new_tokens": SERVE_SHARDED_MAX_NEW, "server": SERVE,
+          "dense_server": dict(SERVE, **_SERVE_SHARDED_DENSE_KW), "runs": seconds})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+    procs = []
+    t_ranks = time.perf_counter()
+    try:
+        for rank in range(SERVE_SHARDED_WORLD):
+            out = open(os.path.join(work, f"rank{rank}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--serve-rank", str(rank),
+                 str(SERVE_SHARDED_WORLD), work], stdout=out, stderr=subprocess.STDOUT,
+                env=env), out))
+        deadline = time.monotonic() + SERVE_SHARDED_TIMEOUT_S
+        for rank, (proc, _) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                raise AssertionError(f"serve-sharded: rank {rank} ended with {rc}")
+    except BaseException:
+        for rank in range(SERVE_SHARDED_WORLD):
+            path = os.path.join(work, f"rank{rank}.log")
+            if os.path.exists(path):
+                with open(path) as f:
+                    sys.stderr.write(f"--- rank {rank} ---\n{f.read()[-4000:]}\n")
+        raise
+    finally:
+        for proc, out in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            out.close()
+    ranks_s = time.perf_counter() - t_ranks
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(SERVE_SHARDED_WORLD)]
+    capture = torch.load(os.path.join(work, "capture.pt"), weights_only=False)
+    main = [r["paged"] for r in ranks]
+    if any(r["outs"] != main[0]["outs"] for r in main):
+        raise AssertionError("the ranks hold different tokens")
+    emit({"phase": "serve-sharded", "run": "sharded", "arch": SERVE_ARCH,
+          "layers": cfg.n_layers, "mesh": dict(zip(("data", "model"), SERVE_SHARDED_MESH)),
+          "ranks": SERVE_SHARDED_WORLD, "backend": ranks[0]["backend"], "ranks_s": ranks_s,
+          "path": main[0]["path"], "fallbacks": main[0]["fallbacks"],
+          "k_pool": main[0]["k_pool"], "b5_call": main[0]["b5_call"],
+          "finished": main[0]["finished"], "steps": main[0]["steps"],
+          "fused_decodes": main[0]["fused_decodes"],
+          "near_ties": main[0]["near_ties"], "probe": main[0]["probe"],
+          "b5_against_plain_first_step": [r["plain_check"] for r in main],
+          "launches_per_rank": [r["launches"] for r in main],
+          "launches_expected_per_rank": main[0]["launches_expected"],
+          "rank_disagreements": [r["disagreements"] for r in main],
+          "seconds_per_fused_step": [r["wall_s"] / r["steps"] for r in main],
+          "tokens_per_s": [r["tokens"] / r["wall_s"] for r in main],
+          "collectives_per_fused_step": [{k: v / r["steps"] for k, v in r["collectives"].items()}
+                                         for r in main],
+          "collective_bytes_per_fused_step": [
+              {k: v / r["steps"] for k, v in r["collective_bytes"].items()} for r in main],
+          "device_busy_share": [r["busy_s"] / r["wall_s"] for r in main],
+          "device_idle_share": [1.0 - r["busy_s"] / r["wall_s"] for r in main],
+          "peak_memory_bytes": [r["peak_memory_bytes"] for r in main],
+          "wall_s": [r["wall_s"] for r in main],
+          "dense_check": {k: ranks[0]["dense"][k] for k in
+                          ("path", "fallbacks", "finished", "near_ties", "probe", "steps")}})
+    return {"capture": capture, "launches_per_rank": [r["launches"]["paged_attn"] for r in main]}
+
+
+def serve_rank(rank: int, world: int, work: str) -> int:
+    """``chip_smoke.py --serve-rank RANK WORLD DIR``: one gloo rank of
+    serve-sharded on cuda:0. Draws the weights (seed 0, whole), builds the
+    (2 x 2) mesh and serves the phase's stream through
+    ``BatchedServer(mesh=, param_specs=)`` on the kernel path, the launches
+    and collectives counted from zero just before and the run traced (the
+    device's events only) for its busy time. Checks: the decision and its
+    recorded fallback (the pool replicated), the pool's placement (heads
+    over model, contiguous), B5's shape (KVH 4, G 4, D 128), every call of
+    the first fused step against its plain version (``_PlainCheck``), B5
+    launched once a layer a fused decode and nothing else, every request
+    FINISHED with its tokens, the tokens the baseline's up to near-ties
+    within DEVIATION_LIMIT (the sharded decode teacher-forced against the
+    unsharded one), no disagreement with rank 0; then the dense check (4
+    requests, slots over data, heads over model) the same way. Saves its
+    results to DIR/rank{RANK}.pt, rank 0 its captured call to
+    DIR/capture.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import meshes
+    from repro_torch.kernels.paged_attn import kernel as pa_kernel
+    from repro_torch.kernels.paged_attn import ops as pa_ops
+    from repro_torch.models import model_zoo
+    from repro_torch.serve import scheduler as sched
+    from repro_torch.serve.serving import BatchedServer
+    from test_torch_dist_util import placements
+
+    parent = os.getppid()
+
+    def watch():  # a rank whose parent is gone (killed with its phase) ends
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{work}/store", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=SERVE_SHARDED_PG_TIMEOUT_S))
+    _, cfg, stream, dense = _serve_sharded_setup()
+    base = torch.load(os.path.join(work, "baseline.pt"), weights_only=False)
+    params, specs = model_zoo.init_params(cfg, seed=0, device="cuda")
+    mesh = meshes.make_mesh(SERVE_SHARDED_MESH, ("data", "model"))
+    out = {"backend": dist.get_backend()}
+
+    box = {}
+
+    def serve(name, kw, sub):
+        meshes.clear_fallbacks()
+        srv = box["server"] = BatchedServer(cfg, params, max_seq=SERVE_MAX_SEQ, device="cuda",
+                                            mesh=mesh, param_specs=specs, **dict(SERVE, **kw))
+        res = {"path": srv.last_sharded_path, "fallbacks": meshes.fallbacks()}
+        forwards = _count_forwards(srv)
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        zero_launches()
+        meshes.reset_collectives()
+        t0 = time.perf_counter()
+        _, busy_s, _ = _device_profile(
+            lambda: box.update(done=_Arrivals(srv, sub, SERVE_SHARDED_MAX_NEW).run()), cpu=False)
+        torch.cuda.synchronize()
+        m = srv.metrics
+        res.update(wall_s=time.perf_counter() - t0, busy_s=busy_s, launches=read_launches(),
+                   collectives=dict(meshes.COLLECTIVES),
+                   collective_bytes=dict(meshes.COLLECTIVE_BYTES),
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(), steps=m.steps,
+                   tokens=m.tokens_generated, fused_decodes=forwards[0],
+                   disagreements=srv.rank_disagreements, attn_impl=srv.attn_impl,
+                   layout={k: (placements(c), tuple(meshes.local(c).shape),
+                               meshes.local(c).is_contiguous())
+                           for k, c in srv.cache[0].items()})
+        done = box["done"]
+        if sorted(done) != sorted(r[0] for r in sub) or any(
+                r.status != sched.FINISHED or len(r.out) != SERVE_SHARDED_MAX_NEW
+                for r in done.values()):
+            raise AssertionError(f"{name}: not every request FINISHED with its tokens")
+        res["finished"] = len(done)
+        res["outs"] = {rid: r.out for rid, r in done.items()}
+        if res["disagreements"]:
+            raise AssertionError(f"{name}: rank {rank} disagreed with rank 0 "
+                                 f"{res['disagreements']} times")
+        return res
+
+    def near_ties(res, name, sub, side):
+        """The tokens against the baseline's, up to near-ties: the sharded
+        decode (``side`` on the mesh) teacher-forced against the unsharded
+        one, every rank the same calls."""
+        kv = ("dense",) if name == "dense" else ()
+        res["near_ties"], res["probe"] = _near_ties(
+            cfg, params, sub, res["outs"], base[name], side + (mesh,) + kv,
+            side + (None,) + kv, f"{name}: sharded vs unsharded")
+
+    # the main path: paged, token stepping, B5 over this rank's heads
+    check, shapes, kept = _PlainCheck(), set(), {}
+    real = pa_kernel.paged_attention
+
+    def capture(q, k_pool, v_pool, table, pos, **kw):
+        srv = box["server"]
+        out = real(q, k_pool, v_pool, table, pos, **kw)
+        shapes.add((tuple(q.shape[1:]), tuple(k_pool.shape), k_pool.is_contiguous()))
+        if srv.step_no == 0:
+            check(out, q, k_pool, v_pool, table, pos, kw)
+        if rank == 0 and not kept and srv.step_no >= SERVE_SHARDED_CAPTURE_STEP:
+            kept.update(q=q.clone(), pools=(k_pool.clone(), v_pool.clone()), latent=False,
+                        table=table.clone(), pos=pos.clone(), runs=kw["runs"].clone(),
+                        kw={k: v for k, v in kw.items() if k != "runs"}, step=srv.step_no)
+        return out
+
+    pa_ops.kernel = types.SimpleNamespace(paged_attention=capture)
+    try:
+        main = serve("paged", {}, stream)
+    finally:
+        pa_ops.kernel = pa_kernel
+    near_ties(main, "paged", stream, ("kernel", 64))
+    kvh, g = cfg.n_kv_heads // SERVE_SHARDED_MESH[1], cfg.n_heads // cfg.n_kv_heads
+    want_path = ("gspmd", (), "model")
+    if main["path"] != want_path or [(t, ax) for t, (ax, _), _ in main["fallbacks"]] != [
+            ("serve_cache", "kv_blocks")]:
+        raise AssertionError(f"path {main['path']}, fallbacks {main['fallbacks']}")
+    pool = main["layout"]["k"]
+    if pool[0] != ["R", "S(3)"] or pool[1][3] != kvh or not pool[2]:
+        raise AssertionError(f"the pool's placement {pool}")
+    if {sh[0] for sh in shapes} != {(kvh, g, cfg.hd)} or not all(c for _, _, c in shapes):
+        raise AssertionError(f"B5's per-rank calls {shapes}")
+    main["k_pool"] = {"placements": pool[0], "local_shape": pool[1], "contiguous": pool[2]}
+    main["b5_call"] = {"kv_heads": kvh, "group": g, "head_dim": cfg.hd}
+    want = {k: 0 for k in main["launches"]}
+    want["paged_attn"] = cfg.n_layers * main["fused_decodes"]
+    if main["launches"] != want or main["fused_decodes"] == 0:
+        raise AssertionError(f"launches {main['launches']}, expected {want}")
+    main["launches_expected"] = want
+    main["plain_check"] = check.result(cfg.n_layers, "every call of the first fused step")
+    out["paged"] = main
+
+    # the dense check: slots over data, heads over model, the gather path
+    out["dense"] = serve("dense", _SERVE_SHARDED_DENSE_KW, dense)
+    near_ties(out["dense"], "dense", dense, ("gather", 64))
+    if out["dense"]["path"] != ("gspmd", ("data",), "model"):
+        raise AssertionError(f"dense path {out['dense']['path']}")
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        torch.save(kept, os.path.join(work, "capture.pt"))
     torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     return 0
 
@@ -5828,6 +6169,8 @@ def main() -> int:
         return sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if sys.argv[1:2] == ["--elastic-rank"]:  # one gloo rank of train-elastic
         return elastic_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--serve-rank"]:  # one gloo rank of serve-sharded
+        return serve_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
 
     smi = nvidia_smi()
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
@@ -5904,8 +6247,19 @@ def main() -> int:
         phase_decode_encdec()
         phase_train_vlm()
         phase_launch_train()
-        # LM training on a mesh of 4 gloo ranks, alone on the card
+        # LM training on a mesh of 4 gloo ranks, then the sharded server's 4
+        # ranks, each alone on the card
         elastic = phase_train_elastic()
+        sharded_serve = phase_serve_sharded()
+        # B5 at the sharded server's per-rank call, timed alone on the card
+        b5_row = next(r for r in rows if r["name"] == "paged_attn")
+        b5_row["sharded"] = _paged_attn_call(sharded_serve["capture"])
+        b5_row["sharded"].update(
+            launches_per_rank=sharded_serve["launches_per_rank"],
+            library=("composite, no single call: gather k_pool[table], v_pool[table] + "
+                     "F.scaled_dot_product_attention(attn_mask=valid rows, enable_gqa)"))
+        b5_row["launches"] += sum(sharded_serve["launches_per_rank"])
+        del sharded_serve
         rows.extend(kernel_rows_wkv(wkv_calls, train_launches, *wkv_kernels))
         # B6 and B6-bwd on the mesh path: each rank's launches and its calls'
         # parity at its own shape

@@ -38,6 +38,14 @@ device mesh:
     ``all_reduce_buckets`` (a fixed-order bucketed sum) and
     ``broadcast_regions`` (the ZeRO update's regions sent over the data
     axes).
+  * Serving on a mesh (``serve.serving.BatchedServer(mesh=)``):
+    ``place_serve`` (a cache leaf as a DTensor of this rank's own
+    allocation, its slice and a landing row or block of its own),
+    ``layer_view`` (one layer of it, no communication), ``gather_serve`` /
+    ``write_back`` (a leaf made whole along some dims for one layer, then
+    this rank's slice written back), ``split_axes``, ``join`` (the exact
+    zero-padded sum of partial attention outputs) and ``agree`` (global
+    rank 0's sampled tokens and clock reading, one broadcast a fused step).
 
 ``AbstractMesh(sizes, names)`` sizes a mesh without ranks, for the resolver
 and the engine's path decision. ``repro``'s ``shard_map`` and its jax
@@ -47,8 +55,8 @@ calls the collectives itself (ROADMAP §A).
 The fallback log also takes the decisions a caller made against what it was
 asked for (a server that serves gather attention where the kernel was asked
 for), which callers record with ``record_fallback``. The log and the current
-mesh are per thread, as in ``repro``. ``BatchedServer(mesh=)`` still raises
-through ``no_mesh`` until the sharded server (ROADMAP A19c).
+mesh are per thread, as in ``repro``. The sharded server records its
+``serve_cache`` decisions there (``BatchedServer.sharded_path``).
 """
 from __future__ import annotations
 
@@ -231,16 +239,6 @@ def use_mesh(mesh):
     finally:
         _STATE.mesh = prev_mesh
         _STATE.fallbacks = prev_log
-
-
-def no_mesh(mesh, what: str) -> None:
-    """Raise for a ``mesh=`` the port cannot serve yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}: serving on a mesh waits for the sharded server "
-            "(ROADMAP A19c); the engine's TRAIN epochs (A19a) and LM training "
-            "(A19b) shard"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -857,6 +855,129 @@ def broadcast_regions(pairs, mesh: DeviceMesh, axes, bucket_bytes: int = BUCKET_
 
 
 # ---------------------------------------------------------------------------
+# Serving on a mesh: cache leaves with a landing row of their own, a leaf
+# made whole for one layer, the exact join, and the rank-0 step broadcast
+# ---------------------------------------------------------------------------
+def place_serve(x, sharding: NamedSharding, landing: bool):
+    """The whole layer-stacked cache leaf ``x`` (dim 1 the slots or blocks,
+    with a landing row or block after them when ``landing``) placed by
+    ``sharding``, which was resolved on the shape without the landing: a
+    DTensor whose shape is that logical one and whose local tensor is this
+    rank's own contiguous allocation, its slice of the real rows followed,
+    with ``landing``, by a landing row of its own (so a rank's gated-off
+    writes stay on it). A replicated spec keeps ``x`` itself."""
+    if sharding.is_replicated:
+        return x
+    shape = list(x.shape)
+    shape[1] -= int(landing)
+    index = shard_slices(shape, sharding)
+    part = x[:, :shape[1]][index]
+    if landing:
+        part = torch.cat([part, x[(slice(None), slice(shape[1], shape[1] + 1)) + index[2:]]],
+                         dim=1)
+    return from_local(part.contiguous() if landing else part.clone(), sharding, tuple(shape))
+
+
+def layer_view(x, i: int):
+    """Layer ``i`` of a layer-stacked leaf: ``x[i]``; of a DTensor (placed
+    by ``place_serve``), the DTensor of its local tensor's layer ``i``, its
+    placements one dim lower. No communication."""
+    if not is_dtensor(x):
+        return x[i]
+    from torch.distributed.tensor import DTensor, Shard
+
+    placements = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p for p in x.placements)
+    shape = torch.Size(x.shape[1:])
+    return DTensor.from_local(x.to_local()[i], x.device_mesh, placements, run_check=False,
+                              shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
+def split_axes(x, dims=None) -> tuple[str, ...]:
+    """The mesh axes that split ``x``'s tensor dims ``dims`` (every dim by
+    default): () for a tensor that is not a DTensor."""
+    if not is_dtensor(x):
+        return ()
+    from torch.distributed.tensor import Shard
+
+    names = x.device_mesh.mesh_dim_names
+    return tuple(names[d] for d, p in enumerate(x.placements)
+                 if isinstance(p, Shard) and (dims is None or p.dim in dims))
+
+
+def _real(x) -> tuple:
+    """The slices of ``x``'s local tensor that hold its real rows (all of
+    it but a landing row or block)."""
+    return tuple(slice(0, s.stop - s.start) for s in region(x))
+
+
+def gather_serve(x, dims=None):
+    """A cache leaf placed by ``place_serve`` (one layer of it) made whole
+    along its tensor dims ``dims`` (every dim it splits by default), from
+    one broadcast per rank of the group over those dims' mesh axes, each
+    rank's real rows; a landing row of zeros follows the rows of a leaf
+    that has one (only the first dim may carry it, and it must be among
+    the dims made whole). Every rank of the group calls it, for the same
+    leaves in the same order. Returns (the tensor, this rank's slices of
+    it), which ``write_back`` takes; where no such dim is split, the local
+    tensor itself and None."""
+    axes = split_axes(x, dims)
+    if not axes:
+        return local(x), None
+    loc, mine, real = x.to_local(), region(x), _real(x)
+    tdims = {p.dim for p in x.placements if p.is_shard() and (dims is None or p.dim in dims)}
+    extra = loc.shape[0] - real[0].stop
+    if extra and 0 not in tdims:
+        raise ValueError("a landing row is made whole with its own dim")
+    shape = [x.shape[t] + (extra if t == 0 else 0) if t in tdims else loc.shape[t]
+             for t in range(x.dim())]
+    out = torch.empty(shape, dtype=loc.dtype, device=loc.device)
+    if extra:
+        out[x.shape[0]:] = 0
+    group, me = axis_group(x.device_mesh, axes), dist.get_rank()
+    for rank in axis_ranks(x.device_mesh, axes):
+        theirs = region(x, _coord_of(x.device_mesh, rank))
+        part = (loc[real].contiguous() if rank == me
+                else torch.empty(tuple(s.stop - s.start for s in theirs), dtype=loc.dtype,
+                                 device=loc.device))
+        broadcast(part, src=rank, group=group)
+        out[tuple(theirs[t] if t in tdims else real[t] for t in range(x.dim()))] = part
+    return out, tuple(mine[t] if t in tdims else real[t] for t in range(x.dim()))
+
+
+def write_back(x, whole_x, own) -> None:
+    """Copy this rank's slices ``own`` of ``whole_x`` (from ``gather_serve``)
+    into the real rows of ``x``'s local tensor; nothing where ``own`` is
+    None (``whole_x`` is that local tensor)."""
+    if own is not None:
+        x.to_local()[_real(x)] = whole_x[own]
+
+
+def join(part: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The partial results of the ranks of the group over ``axes`` joined in
+    place: ``part`` (f32) holds this rank's results at its own rows or heads
+    and zeros elsewhere, and one ``all_reduce`` SUM adds them. Each element
+    is one rank's value plus zeros, so the join rounds nothing."""
+    if part.dtype != torch.float32:
+        raise TypeError(f"the join sums f32 parts, got {part.dtype}")
+    return all_reduce(part, mesh, axes) if axes else part
+
+
+def agree(values, clock: float, src: int = 0):
+    """Global rank ``src``'s int32 ``values`` (a host array) and ``clock``
+    reading on every rank of the default group: one broadcast of one host
+    tensor, the values followed by the reading's float64 bits. Returns (the
+    values, the reading)."""
+    import numpy as np
+
+    values = np.asarray(values, np.int32)
+    flat = np.concatenate([values.ravel(), np.asarray([clock], np.float64).view(np.int32)])
+    t = torch.from_numpy(flat)
+    broadcast(t, src=src)
+    got = t.numpy()
+    return got[:-2].reshape(values.shape), float(got[-2:].view(np.float64)[0])
+
+
+# ---------------------------------------------------------------------------
 # Mesh constructors
 # ---------------------------------------------------------------------------
 def _device_type(device) -> str:
@@ -934,6 +1055,7 @@ __all__ = [
     "BARRIERS",
     "BUCKET_BYTES",
     "COLLECTIVE_BYTES",
+    "agree",
     "all_reduce",
     "all_reduce_buckets",
     "axis_group",
@@ -950,6 +1072,9 @@ __all__ = [
     "entry_axes",
     "from_local",
     "full_tensor",
+    "gather_serve",
+    "join",
+    "layer_view",
     "shard_slices",
     "is_dtensor",
     "is_mesh",
@@ -962,8 +1087,8 @@ __all__ = [
     "mesh_axis_size",
     "mesh_data_axes",
     "named_sharding",
-    "no_mesh",
     "place",
+    "place_serve",
     "place_tree",
     "record_fallback",
     "region",
@@ -973,8 +1098,10 @@ __all__ = [
     "shard_act",
     "shard_index",
     "shard_range",
+    "split_axes",
     "tree_shardings",
     "use_mesh",
     "whole",
+    "write_back",
     "zeros",
 ]

@@ -18,8 +18,10 @@ executor cannot run it. ``launch/train.py`` takes the mesh flags (default
 (``WORLD_SIZE`` > 1, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``)
 ``mesh_from_args`` first opens the default group with gloo (the one
 backend that runs two ranks on one card), and a lone process gets the
-(1, 1) mesh. ``launch/serve.py`` takes no mesh flags yet: it waits for the
-sharded server (ROADMAP A19c).
+(1, 1) mesh. ``launch/serve.py`` takes them too (default ``--mesh none``,
+as in the reference): on the host mesh it serves with the caches sharded
+(``BatchedServer(mesh=)``), each rank the same stream, and rank 0 alone
+prints.
 
 Every helper takes the ``argparse.ArgumentParser`` (or a group) and only
 *adds* arguments; launchers keep their workload-specific flags alongside.

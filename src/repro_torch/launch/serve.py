@@ -31,6 +31,20 @@ the server's step clock instead of the uniform stream.
 The weights are random, drawn on the device from ``--seed``. ``--device``
 defaults to ``cuda``; without a card the launcher raises unless
 ``--device cpu`` is given (with ``--reduced`` that runs in seconds).
+
+``--mesh host`` (default ``none``) serves with the caches sharded over the
+ranks of the host mesh, ``--model-parallel`` of them on the model axis
+(``BatchedServer(mesh=, param_specs=)``). Under torchrun's variables
+(``WORLD_SIZE`` > 1, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) each rank
+opens the default group with gloo and serves the same stream; rank 0 alone
+prints the summary, with ``mesh=... path=...``, and writes ``--bench-out``::
+
+    WORLD_SIZE=2 RANK=0 MASTER_ADDR=localhost MASTER_PORT=29511 \
+        PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-20b \
+        --reduced --device cpu --mesh host --model-parallel 2 &
+    WORLD_SIZE=2 RANK=1 MASTER_ADDR=localhost MASTER_PORT=29511 \
+        PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-20b \
+        --reduced --device cpu --mesh host --model-parallel 2
 """
 from __future__ import annotations
 
@@ -78,6 +92,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device the server runs on (cpu: the plain "
                          "versions of the kernels)")
+    common.add_mesh_flags(ap)
     common.add_kv_flags(ap)
     common.add_scheduler_flags(ap, serving=True)
     common.add_bench_out_flag(ap)
@@ -86,7 +101,8 @@ def main(argv=None):
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if cfg.family == "encdec":
         raise SystemExit("BatchedServer serves decoder-only families")
-    params, _ = model_zoo.init_params(cfg, seed=args.seed, device=args.device)
+    mesh = common.mesh_from_args(args)
+    params, specs = model_zoo.init_params(cfg, seed=args.seed, device=args.device)
 
     rng = np.random.default_rng(args.seed)
     weights = common.parse_tenant_weights(args.tenant_weights)
@@ -106,6 +122,7 @@ def main(argv=None):
             if args.fault_seed is not None else None)
     server = BatchedServer(cfg, params, batch_slots=args.batch, max_seq=max_seq,
                            temperature=args.temperature, seed=args.seed,
+                           mesh=mesh, param_specs=specs if mesh is not None else None,
                            admission=args.admission, kv=args.kv,
                            block_size=args.block_size, kv_blocks=args.kv_blocks,
                            prefill_chunk=args.prefill_chunk,
@@ -127,7 +144,11 @@ def main(argv=None):
                                   deadline_ttft_s=args.deadline_ttft,
                                   deadline_s=args.deadline))
         done = server.run(max_steps=args.max_steps)
+    if not common.is_rank0():
+        return done
     m = server.metrics
+    mesh_desc = f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} " \
+        f"path={server.last_sharded_path}" if mesh is not None else ""
     kv_desc = (f" kv=paged blocks {m.kv_blocks_peak}/{m.kv_blocks_total} "
                f"({m.kv_blocks_peak_pct:.0f}% peak) attn={server.attn_impl}"
                if server.kv_mode == "paged" else "")
@@ -136,7 +157,7 @@ def main(argv=None):
     print(f"[serve] {cfg.name} on {server.device}: {m.finished}/{n_requests} requests, "
           f"{m.tokens_generated} tokens in {m.wall_s:.2f}s "
           f"({m.tok_per_s:.1f} tok/s, occupancy {m.occupancy_pct:.0f}%, "
-          f"mean TTFT {ttft}){kv_desc}")
+          f"mean TTFT {ttft}){kv_desc}{mesh_desc}")
     if (m.preemptions or m.deadline_misses or m.rejected
             or plan is not None or args.high_frac > 0):
         hi_ttft = m.mean_prio_ttft_e2e_steps(0)

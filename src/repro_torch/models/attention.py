@@ -38,6 +38,19 @@ cache ends as the reference's. It matters where a row's output reaches
 another row's: MoE routes a decode batch as one group, in which an idle row
 claims expert capacity.
 
+On a mesh (the sharded server, ``serve.serving.BatchedServer(mesh=)``) a
+cache leaf may be a DTensor placed by ``meshes.place_serve``: its local
+tensor is this rank's slice of the slots or blocks and of the KV heads, with
+a landing row or block of its own. Each decode reads the placement
+(``_split_dense``, ``_split_paged``): a read that splits along a sharded dim
+with no sum across it runs on this rank's part only (its slot rows of a
+dense cache, its KV heads with their G query heads each, on the kernel path
+B5 over its own contiguous pools); a block pool split over the data axes is
+made whole for the layer (any slot maps any block) and this rank's blocks
+written back. Each rank's part of the attention output lies in zeros
+elsewhere, in f32, and one ``all_reduce`` SUM joins the parts exactly
+(``meshes.join``); the projections around it run whole on every rank.
+
 Cross attention (``cross_train``, ``cross_decode``) is GQA's parameters
 over the encoder's output: no rotary embedding, no mask, in plain PyTorch
 as in the reference (its decode reads the K and V that
@@ -46,12 +59,14 @@ as in the reference (its decode reads the K and V that
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import meshes
 from repro_torch.kernels.paged_attn import ops as paged_attn_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_norm, apply_rope, make_norm, rope_tables
@@ -181,33 +196,75 @@ def gqa_decode(p, x, cache, pos, cfg: ModelConfig, window=0, slot=None,
     scalar or a (B,) vector of per-slot positions. ``slot`` (B,) maps batch
     rows onto cache rows for the token-batched serving step (None keeps
     row == slot); ``write_ok`` (B,) bool gates the cache write (see
-    ``_dense_write``)."""
+    ``_dense_write``). Leaves placed on a mesh: ``_split_dense``."""
     b = x.shape[0]
     dt = x.dtype
     pos_b = _batch_pos(pos, b, x.device)
     q, k, v = gqa_project(p, x, cfg, pos_b[:, None])
+    kvh, hd = cfg.n_kv_heads, cfg.hd
+    qg = q.reshape(b, 1, kvh, cfg.n_heads // kvh, hd)
+    read = functools.partial(_gqa_read, window=window)
+    if meshes.is_dtensor(cache["k"]):
+        out = _split_dense(read, cache["k"], cache["v"], (qg,), k[:, 0], v[:, 0], pos_b, slot,
+                           write_ok)
+    else:
+        out = read(qg, k[:, 0], v[:, 0], pos_b, cache["k"], cache["v"], slot, write_ok)
+    out = _out_proj(out.reshape(b, 1, cfg.n_heads, hd).to(dt), p["wo"])
+    return out, cache
 
-    ck, cv = cache["k"], cache["v"]
+
+def _gqa_read(qg, k_new, v_new, pos_b, ck, cv, slot, write_ok, window=0):
+    """The dense write of each row's new K/V and the attention read: qg
+    (B,1,KVH,G,D), k_new/v_new (B,KVH,D), caches (rows,S,KVH,D) -> the
+    attention output (B,1,KVH,G,D) in f32."""
+    b = qg.shape[0]
     s = ck.shape[1]
     row = pos_b % s if window else pos_b.clamp(max=s - 1)
-    restore = _dense_write(((ck, k[:, 0]), (cv, v[:, 0])), row, slot, write_ok)
-
-    kvh, hd = cfg.n_kv_heads, cfg.hd
-    g = cfg.n_heads // kvh
+    restore = _dense_write(((ck, k_new), (cv, v_new)), row, slot, write_ok)
     # validity (per row): full caches are valid <= pos; ring buffers are fully
     # valid once warm (pos >= ring size) and valid <= pos while still cold,
     # which also hides a freed slot's stale entries from a request that
     # restarts the slot at pos 0
-    kpos = torch.arange(s, device=x.device)[None, :]
+    kpos = torch.arange(s, device=qg.device)[None, :]
     valid = kpos <= pos_b[:, None]
     if window:
         valid |= pos_b[:, None] >= s
     gk, gv = (ck[:b], cv[:b]) if slot is None else (ck[slot], cv[slot])
     mask = torch.where(valid, 0.0, NEG)[:, None, None, None, :]
-    out = _sdpa(q.reshape(b, 1, kvh, g, hd), gk, gv, mask, 1.0 / math.sqrt(hd))
+    out = _sdpa(qg, gk, gv, mask, 1.0 / math.sqrt(qg.shape[-1]))
     restore()
-    out = _out_proj(out.reshape(b, 1, cfg.n_heads, hd).to(dt), p["wo"])
-    return out, cache
+    return out
+
+
+def _split_dense(read, c0, c1, qs, new0, new1, pos_b, slot, write_ok):
+    """``read`` (``_gqa_read`` or ``_mla_read``) on this rank's part of a
+    dense cache pair placed on a mesh, joined: its slot rows (``slot`` None:
+    the batch rows of those slots; else the rows whose slot it holds, the
+    others sent to its landing row and their output zeroed) and, where the
+    leaves split their KV heads (GQA's dim 2), those heads with their query
+    heads (dim 2 of each of ``qs``). The parts lie in zeros, in f32, and
+    one ``all_reduce`` SUM over the leaves' axes joins them
+    (``meshes.join``)."""
+    reg = meshes.region(c0)
+    rows, heads = reg[0], reg[2] if c0.dim() == 4 else slice(None)
+    if slot is None:
+        sel, lslot, own = rows, None, None
+        ok = None if write_ok is None else write_ok[rows]
+    else:
+        sel = slice(None)
+        own = (slot >= rows.start) & (slot < rows.stop)
+        lslot = torch.where(own, slot - rows.start, meshes.local(c0).shape[0] - 1)
+        ok = own if write_ok is None else own & write_ok
+    part = read(*(q[sel][:, :, heads] for q in qs), new0[sel][:, heads], new1[sel][:, heads],
+                pos_b[sel], meshes.local(c0), meshes.local(c1), lslot, ok).to(torch.float32)
+    if own is not None:
+        part = torch.where(own.view(-1, *[1] * (part.dim() - 1)), part, 0.0)
+    shape = [qs[0].shape[0], *part.shape[1:]]
+    if c0.dim() == 4:  # the heads of GQA's output, dim 2 as in its queries
+        shape[2] = qs[0].shape[2]
+    full = torch.zeros(shape, dtype=torch.float32, device=part.device)
+    full[sel, :, heads] = part
+    return meshes.join(full, c0.device_mesh, meshes.split_axes(c0))
 
 
 def _dense_write(pairs, row, slot, write_ok):
@@ -296,39 +353,70 @@ def gqa_decode_paged(p, x, cache, pos, cfg: ModelConfig, table, block_size,
     reference) or ``"kernel"`` (the block-walking kernel B5 in
     kernels/paged_attn). ``runs`` ((R, 2) int32, the rows that share one
     table row; see ``kernels.paged_attn.ops``) reaches the kernel only; the
-    gather path ignores it. Returns (out, cache)."""
+    gather path ignores it. Pools placed on a mesh: ``_split_paged``.
+    Returns (out, cache)."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"impl must be one of {ATTN_IMPLS}, got {impl!r}")
     b = x.shape[0]
     dt = x.dtype
     pos_b = _batch_pos(pos, b, x.device)
     q, k, v = gqa_project(p, x, cfg, pos_b[:, None])
-
-    ck, cv = cache["k"], cache["v"]
-    blk, off = _paged_write_idx(table, pos_b, block_size, ring_width,
-                                ck.shape[0] - 1, write_ok)
-    ck[blk, off] = k[:, 0].to(ck.dtype)
-    cv[blk, off] = v[:, 0].to(cv.dtype)
-
     kvh, hd = cfg.n_kv_heads, cfg.hd
-    g = cfg.n_heads // kvh
     max_rows = max_seq if max_seq is not None else table.shape[1] * block_size
-    scale = 1.0 / math.sqrt(hd)
-    if impl == "kernel":
-        out = paged_attn_ops.paged_attention(
-            q.reshape(b, kvh, g, hd), ck, cv, table, pos_b,
-            block_size=block_size, ring_width=ring_width,
-            max_rows=max_rows, scale=scale, runs=runs,
-        )
+    read = functools.partial(_gqa_paged_read, table=table, pos_b=pos_b, block_size=block_size,
+                             ring_width=ring_width, max_rows=max_rows, write_ok=write_ok,
+                             impl=impl, runs=runs)
+    qg = q.reshape(b, kvh, cfg.n_heads // kvh, hd)
+    if meshes.is_dtensor(cache["k"]):
+        out = _split_paged(read, cache["k"], cache["v"], qg, k[:, 0], v[:, 0])
     else:
-        tl = table.long()
-        gk = ck[tl].reshape(b, -1, kvh, hd)
-        gv = cv[tl].reshape(b, -1, kvh, hd)
-        valid = _paged_valid(pos_b, gk.shape[1], ring_width, max_rows)
-        mask = torch.where(valid, 0.0, NEG)[:, None, None, None, :]
-        out = _sdpa(q.reshape(b, 1, kvh, g, hd), gk, gv, mask, scale)
+        out = read(qg, k[:, 0], v[:, 0], cache["k"], cache["v"])
     out = _out_proj(out.reshape(b, 1, cfg.n_heads, hd).to(dt), p["wo"])
     return out, cache
+
+
+def _gqa_paged_read(qg, k_new, v_new, ck, cv, *, table, pos_b, block_size, ring_width,
+                    max_rows, write_ok, impl, runs):
+    """The paged write of each row's new K/V and the attention read: qg
+    (B,KVH,G,D), k_new/v_new (B,KVH,D), pools (NB+1,bs,KVH,D) -> the
+    attention output in f32 ((B,KVH,G,D) from the kernel, (B,1,KVH,G,D)
+    from the gather)."""
+    b, kvh, g, hd = qg.shape
+    blk, off = _paged_write_idx(table, pos_b, block_size, ring_width,
+                                ck.shape[0] - 1, write_ok)
+    ck[blk, off] = k_new.to(ck.dtype)
+    cv[blk, off] = v_new.to(cv.dtype)
+    scale = 1.0 / math.sqrt(hd)
+    if impl == "kernel":
+        return paged_attn_ops.paged_attention(
+            qg, ck, cv, table, pos_b, block_size=block_size, ring_width=ring_width,
+            max_rows=max_rows, scale=scale, runs=runs,
+        )
+    tl = table.long()
+    gk = ck[tl].reshape(b, -1, kvh, hd)
+    gv = cv[tl].reshape(b, -1, kvh, hd)
+    valid = _paged_valid(pos_b, gk.shape[1], ring_width, max_rows)
+    mask = torch.where(valid, 0.0, NEG)[:, None, None, None, :]
+    return _sdpa(qg[:, None], gk, gv, mask, scale)
+
+
+def _split_paged(read, ck, cv, qg, k_new, v_new):
+    """``read`` (``_gqa_paged_read``) on this rank's part of block pools
+    placed on a mesh, joined: pools split over the data axes are made whole
+    for the layer (any slot maps any block), written, and this rank's blocks
+    written back; the KV heads it holds (dim 2) run with their query heads,
+    on the kernel path through B5 over its own contiguous pools. The parts
+    lie in zeros, in f32, and one ``all_reduce`` SUM over the heads' axes
+    joins them (``meshes.join``)."""
+    heads = meshes.region(ck)[2]
+    (wk, own), (wv, _) = meshes.gather_serve(ck, {0}), meshes.gather_serve(cv, {0})
+    part = read(qg[:, heads].contiguous(), k_new[:, heads], v_new[:, heads], wk, wv)
+    meshes.write_back(ck, wk, own)
+    meshes.write_back(cv, wv, own)
+    full = torch.zeros((*part.shape[:-3], qg.shape[1], *part.shape[-2:]),
+                       dtype=torch.float32, device=qg.device)
+    full[..., heads, :, :] = part
+    return meshes.join(full, ck.device_mesh, meshes.split_axes(ck, {2}))
 
 
 def init_gqa_cache_paged(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -441,21 +529,36 @@ def _mla_latent_attn(q_lat, qr, gc, gkr, valid, scale):
 def mla_decode(p, x, cache, pos, cfg: ModelConfig, slot=None, write_ok=None):
     """Absorbed-latent decode over dense caches {c (B+1,S,kv_lora),
     kr (B+1,S,rope)}, row B the landing row. ``pos``, ``slot`` and
-    ``write_ok`` as in ``gqa_decode``. Returns (out (B,1,d), cache)."""
+    ``write_ok`` as in ``gqa_decode``; leaves placed on a mesh run on this
+    rank's slot rows (``_split_dense``). Returns (out (B,1,d), cache)."""
     b = x.shape[0]
     pos_b = _batch_pos(pos, b, x.device)
     qn, qr = _mla_q(p, x, cfg, pos_b[:, None])
     c_t, kr_t = _mla_latent(p, x, cfg, pos_b[:, None])
+    q_lat = _mla_absorb(p, qn, cfg)
+    read = functools.partial(_mla_read, scale=_mla_scale(cfg))
+    if meshes.is_dtensor(cache["c"]):
+        out_lat = _split_dense(read, cache["c"], cache["kr"], (q_lat, qr), c_t[:, 0],
+                               kr_t[:, 0], pos_b, slot, write_ok).to(x.dtype)
+    else:
+        out_lat = read(q_lat, qr, c_t[:, 0], kr_t[:, 0], pos_b, cache["c"], cache["kr"], slot,
+                       write_ok)
+    return _mla_out(p, out_lat, cfg), cache
 
-    c, kr = cache["c"], cache["kr"]
+
+def _mla_read(q_lat, qr, c_t, kr_t, pos_b, c, kr, slot, write_ok, scale):
+    """The dense write of each row's latent and the absorbed attention
+    read: q_lat (B,1,H,r) and qr (B,1,H,rope) the queries, c_t (B,r), kr_t
+    (B,rope), caches (rows,S,*) -> (B,H,r) in the queries' type."""
+    b = q_lat.shape[0]
     s = c.shape[1]
     row = pos_b.clamp(max=s - 1)
-    restore = _dense_write(((c, c_t[:, 0]), (kr, kr_t[:, 0])), row, slot, write_ok)
+    restore = _dense_write(((c, c_t), (kr, kr_t)), row, slot, write_ok)
     gc, gkr = (c[:b], kr[:b]) if slot is None else (c[slot], kr[slot])
-    valid = torch.arange(s, device=x.device)[None, :] <= pos_b[:, None]
-    out_lat = _mla_latent_attn(_mla_absorb(p, qn, cfg), qr, gc, gkr, valid, _mla_scale(cfg))
+    valid = torch.arange(s, device=q_lat.device)[None, :] <= pos_b[:, None]
+    out_lat = _mla_latent_attn(q_lat, qr, gc, gkr, valid, scale)
     restore()
-    return _mla_out(p, out_lat, cfg), cache
+    return out_lat
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, seq: int, device="cpu"):
@@ -485,10 +588,15 @@ def mla_decode_paged(p, x, cache, pos, cfg: ModelConfig, table, block_size, max_
     qn, qr = _mla_q(p, x, cfg, pos_b[:, None])
     c_t, kr_t = _mla_latent(p, x, cfg, pos_b[:, None])
 
-    c, kr = cache["c"], cache["kr"]
+    # pools split over the data axes are made whole for the layer (any slot
+    # maps any block) and this rank's blocks written back; the kernel path
+    # keeps them replicated
+    (c, own), (kr, _) = meshes.gather_serve(cache["c"]), meshes.gather_serve(cache["kr"])
     blk, off = _paged_write_idx(table, pos_b, block_size, 0, c.shape[0] - 1, write_ok)
     c[blk, off] = c_t[:, 0].to(c.dtype)
     kr[blk, off] = kr_t[:, 0].to(kr.dtype)
+    meshes.write_back(cache["c"], c, own)
+    meshes.write_back(cache["kr"], kr, own)
 
     q_lat = _mla_absorb(p, qn, cfg)
     max_rows = max_seq if max_seq is not None else table.shape[1] * block_size

@@ -13,6 +13,9 @@ against); encoder-decoder models dispatch to ``encdec``, the others to
                    ring_num_blocks, ring_width) -> block-pool cache
                                            (decoder-only families)
   demo_batch(cfg, batch, seq, rng, device) -> a random training batch
+  cache_specs(cache, paged)             -> the caches' logical axes (the
+                                           sharded server places them by
+                                           these, ``meshes.tree_shardings``)
 
 The shape cells and the dry-run input specs wait for the tooling slice
 (ROADMAP A21).
@@ -145,3 +148,51 @@ def demo_batch(cfg: ModelConfig, batch: int, seq: int, rng=None, device=None) ->
         frames = rng.normal(0, 1, (batch, seq, cfg.d_model))
         out["frames"] = torch.from_numpy(frames).to(device, torch.float32)
     return out
+
+
+# --------------------------------------------------------------------------
+# the caches' logical axes (the reference's, lines 143-185)
+# --------------------------------------------------------------------------
+_CACHE_AXES = {
+    "k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+    "v": ("batch", "kv_seq", "kv_heads", "head_dim"),
+    "xk": ("batch", "kv_seq", "kv_heads", "head_dim"),
+    "xv": ("batch", "kv_seq", "kv_heads", "head_dim"),
+    "c": ("batch", "kv_seq", "lora"),
+    "kr": ("batch", "kv_seq", "head_dim"),
+    "wkv": ("batch", "heads", "head_dim", "head_dim"),
+    "shift_t": ("batch", "seq", "embed"),
+    "shift_c": ("batch", "seq", "embed"),
+    "ssm": ("batch", "inner", "state"),
+    "conv": ("batch", "conv", "inner"),
+}
+
+# paged layout (make_paged_cache): attention leaves lose their batch dim and
+# gain (kv_blocks, block): the block pool shards over the data axes instead
+# of the slot dim, per meshes.SERVE_CACHE_RULES
+_PAGED_CACHE_AXES = {
+    "k": ("kv_blocks", "block", "kv_heads", "head_dim"),
+    "v": ("kv_blocks", "block", "kv_heads", "head_dim"),
+    "c": ("kv_blocks", "block", "lora"),
+    "kr": ("kv_blocks", "block", "head_dim"),
+}
+
+
+def cache_specs(cache, paged: bool = False):
+    """Logical-axis tree parallel to a decode cache: each leaf's axes, with
+    ``"layers"`` in front of a layer-stacked leaf. ``paged=True`` maps the
+    attention leaves of a ``make_paged_cache`` tree to their block-pool
+    axes; per-slot recurrent leaves keep the dense axes."""
+    axes_map = {**_CACHE_AXES, **_PAGED_CACHE_AXES} if paged else _CACHE_AXES
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, key) for v in node]
+        axes = axes_map[key]
+        if len(node.shape) == len(axes) + 1:  # stacked over layers
+            return ("layers",) + axes
+        return axes
+
+    return walk(cache)

@@ -22,7 +22,9 @@ Recurrent state (RWKV's ``wkv``/``shift_t``/``shift_c``, Mamba's
 ``ssm``/``conv``) is per slot, dense ``(L, B, ...)`` under paged KV too, and
 written in place only on the rows whose ``write_ok`` is set: the port's
 form of the reference's ``select_rows``, so a row that does not run a
-sub-step keeps its state.
+sub-step keeps its state. On a mesh (the sharded server) a state leaf
+placed over the ranks is made whole for its layer's decode and each rank's
+slice written back (``_state_decode``).
 
 ``remat`` follows the reference: ``"none"`` keeps every activation,
 ``"full"`` keeps each layer's input only (``torch.utils.checkpoint``, one
@@ -42,6 +44,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch.dist import meshes
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
@@ -368,7 +371,21 @@ def _stacked(layer_cache, n_layers):
 
 
 def _layer(tree, i):
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+    """Layer ``i`` of a tree of layer-stacked leaves (a leaf placed on a mesh
+    stays placed: ``meshes.layer_view``)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else meshes.layer_view(v, i)
+            for k, v in tree.items()}
+
+
+def _state_decode(fn, cache, keys, *args):
+    """``fn(cache, *args)`` with the recurrent state leaves ``keys`` of one
+    layer made whole on this rank for the call (a leaf placed on a mesh,
+    ``meshes.gather_serve``), each rank's slice written back after it."""
+    whole = {k: meshes.gather_serve(cache[k]) for k in keys}
+    out = fn({**cache, **{k: w for k, (w, _) in whole.items()}}, *args)
+    for k, (w, own) in whole.items():
+        meshes.write_back(cache[k], w, own)
+    return out
 
 
 def _write_state(leaf, new, write_ok):
@@ -394,6 +411,14 @@ def _layer_decode_rwkv(p, x, cache, cfg: ModelConfig, write_ok=None):
     return x + h
 
 
+def _mamba_decode(p, h, cache, cfg: ModelConfig, write_ok=None):
+    s, (ssm_s, conv_s) = ssm.mamba_mix(p, h, cfg, state=cache["ssm"],
+                                       conv_prev=cache["conv"].to(h.dtype))
+    _write_state(cache["ssm"], ssm_s, write_ok)
+    _write_state(cache["conv"], conv_s, write_ok)
+    return s
+
+
 def _layer_decode(p, x, cache, pos, cfg: ModelConfig, kind: str = "attn_mlp", paged=None,
                   slot=None, write_ok=None):
     if slot is not None and kind not in ("attn_mlp", "attn_moe"):
@@ -404,7 +429,8 @@ def _layer_decode(p, x, cache, pos, cfg: ModelConfig, kind: str = "attn_mlp", pa
     if kind == "rwkv":
         if paged is not None:
             raise ValueError("RWKV layers carry per-row recurrent state: no paged cache")
-        return _layer_decode_rwkv(p, x, cache, cfg, state_ok)
+        return _state_decode(lambda c: _layer_decode_rwkv(p, x, c, cfg, state_ok), cache,
+                             ("wkv", "shift_t", "shift_c"))
     h = apply_norm(p["ln1"], x, cfg.norm_eps)
     ops = attn.kind_of(cfg)
     window = cfg.swa_window if kind == "hybrid_swa" else 0
@@ -422,10 +448,8 @@ def _layer_decode(p, x, cache, pos, cfg: ModelConfig, kind: str = "attn_mlp", pa
             runs=paged.get("runs"), **kw,
         )
     if kind in HYBRID:
-        s, (ssm_s, conv_s) = ssm.mamba_mix(p["mamba"], h, cfg, state=cache["ssm"],
-                                           conv_prev=cache["conv"].to(h.dtype))
-        _write_state(cache["ssm"], ssm_s, state_ok)
-        _write_state(cache["conv"], conv_s, state_ok)
+        s = _state_decode(lambda c: _mamba_decode(p["mamba"], h, c, cfg, state_ok), cache,
+                          ("ssm", "conv"))
         x = x + _hybrid_mix(p, a, s, cfg)
     else:
         x = x + a

@@ -102,8 +102,25 @@ Where the port differs from ``repro``:
     ``attn_mlp`` falls back to chunked stepping (``serve_step``), and an
     explicit ``prefix_cache=True`` without paged attention-only segments
     falls back to unshared serving (``serve_prefix``), both recorded in
-    ``meshes.fallbacks()``; ``mesh=`` raises until the sharded server
-    (ROADMAP A19c).
+    ``meshes.fallbacks()``.
+  * **On a mesh** (``mesh=``, ``param_specs=``): ``sharded_path`` decides
+    as ``repro`` does (slots or blocks over the data axes, KV heads over the
+    model axis, its ``serve_cache`` fallbacks), and each cache leaf is
+    placed by ``meshes.tree_shardings`` under ``SERVE_CACHE_RULES`` (or
+    ``SERVE_KERNEL_CACHE_RULES`` on the kernel path, which keeps the pool
+    replicated over the data axes) as a DTensor of the rank's own slice and
+    landing row (``meshes.place_serve``). ``repro`` places the caches and
+    lets GSPMD keep the program's meaning; here each layer's decode reads
+    the placement (models/attention.py, ``transformer._state_decode``): the
+    attention over a rank's slot rows and KV heads runs on that rank and one
+    exact ``all_reduce`` joins the parts, a block pool over the data axes
+    and recurrent state are made whole for the layer. The weights stay
+    whole on every rank (``param_specs`` is resolved for its fallbacks, a
+    placed leaf made whole once): every rank runs the projections, MLP, MoE
+    and head on all rows. Every rank runs the same host loop, and global
+    rank 0 broadcasts each fused step's sampled tokens and clock reading
+    (``meshes.agree``), so that every rank books the same tokens and sweeps
+    deadlines at the same time.
   * **MoE's idle rows.** A decode sub-step routes the whole batch as one
     group, so the rows that do not run it (empty slots, finished or parked
     rows, fed token 0 at their frozen position as in ``repro``) claim
@@ -116,12 +133,14 @@ Where the port differs from ``repro``:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.dist import meshes
@@ -135,8 +154,17 @@ from repro_torch.serve.metrics import ServeMetrics
 
 
 # cache leaves that stay per slot ((L, B, ...)) under paged KV too: recurrent
-# state is O(1) a slot, not a token
+# state is O(1) a slot, not a token. The other leaves carry a landing row or
+# block after their slots or blocks (models/attention.py)
 _PER_SLOT_KEYS = frozenset({"wkv", "shift_t", "shift_c", "ssm", "conv"})
+
+
+def _logical(cache):
+    """Shape-only stand-ins for the cache leaves as ``repro`` shapes them:
+    without the landing row or block, which the resolver must not count."""
+    return [{k: torch.empty((c.shape[0], c.shape[1] - (k not in _PER_SLOT_KEYS),
+                             *c.shape[2:]), device="meta") for k, c in seg.items()}
+            for seg in cache]
 
 
 @dataclasses.dataclass
@@ -186,17 +214,73 @@ def _cache_row_bytes(cache) -> int:
                for seg in cache for k, c in seg.items() if k not in _PER_SLOT_KEYS)
 
 
-def _reset_slot_rows(cache, idx, paged: bool) -> None:
-    """Zero the slot rows ``idx`` (a device index tensor) of the cache
-    leaves in place, with no host read (``index_fill_``, where indexed
-    assignment would synchronise); leaves are layer-stacked (L, B, ...).
-    Under paged KV only the per-slot recurrent leaves have slot rows: block
-    pools need no reset, recycled blocks are hidden by the validity masks
-    alone."""
+def _reset_slot_rows(cache, slots, paged: bool, upload) -> None:
+    """Zero the slot rows ``slots`` (host ints) of the cache leaves in place,
+    with no host read (``index_fill_`` on an index ``upload`` made, where
+    indexed assignment would synchronise); leaves are layer-stacked
+    (L, B, ...), and a leaf placed on a mesh zeroes the rows of its own
+    slice. Under paged KV only the per-slot recurrent leaves have slot rows:
+    block pools need no reset, recycled blocks are hidden by the validity
+    masks alone."""
+    index = {}
     for seg in cache:
         for k, c in seg.items():
-            if not paged or k in _PER_SLOT_KEYS:
-                c.index_fill_(1, idx, 0)
+            if paged and k not in _PER_SLOT_KEYS:
+                continue
+            rows = meshes.region(c)[1]
+            if (rows.start, rows.stop) not in index:
+                mine = [i - rows.start for i in slots if rows.start <= i < rows.stop]
+                index[rows.start, rows.stop] = upload(np.asarray(mine, np.int64)) if mine \
+                    else None
+            if index[rows.start, rows.stop] is not None:
+                meshes.local(c).index_fill_(1, index[rows.start, rows.stop], 0)
+
+
+def place_cache(cache, mesh, *, paged: bool, kernel: bool):
+    """The cache's leaves placed on ``mesh`` by their logical axes
+    (``model_zoo.cache_specs``) under ``SERVE_KERNEL_CACHE_RULES`` on the
+    kernel path (``kernel``; the pool stays replicated over the data axes)
+    or ``SERVE_CACHE_RULES``, each resolved on ``repro``'s shape: a leaf
+    that shards a dim becomes a DTensor of this rank's own slice and
+    landing row (``meshes.place_serve``), any other stays as it is."""
+    with meshes.use_mesh(mesh):
+        shardings = meshes.tree_shardings(
+            model_zoo.cache_specs(cache, paged=paged), _logical(cache), mesh,
+            rules=meshes.SERVE_KERNEL_CACHE_RULES if kernel else meshes.SERVE_CACHE_RULES)
+    return [{k: meshes.place_serve(c, shardings[i][k], k not in _PER_SLOT_KEYS)
+             for k, c in seg.items()} for i, seg in enumerate(cache)]
+
+
+def _copy_blocks_across(pool, pairs) -> None:
+    """The copy-on-write splits ``pairs`` (old, new) of a block pool split
+    over the data axes: where one rank holds both blocks it copies its own;
+    else the old block's owner broadcasts it over the group and the new
+    block's owner writes it."""
+    mesh, axes = pool.device_mesh, meshes.split_axes(pool, {1})
+    group, members = meshes.axis_group(mesh, axes), meshes.axis_ranks(mesh, axes)
+    me, loc, n = dist.get_rank(), pool.to_local(), meshes.region(pool)[1].stop \
+        - meshes.region(pool)[1].start
+    for old, new in pairs:
+        (src, i), (dst, j) = divmod(old, n), divmod(new, n)
+        if members[src] == members[dst]:
+            if members[src] == me:
+                loc[:, j] = loc[:, i]
+            continue
+        block = loc[:, i].contiguous() if members[src] == me else \
+            torch.empty_like(loc[:, 0], memory_format=torch.contiguous_format)
+        meshes.broadcast(block, src=members[src], group=group)
+        if members[dst] == me:
+            loc[:, j] = block
+
+
+def _whole_tree(tree):
+    """Each leaf of ``tree`` whole on this rank: a leaf placed on a mesh made
+    whole (``meshes.whole``), any other as it is."""
+    if isinstance(tree, dict):
+        return {k: _whole_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_whole_tree(v) for v in tree)
+    return meshes.whole(tree)
 
 
 def token_runs(counts, t_pad: int) -> np.ndarray:
@@ -271,18 +355,31 @@ class BatchedServer:
     ``device`` is where the caches live and the steps run (``None``: the
     card, which raises ``RuntimeError`` when there is none); ``params`` must
     already be there.
+
+    ``mesh`` (a ``meshes.Mesh`` over the ranks of the default process
+    group, each rank running this server on the same stream) shards the
+    caches (see the module docstring); ``param_specs`` is the weights'
+    logical-axis tree (``init_params``' second value), resolved as
+    ``repro`` resolves it. ``last_sharded_path`` is ``sharded_path(mesh)``'s
+    answer; ``rank_disagreements`` counts the fused steps where this rank's
+    own sampled tokens differed from rank 0's.
     """
 
     def __init__(self, cfg: ModelConfig, params, batch_slots: int, max_seq: int,
                  temperature: float = 0.0, seed: int = 0, mesh=None,
-                 admission: str = "continuous", kv: str = "dense",
+                 param_specs=None, admission: str = "continuous", kv: str = "dense",
                  block_size: int = 16, kv_blocks: int | None = None,
                  prefill_chunk: int = 1, step_mode: str = "chunked",
                  attn_impl: str = "gather", scheduler: str = "priority",
                  preemption: bool | None = None, debug_checks: bool | None = None,
                  fault_plan=None, clock=None, prefix_cache: bool | None = None,
                  tenant_weights: dict | None = None, device=None):
-        meshes.no_mesh(mesh, "BatchedServer(mesh=...)")
+        if mesh is not None and not isinstance(mesh, meshes.Mesh):
+            raise TypeError(
+                f"mesh must be a meshes.Mesh (make_mesh, make_host_mesh), not "
+                f"{type(mesh).__name__}: a server places its caches on ranks (an "
+                "AbstractMesh sizes sharded_path() alone)"
+            )
         if cfg.family == "encdec":
             raise ValueError(
                 "BatchedServer serves decoder-only families; enc-dec decode "
@@ -313,6 +410,8 @@ class BatchedServer:
         if params["embed"]["table"].device != self.device:
             raise ValueError(f"params are on {params['embed']['table'].device}, "
                              f"the server on {self.device}")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a server on {self.device}")
         self.cfg = cfg
         self.params = params
         self.slots = batch_slots
@@ -426,9 +525,115 @@ class BatchedServer:
         # keys and the watermark of blocks already registered in the index
         self._slot_keys: list[list | None] = [None] * batch_slots
         self._reg_upto = np.zeros(batch_slots, np.int32)
+        # on a mesh: the decision, the caches placed by their resolved specs
+        # (each rank's slice and landing row), the weights whole on every
+        # rank, and the clock every rank reads (rank 0's, broadcast each
+        # fused step)
+        self.mesh = mesh
+        self.last_sharded_path: tuple | None = None
+        self.rank_disagreements = 0
+        self._agreeing = meshes.is_multi_rank(mesh)
+        if mesh is not None:
+            self.last_sharded_path = self.sharded_path(mesh)
+            self.cache = place_cache(self.cache, mesh, paged=self._paged is not None,
+                                     kernel=self.attn_impl == "kernel")
+            if param_specs is not None:
+                with meshes.use_mesh(mesh):
+                    meshes.tree_shardings(param_specs, params, mesh)
+            self.params = _whole_tree(params)
+        if self._agreeing:
+            self._raw_clock, self._clock = self._clock, self._agreed_clock
+            self._agree(np.zeros(0, np.int32))
         # bytes one written cache row costs across every leaf but the per-slot
-        # state, and every layer: the unit behind metrics.kv_bytes_written
+        # state, and every layer (the logical cache, not a rank's slice): the
+        # unit behind metrics.kv_bytes_written
         self._kv_row_bytes = _cache_row_bytes(self.cache)
+
+    # -- sharding ------------------------------------------------------------
+    def sharded_path(self, mesh) -> tuple:
+        """Decide how the serving caches shard on ``mesh``: returns
+        ``("gspmd", data_axes, model_axis)``, ``repro``'s tuple. The cache
+        slot dim, or the block-pool dim under paged KV, goes over the data
+        axes when it divides them (``batch_slots`` and the pool's
+        ``num_blocks``: the landing row or block is not counted); head and
+        feature dims go over the model axis when the family has a
+        head-partitioned cache tensor that divides it. Drops are recorded in
+        ``meshes.fallbacks()`` with ``repro``'s texts, and the dropped dim
+        stays replicated (each leaf still follows the resolver's own
+        answer)."""
+        data = meshes.mesh_data_axes(mesh)
+        n_data = meshes.mesh_axis_size(mesh, *data) if data else 1
+        if self._paged is not None:
+            nb = self._paged.pool.num_blocks
+            if data and self.attn_impl == "kernel":
+                meshes.record_fallback(
+                    "serve_cache", "kv_blocks", 1,
+                    "paged-attention kernel walks the whole block pool "
+                    "through its scalar-prefetched table (any token may map "
+                    "any physical block); block pool stays replicated",
+                )
+                data = ()
+            elif data and nb % n_data != 0:
+                meshes.record_fallback(
+                    "serve_cache", "kv_blocks", 1,
+                    f"paged pool of {nb} blocks not divisible by data axes "
+                    f"{data}={n_data}; block pool stays replicated",
+                )
+                data = ()
+        elif data and self.slots % n_data != 0:
+            meshes.record_fallback(
+                "serve_cache", "batch", 0,
+                f"batch slots {self.slots} not divisible by data axes "
+                f"{data}={n_data}; cache slots stay replicated",
+            )
+            data = ()
+        model_axis = None
+        m_size = meshes.mesh_axis_size(mesh, "model")
+        if m_size > 1:
+            heads = self._cache_head_dim()
+            if heads is None:
+                meshes.record_fallback(
+                    "serve_cache", "kv_heads", 2,
+                    "no head-partitioned cache tensor in this family "
+                    "(latent/recurrent cache); model axis shards params only",
+                )
+            elif heads % m_size != 0:
+                meshes.record_fallback(
+                    "serve_cache", "kv_heads", 2,
+                    f"cache head dim {heads} not divisible by mesh axis "
+                    f"'model'={m_size}; cache heads stay replicated",
+                )
+            else:
+                model_axis = "model"
+        return "gspmd", data, model_axis
+
+    def _cache_head_dim(self) -> int | None:
+        """Size of the cache dim the model axis would partition, if any."""
+        cfg = self.cfg
+        if cfg.family == "ssm":  # rwkv wkv state: (B, heads, hd, hd)
+            return cfg.d_model // cfg.rwkv_head_size
+        if cfg.attn_kind == "mla":  # latent cache has no head dim
+            return None
+        return cfg.n_kv_heads
+
+    def _agreed_clock(self) -> float:
+        """The server's clock on a mesh: rank 0's reading at the latest
+        ``_agree``."""
+        return self._now
+
+    def _agree(self, values: np.ndarray) -> np.ndarray:
+        """Global rank 0's ``values`` (the step's sampled tokens, read back
+        on every rank) and clock reading, one broadcast; counts a step whose
+        own tokens differed in ``rank_disagreements``."""
+        got, self._now = meshes.agree(values, self._raw_clock())
+        if not np.array_equal(got, values):
+            self.rank_disagreements += 1
+        return got
+
+    def _mesh_block(self):
+        """``meshes.use_mesh(self.mesh)`` on a mesh (the steps and copies
+        run under it, as in ``repro``), else nothing."""
+        return meshes.use_mesh(self.mesh) if self.mesh is not None else contextlib.nullcontext()
 
     # -- host <-> device ------------------------------------------------------
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -680,8 +885,7 @@ class BatchedServer:
         if newly:
             # the admitted slots' rows start from zeros (recurrent state on
             # either layout, dense KV rows on top of the validity masks)
-            _reset_slot_rows(self.cache, self._upload(np.asarray(newly, np.int64)),
-                             paged=self._paged is not None)
+            _reset_slot_rows(self.cache, newly, self._paged is not None, self._upload)
             self._prompt_buf_dev = self._upload(self._prompt_buf)
 
     # -- the fused device step -------------------------------------------------
@@ -736,7 +940,7 @@ class BatchedServer:
             last_tok = torch.where(run, nxt, last_tok)
         packed = torch.cat([torch.stack(toks), torch.stack(emits), positions[None],
                             last_tok[None]])
-        return packed.cpu().numpy()  # the step's one host read
+        return self._read(packed)
 
     def _token_program(self, tokens, slot_ids, pos, live, runs) -> np.ndarray:
         """One decode over a flattened (T,) token batch: ``slot_ids`` maps
@@ -754,7 +958,13 @@ class BatchedServer:
         table = self._table_dev[slot] if self._paged is not None else None
         nxt = self._forward(tok, batch[2], live_d, table=table, slot=slot,
                             runs=flat[4 * t:].view(-1, 2))
-        return nxt.cpu().numpy()  # the step's one host read
+        return self._read(nxt)
+
+    def _read(self, out: torch.Tensor) -> np.ndarray:
+        """The step's one host read; on a mesh, rank 0's values
+        (``_agree``)."""
+        host = out.cpu().numpy()
+        return self._agree(host) if self._agreeing else host
 
     # -- stepping ---------------------------------------------------------------
     @property
@@ -823,10 +1033,16 @@ class BatchedServer:
         )
         src = self._upload(np.asarray([p[0] for p in pairs], np.int64))
         dst = self._upload(np.asarray([p[1] for p in pairs], np.int64))
-        for seg in self.cache:
-            for k, c in seg.items():
-                if k not in _PER_SLOT_KEYS:
-                    c[:, dst] = c[:, src]
+        with self._mesh_block():
+            for seg in self.cache:
+                for k, c in seg.items():
+                    if k in _PER_SLOT_KEYS:
+                        continue
+                    if meshes.split_axes(c, {1}):
+                        _copy_blocks_across(c, pairs)
+                    else:
+                        c = meshes.local(c)
+                        c[:, dst] = c[:, src]
 
     def _register_prefix(self, slot: int):
         """Advance ``slot``'s prefix-index registration watermark: feed
@@ -865,7 +1081,8 @@ class BatchedServer:
                 self.metrics.kv_blocks_peak, self._paged.pool.blocks_in_use
             )
         old_pos = self._positions.copy()
-        out = self._chunked_program()
+        with self._mesh_block():
+            out = self._chunked_program()
         c = self.prefill_chunk
         toks, emits = out[:c], out[c:2 * c]
         # np.array (not a view): _admit writes these in place on admission
@@ -949,7 +1166,10 @@ class BatchedServer:
                 self._refresh_tables()
         t_live = sum(n for _, _, n in work)
         if t_live == 0:
-            # nothing runnable this step (empty batch); still a step
+            # nothing runnable this step (empty batch); still a step, and on a
+            # mesh still a clock reading every rank shares
+            if self._agreeing:
+                self._agree(np.zeros(0, np.int32))
             self.metrics.steps += 1
             self.metrics.wall_s += self._clock() - t0
             return
@@ -980,7 +1200,8 @@ class BatchedServer:
                 self.metrics.kv_blocks_peak, self._paged.pool.blocks_in_use
             )
         check_runs(runs, slot_ids)
-        nxt = self._token_program(tokens, slot_ids, pos, live, runs)
+        with self._mesh_block():
+            nxt = self._token_program(tokens, slot_ids, pos, live, runs)
         now = self._clock()
 
         n_active = 0

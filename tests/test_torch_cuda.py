@@ -243,6 +243,49 @@ def test_lm_train_on_two_gloo_ranks_of_one_card(card, tmp_path):
     assert len(list(leaves(p))) == len(ranks[0]["data"]["params"])
 
 
+def test_sharded_server_on_two_gloo_ranks_of_one_card(card, tmp_path):
+    """Reduced internlm2-20b served by two gloo ranks of cuda:0
+    (tests/test_torch_dist_util.py's serve_card case): on (1 x 2) the kernel
+    path with the pool replicated and the KV heads split, B5 launched on
+    each rank at half the heads once a layer a fused step; on (2 x 1) dense
+    caches through the gather path with the slots over data. Each gives
+    the unsharded card server's tokens on every rank, with no disagreement
+    with rank 0 and only all_reduce and broadcast."""
+    import test_torch_dist_util as dist_util
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import model_zoo
+    from repro_torch.models.params import params_from_numpy, tree_map
+    from repro_torch.serve.serving import BatchedServer, Request
+
+    cfg = get_reduced_config("internlm2-20b")
+    p, _ = model_zoo.init_params(cfg, 2, "cpu", dtype=torch.float32)
+    weights = {"internlm2-20b": tree_map(lambda t: t.numpy(), p)}
+    torch.save(weights, str(tmp_path / "serve_weights.pt"))
+    started = dist_util.start("serve_card", 2, str(tmp_path), device="cuda")
+    try:
+        tp = params_from_numpy(cfg, weights["internlm2-20b"], device=card)
+        want = {}
+        for name, kw in (("kernel", dist_util.KERNEL), ("dense", {})):
+            srv = BatchedServer(cfg, tp, batch_slots=dist_util.SERVE_SLOTS,
+                                max_seq=dist_util.SERVE_MAX_SEQ, device=card, **kw)
+            want[name] = dist_util.run_arrivals(srv, dist_util.SERVE_STREAM, Request)
+    finally:
+        ranks = dist_util.collect(started)
+    for r in ranks:
+        kern, dense = r["kernel"], r["dense"]
+        assert kern["path"] == ("gspmd", (), "model") and kern["attn_impl"] == "kernel"
+        assert kern["layout"][0]["k"][0] == ["R", "S(3)"]
+        assert kern["layout"][0]["k"][1][3] == cfg.n_kv_heads // 2
+        assert kern["launches"] == cfg.n_layers * kern["steps"]
+        assert dense["path"] == ("gspmd", ("data",), None)
+        assert dense["layout"][0]["k"][0] == ["S(1)", "R"]
+        for name in ("kernel", "dense"):
+            assert r[name]["outs"] == want[name], name
+            assert r[name]["disagreements"] == 0 and r[name]["finished"] == 5
+            assert set(r[name]["collectives"]) == {"all_reduce", "broadcast"}
+        assert r["forbidden"] == []
+
+
 # plans over a d-column layout: one column, scattered runs, all, label only
 def _plans(layout):
     d = layout.n_features

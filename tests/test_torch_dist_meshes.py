@@ -308,10 +308,22 @@ def test_mesh_flags_match_repro():
     assert isinstance(mesh, meshes.Mesh) and tuple(mesh.shape) == (1, 1)
 
 
-def test_no_mesh_still_guards_the_server():
-    meshes.no_mesh(None, "x")
-    with pytest.raises(NotImplementedError, match="A19"):
-        meshes.no_mesh(object(), "BatchedServer(mesh=...)")
+def test_server_takes_a_mesh_and_serves_on_one_rank():
+    """``BatchedServer(mesh=)``: a mesh that is not a mesh raises
+    ``TypeError``; the one-rank host mesh of a lone process serves the
+    unsharded server's tokens, its caches the same tensors."""
+    from test_torch_serve_util import params, serve
+
+    cfg, p = params()
+    with pytest.raises(TypeError, match="meshes.Mesh"):
+        serve(cfg, p, mesh=object())
+    with pytest.raises(TypeError, match="AbstractMesh"):
+        serve(cfg, p, mesh=abstract(("data", 2), ("model", 1)))
+    want, _ = serve(cfg, p)
+    got, srv = serve(cfg, p, mesh=meshes.make_host_mesh(device=CPU))
+    assert got == want
+    assert srv.last_sharded_path == ("gspmd", (), None)
+    assert not any(meshes.is_dtensor(c) for seg in srv.cache for c in seg.values())
 
 
 # --------------------------- engine on the host mesh ---------------------------

@@ -547,9 +547,214 @@ def case_lm_card(rank, world, workdir, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The sharded server
+# ---------------------------------------------------------------------------
+# repro's stream of its 8-device serving scripts: 4 slots, 5 requests (rid,
+# prompt, new tokens), here with priority 1 and arrival step 0
+SERVE_STREAM = [(0, [5, 6, 7, 8], 12, 1, 0), (1, [1, 2], 3, 1, 0), (2, [8, 8], 4, 1, 0),
+                (3, [3, 1, 4, 1], 5, 1, 0), (4, [9, 3, 9, 4], 5, 1, 0)]
+SERVE_SLOTS, SERVE_MAX_SEQ = 4, 24
+# the paged cases: repro's 16-block pool (divides data 4) and its 10-block one
+PAGED = {"kv": "paged", "block_size": 6, "kv_blocks": 16, "prefill_chunk": 2}
+PAGED_10 = {"kv": "paged", "block_size": 6, "kv_blocks": 10}
+KERNEL = dict(PAGED, step_mode="tokens", attn_impl="kernel")
+# teacher-forced decode at staggered positions (repro's): 10 steps, 4 rows
+SERVE_TF_STEPS, SERVE_TF_OFFSETS, SERVE_TF_SEED = 10, (0, 3, 1, 7), 5
+# prefix sharing and a preemption: rid 4 is priority 0 and arrives with
+# every slot taken, so it evicts rid 3, the template alone, which resumes
+# once rid 0 has written the template's blocks: it shares them, and its
+# last prompt position lies in a shared block, copied before it is written
+TEMPLATE = [7, 3, 9, 2, 5, 1, 8, 6]
+SHARE_STREAM = [(0, TEMPLATE + [4, 4, 1], 6, 2, 0), (1, [2, 9, 6], 8, 2, 0),
+                (2, [5, 5, 3, 7, 1], 8, 2, 0), (3, list(TEMPLATE), 6, 2, 0),
+                (4, [6, 1, 2], 4, 0, 1)]
+SHARE = {"kv": "paged", "block_size": 4, "kv_blocks": 24, "prefill_chunk": 4}
+# every served family on (4 x 2), each against repro's unsharded server.
+# MoE runs every activation in f32 (``uncast``, f32 weights) in both
+# packages, as tests/test_torch_serving_moe.py holds the unsharded server
+# token for token: in bf16 the two packages' routers may flip a route
+FAMILIES = {"minicpm3-4b": [{}, PAGED], "hymba-1.5b": [{}], "rwkv6-3b": [{}],
+            "olmoe-1b-7b": [{"f32": True}]}
+
+
+def run_arrivals(server, stream, request):
+    """Step ``server`` through ``stream`` ((rid, prompt, new tokens,
+    priority, arrival step)), each request submitted at its arrival step;
+    {rid: its tokens} of the terminal requests. ``request`` is the server's
+    package's ``Request``."""
+    pending = sorted(stream, key=lambda r: (r[4], r[0]))
+    i = 0
+    while i < len(pending) or server.queue or any(r is not None for r in server.active):
+        while i < len(pending) and pending[i][4] <= server.step_no:
+            rid, prompt, new, prio, _ = pending[i]
+            server.submit(request(rid, list(prompt), new, priority=prio))
+            i += 1
+        server.step()
+    return {r.rid: list(r.out) for r in server.finished}
+
+
+def serve_tf_tokens(vocab: int):
+    """The teacher-forced decode's tokens (steps, rows) and row offsets."""
+    rng = np.random.default_rng(SERVE_TF_SEED)
+    return rng.integers(1, vocab, (SERVE_TF_STEPS, len(SERVE_TF_OFFSETS))).astype(np.int32), \
+        np.asarray(SERVE_TF_OFFSETS, np.int32)
+
+
+def _cache_layout(server):
+    """Each cache leaf's placements and local shape, by segment and key."""
+    from repro_torch.dist import meshes
+
+    return [{k: (placements(c), tuple(meshes.local(c).shape)) for k, c in seg.items()}
+            for seg in server.cache]
+
+
+def _serve_on_mesh(cfg, params, specs, mesh, device, stream, **kw):
+    """``stream`` through a server on ``mesh``: its tokens, decision and
+    construction fallbacks, cache layout, metrics, collectives over the run
+    and rank-0 disagreements."""
+    from repro_torch.dist import meshes
+    from repro_torch.serve.serving import BatchedServer, Request
+
+    meshes.clear_fallbacks()
+    srv = BatchedServer(cfg, params, batch_slots=kw.pop("batch_slots", SERVE_SLOTS),
+                        max_seq=SERVE_MAX_SEQ, mesh=mesh, param_specs=specs, device=device,
+                        **kw)
+    fallbacks = meshes.fallbacks()
+    meshes.reset_collectives()
+    outs = run_arrivals(srv, stream, Request)
+    m = srv.metrics
+    return {"outs": outs, "path": srv.last_sharded_path, "fallbacks": fallbacks,
+            "layout": _cache_layout(srv), "attn_impl": srv.attn_impl,
+            "step_mode": srv.step_mode, "steps": m.steps, "finished": m.finished,
+            "admitted": m.admitted, "preemptions": m.preemptions,
+            "cow_splits": m.cow_splits, "prefix_hits": m.prefix_hits,
+            "kv_blocks_peak": m.kv_blocks_peak, "kv_bytes_written": m.kv_bytes_written,
+            "collectives": dict(meshes.COLLECTIVES), "disagreements": srv.rank_disagreements}
+
+
+def _serve_inputs(arch, workdir, device, dtype=None):
+    import torch
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import model_zoo
+    from repro_torch.models.params import params_from_numpy
+
+    cfg = get_reduced_config(arch)
+    weights = torch.load(os.path.join(workdir, "serve_weights.pt"), weights_only=False)[arch]
+    _, specs = model_zoo.init_params(cfg, 0, "cpu")
+    return cfg, params_from_numpy(cfg, weights, device=device,
+                                  dtype=dtype or torch.bfloat16), specs
+
+
+def case_serve_mesh(rank, world, workdir, device):
+    """repro's 8-device serving scripts on (4 x 2) from the parent's numpy
+    weights of reduced internlm2-20b: the teacher-forced decode over the
+    placed dense cache, the 5-request stream and its last request alone,
+    the paged pool over data (16 blocks) and its 10-block fallback, and the
+    kernel path (pool replicated, heads split)."""
+    import torch
+
+    from repro_torch.dist import meshes
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.serving import BatchedServer
+
+    forbidden = _guard_collectives()
+    cfg, params, specs = _serve_inputs("internlm2-20b", workdir, device)
+    mesh = meshes.make_mesh((world // 2, 2), ("data", "model"), device=device)
+    out = {}
+    srv = BatchedServer(cfg, params, batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, mesh=mesh,
+                        param_specs=specs, device=device)
+    toks, offsets = serve_tf_tokens(cfg.vocab_size)
+    decode, logits = model_zoo.decode_fn(cfg), []
+    with meshes.use_mesh(mesh):
+        for t in range(SERVE_TF_STEPS):
+            lg, _ = decode(srv.params, torch.from_numpy(toks[t]).to(device), srv.cache,
+                           torch.from_numpy(offsets + t).to(device))
+            logits.append(lg[:, :cfg.vocab_size].float().cpu().numpy())
+    out["tf_logits"] = np.stack(logits)
+    out["tf_layout"] = _cache_layout(srv)
+    del srv
+    out["dense"] = _serve_on_mesh(cfg, params, specs, mesh, device, SERVE_STREAM)
+    out["solo"] = _serve_on_mesh(cfg, params, specs, mesh, device, SERVE_STREAM[-1:])
+    out["paged"] = _serve_on_mesh(cfg, params, specs, mesh, device, SERVE_STREAM, **PAGED)
+    out["paged_10"] = _serve_on_mesh(cfg, params, specs, mesh, device, SERVE_STREAM,
+                                     **PAGED_10)
+    out["kernel"] = _serve_on_mesh(cfg, params, specs, mesh, device, SERVE_STREAM, **KERNEL)
+    out["forbidden"] = list(forbidden)
+    return out
+
+
+def case_serve_families(rank, world, workdir, device):
+    """Every served family on (4 x 2) from the parent's numpy weights
+    (FAMILIES), and prefix sharing with a copy-on-write block and a
+    preemption on reduced internlm2-20b (SHARE_STREAM): the tokens, the
+    copies that crossed ranks."""
+    import torch
+
+    from repro_torch.dist import meshes
+    from repro_torch.serve import serving
+
+    forbidden = _guard_collectives()
+    mesh = meshes.make_mesh((world // 2, 2), ("data", "model"), device=device)
+    out = {}
+    for arch, modes in FAMILIES.items():
+        out[arch] = []
+        for kw in modes:
+            kw = dict(kw)
+            f32 = kw.pop("f32", False)
+            undo = uncast() if f32 else None
+            try:
+                cfg, params, specs = _serve_inputs(arch, workdir, device,
+                                                   torch.float32 if f32 else None)
+                out[arch].append(_serve_on_mesh(cfg, params, specs, mesh, device,
+                                                SERVE_STREAM, **kw))
+            finally:
+                if undo is not None:
+                    undo()
+    crossed, real = [], serving._copy_blocks_across
+
+    def spy(pool, pairs):
+        n = meshes.region(pool)[1].stop - meshes.region(pool)[1].start
+        crossed.extend((a, b) for a, b in pairs if a // n != b // n)
+        return real(pool, pairs)
+
+    serving._copy_blocks_across = spy
+    cfg, params, specs = _serve_inputs("internlm2-20b", workdir, device)
+    try:
+        out["share"] = _serve_on_mesh(cfg, params, specs, mesh, device, SHARE_STREAM, **SHARE)
+    finally:
+        serving._copy_blocks_across = real
+    out["share"]["crossed"] = crossed
+    out["forbidden"] = list(forbidden)
+    return out
+
+
+
+def case_serve_card(rank, world, workdir, device):
+    """The sharded server on the card's gloo ranks from the parent's numpy
+    weights of reduced internlm2-20b: (1 x world) on the kernel path (B5 at
+    its share of the KV heads, its launches counted) and (world x 1) on
+    dense caches through the gather path (slots over data)."""
+    from repro_torch.dist import meshes
+    from repro_torch.kernels.paged_attn import kernel as pa_kernel
+
+    forbidden = _guard_collectives()
+    cfg, params, specs = _serve_inputs("internlm2-20b", workdir, device)
+    out = {}
+    for name, shape, kw in (("kernel", (1, world), KERNEL), ("dense", (world, 1), {})):
+        mesh = meshes.make_mesh(shape, ("data", "model"), device=device)
+        pa_kernel.paged_attention.launches = 0
+        out[name] = _serve_on_mesh(cfg, params, specs, mesh, device, SERVE_STREAM, **kw)
+        out[name]["launches"] = pa_kernel.paged_attention.launches
+    out["forbidden"] = list(forbidden)
+    return out
+
+
 CASES = {"engine": case_engine, "train_mesh": case_train_mesh,
          "train_families": case_train_families, "elastic": case_elastic,
-         "lm_card": case_lm_card}
+         "lm_card": case_lm_card, "serve_mesh": case_serve_mesh,
+         "serve_families": case_serve_families, "serve_card": case_serve_card}
 
 
 def main(argv) -> int:

@@ -238,7 +238,8 @@ def test_submit_validation_and_unserved_families():
     # here)
     for arch in ("rwkv6-3b", "hymba-1.5b", "olmoe-1b-7b", "deepseek-v3-671b"):
         BatchedServer(get_reduced_config(arch), p, batch_slots=1, max_seq=8, device=CPU)
-    with pytest.raises(NotImplementedError, match="A19"):
+    # a mesh that is not a mesh (the sharded server takes a meshes.Mesh)
+    with pytest.raises(TypeError, match="meshes.Mesh"):
         BatchedServer(cfg, p, batch_slots=1, max_seq=8, mesh=object(), device=CPU)
 
 
