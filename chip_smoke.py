@@ -271,6 +271,20 @@ Phases, one JSON line each:
            collectives and their bytes a fused step, busy and idle share
            and peak memory; rank 0's B5 call of step 20 kept for the
            kernels line
+  roofline-host  (in a process of its own, beside serve) the dry-run
+           (repro_torch.launch.dryrun) on the host's CPU: ROOFLINE_CELLS'
+           steps on meta tensors over a fake process group of 256 or 512
+           ranks, a line per cell: status, GiB a device, flops a device,
+           wire bytes, the H100 roofline's three terms and bound
+  roofline  rwkv6-3b's train step at full width on a one-rank mesh on the
+           card (train_4k's 4,096 positions, its batch cut to 4 rows and
+           its depth to 2 of 32 layers), through B6 and B6-bwd, beside the
+           dry-run's prediction of the same step on meta: 3 timed steps
+           after a warm one, the peak memory; fails unless the predicted
+           argument bytes are the card's bytes of weights, moments and
+           inputs exactly, the predicted arguments plus temporaries lie
+           within [0.5, 2] of the measured peak, and the step is no shorter
+           than the compute term at the bf16 peak
   kernels  each kernel's launches on the main path (B1's, B6's and
            B6-bwd's on the mesh path too, per rank; B3's: the GLM scans' and
            the LM statements'; B2's one-batch gradient: the sharded ranks',
@@ -305,7 +319,8 @@ of the time in each, so some run beside others, each in a process of its own
 (``chip_smoke.py --beside NAME``, its lines printed when it is joined, its
 phase's result handed back through a file under build/chip_smoke/):
 lm-predict, serve-rwkv and serve-vlm beside serve-mla, then serve-moe and
-serve-hybrid (which starts its own gather run) beside serve and launch;
+serve-hybrid (which starts its own gather run) and roofline-host beside
+serve and launch;
 train-sharded (which starts its 4 ranks) runs through both stages. The peak device memory of the phases
 that run together adds to at most 72 GB; the training phases, each near its
 own peak of 28-73 GB, run alone, and so do train-elastic and serve-sharded (4 ranks each). Each phase's line carries the time it ended
@@ -2849,7 +2864,8 @@ def _beside_phases():
     return {"serve-moe": phase_serve_moe, "serve-rwkv": phase_serve_rwkv,
             "serve-hybrid": phase_serve_hybrid, "lm-predict": phase_lm_predict,
             "serve-vlm": phase_serve_vlm, "train-sharded": phase_train_sharded,
-            "train-elastic": phase_train_elastic, "serve-sharded": phase_serve_sharded}
+            "train-elastic": phase_train_elastic, "serve-sharded": phase_serve_sharded,
+            "roofline-host": phase_roofline_host}
 
 
 def _beside_result(name):
@@ -6151,6 +6167,171 @@ def kernel_rows_wkv(captured, launches, b6_kernels, b6_bwd_kernels):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# roofline: the dry-run on the host, and its prediction of a step on the card
+# ---------------------------------------------------------------------------
+# (arch, shape, mesh) cells of the host part: a train, a prefill and a decode
+# cell, rwkv6-3b's train_4k on both meshes
+ROOFLINE_CELLS = (("rwkv6-3b", "train_4k", "single"), ("rwkv6-3b", "train_4k", "multi"),
+                  ("olmoe-1b-7b", "prefill_32k", "single"),
+                  ("mistral-nemo-12b", "decode_32k", "single"))
+ROOFLINE_BATCH, ROOFLINE_LAYERS, ROOFLINE_STEPS = 4, 2, 3  # the card part's cuts
+ROOFLINE_MEMORY_RATIO = (0.5, 2.0)  # (predicted args + temp) / measured peak
+CARD_BYTES = 80e9
+
+
+def phase_roofline_host():
+    """The dry-run on ROOFLINE_CELLS on this host's CPU (meta tensors, a
+    fake process group of 256 or 512 ranks, nothing on the card), each
+    cell's record under SCRATCH/dryrun; a line per cell with the H100
+    roofline's terms. Returns the lines. It runs at a lower priority than
+    the serving phases beside it: they are bound by the host, it is not
+    timed."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.analysis import H100, roofline_terms
+
+    os.nice(10)
+
+    out_dir = os.path.join(SCRATCH, "dryrun")
+    lines = []
+    for arch, shape, mesh in ROOFLINE_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_and_save(arch, shape, mesh, out_dir=out_dir)
+        if rec["status"] != "ok":
+            raise AssertionError(f"the dry-run of {arch} {shape} {mesh}: {rec.get('error')}")
+        mem, terms = rec["memory"], roofline_terms(rec, H100)
+        per_device = mem["argument_bytes"] + mem["temp_bytes"]
+        line = {"arch": arch, "shape": shape, "mesh": rec["mesh"], "status": rec["status"],
+                "n_devices": rec["n_devices"], "seconds": time.perf_counter() - t0,
+                "gib_per_device": per_device / 2**30, "fits_80gb": per_device <= CARD_BYTES,
+                "flops_per_device": rec["cost"]["flops"],
+                "bytes_accessed_per_device": rec["cost"]["bytes_accessed"],
+                "wire_bytes": rec["collectives"]["total_wire_bytes"],
+                "hw": H100.name, **{k: terms[k] for k in (
+                    "compute_s", "memory_s", "collective_s", "bound", "useful_flops_ratio",
+                    "roofline_fraction")}}
+        emit({"phase": "roofline-host", **line})
+        lines.append(line)
+    return lines
+
+
+def _storage_bytes(tree) -> int:
+    """The bytes of the distinct storages of the tensors of ``tree``."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    seen = {}
+    for t in tree_leaves(tree):
+        if torch.is_tensor(t):
+            st = t.untyped_storage()
+            seen[st.data_ptr(), st.device] = st.nbytes()
+    return sum(seen.values())
+
+
+def phase_roofline(host_cells):
+    """rwkv6-3b's train step at full width on a one-rank mesh on the card,
+    held against the dry-run's prediction of the same step on meta
+    (``dryrun._lower_and_measure``); returns B6's and B6-bwd's launches."""
+    import gc
+
+    import torch
+
+    from repro_torch.dist import meshes
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model_zoo
+    from repro_torch.roofline.analysis import H100
+    from repro_torch.train.optimizer import OptConfig, adamw_init, make_train_step
+
+    full = _published(TRAIN_ARCH, TRAIN_FIELDS, TRAIN_WIDTH)
+    cfg = dataclasses.replace(full, n_layers=ROOFLINE_LAYERS)
+    cell = model_zoo.SHAPES["train_4k"]
+    shape = dataclasses.replace(cell, global_batch=ROOFLINE_BATCH)
+    cuts = {"global_batch": [cell.global_batch, shape.global_batch],
+            "n_layers": [full.n_layers, cfg.n_layers]}
+    print(f"roofline: {TRAIN_ARCH} train_4k cut: batch {cell.global_batch} -> "
+          f"{shape.global_batch} rows, depth {full.n_layers} -> {cfg.n_layers} layers, "
+          f"{shape.seq_len} positions", flush=True)
+
+    t0 = time.perf_counter()
+    pred = dryrun._lower_and_measure(cfg, shape, meshes.AbstractMesh((1, 1), ("data", "model")),
+                                     remat=TRAIN_REMAT)
+    predict_s = time.perf_counter() - t0
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    mesh = meshes.make_host_mesh(device="cuda")
+    if mesh.size() != 1:
+        raise AssertionError(f"the roofline step needs a one-rank mesh, got {mesh.shape}")
+    ocfg = OptConfig()
+    params, _ = model_zoo.init_params(cfg, seed=0, device="cuda",
+                                      dtype=getattr(torch, cfg.param_dtype))
+    opt = adamw_init(params, ocfg)
+    batch = model_zoo.demo_batch(cfg, shape.global_batch, shape.seq_len, device="cuda")
+    card_args = _storage_bytes((params, opt, batch))
+    step = make_train_step(model_zoo.loss_fn(cfg, remat=TRAIN_REMAT, wkv_impl="kernel"), ocfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    times, losses = [], []
+    with meshes.use_mesh(mesh):
+        for _ in range(1 + ROOFLINE_STEPS):
+            t = time.perf_counter()
+            _, _, metrics = step(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(metrics["loss"])
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    del params, opt, batch, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step_s = statistics.median(times[1:])
+    mem = pred["memory"]
+    compute_s = pred["cost"]["flops"] / H100.peak_flops
+    memory_s = pred["cost"]["bytes_accessed"] / H100.hbm_bw
+    # MODEL_FLOPS (analysis.model_flops) of the cut step, at the bf16 peak
+    model_s = 6.0 * cfg.n_active_params() * shape.global_batch * shape.seq_len / H100.peak_flops
+    ratio = (mem["argument_bytes"] + mem["temp_bytes"]) / (peak - base)
+    record = {
+        "phase": "roofline", "arch": TRAIN_ARCH, "shape": "train_4k", "cuts": cuts,
+        "mesh": list(mesh.shape), "hw": H100.name, "nvidia_smi": nvidia_smi(),
+        "predicted": {**pred["memory"], **pred["cost"], "seconds_on_meta": predict_s},
+        "card": {"argument_bytes": card_args, "peak_bytes": peak - base,
+                 "max_memory_allocated": peak, "allocated_before": base,
+                 "step_s": times[1:], "warm_step_s": times[0], "median_step_s": step_s,
+                 "losses": losses},
+        "compute_s": compute_s, "memory_s": memory_s,
+        "bound": "compute" if compute_s >= memory_s else "memory",
+        # analysis.roofline_terms' fraction at the modeled step (the larger
+        # term), and at the measured one; the larger term over the step
+        "roofline_fraction": model_s / max(compute_s, memory_s),
+        "measured_fraction": model_s / step_s,
+        "bound_over_step": max(compute_s, memory_s) / step_s,
+        "memory_ratio": ratio, "memory_ratio_limits": list(ROOFLINE_MEMORY_RATIO),
+        "launches": {k: launches[k] for k in ("wkv", "wkv_bwd")},
+        "host_cells": host_cells,
+    }
+    emit(record)
+    if mem["argument_bytes"] != card_args:
+        raise AssertionError(f"predicted argument bytes {mem['argument_bytes']}, "
+                             f"the card's {card_args}")
+    if not ROOFLINE_MEMORY_RATIO[0] <= ratio <= ROOFLINE_MEMORY_RATIO[1]:
+        raise AssertionError(f"predicted args + temp over the measured peak: {ratio}")
+    if step_s < compute_s:
+        raise AssertionError(f"a step of {step_s} s is shorter than the compute term "
+                             f"{compute_s} s: the flop count is wrong")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses {losses}")
+    want = {"wkv": 2 * cfg.n_layers * len(times), "wkv_bwd": cfg.n_layers * len(times)}
+    if record["launches"] != want:
+        raise AssertionError(f"B6/B6-bwd launches {record['launches']}, expected {want}")
+    return record["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -6209,8 +6390,10 @@ def main() -> int:
             raise
         # serve-moe (17 GB) and serve-hybrid (6 GB and its gather run's 5)
         # beside serve and launch (16 and 25 GB)
+        # and the dry-run on the host's CPU (no card)
         try:
             moe, hybrid = _phase_beside("serve-moe"), _phase_beside("serve-hybrid")
+            roof = _phase_beside("roofline-host")
         except BaseException:
             _stop_beside(sharded)
             raise
@@ -6219,9 +6402,10 @@ def main() -> int:
             phase_launch_serve()
             moe_captured, moe_launches = _join_beside(moe)
             hybrid_captured, hybrid_launches = _join_beside(hybrid)
+            roofline_cells = _join_beside(roof)
             sharded_result = _join_beside(sharded)
         except BaseException:
-            _stop_beside(moe, hybrid, sharded)
+            _stop_beside(moe, hybrid, roof, sharded)
             raise
         # B2's one-batch gradient is on the sharded path: its launches there
         b2_row = next(r for r in rows if r["name"] == "glm_grad")
@@ -6247,6 +6431,7 @@ def main() -> int:
         phase_decode_encdec()
         phase_train_vlm()
         phase_launch_train()
+        roofline_launches = phase_roofline(roofline_cells)
         # LM training on a mesh of 4 gloo ranks, then the sharded server's 4
         # ranks, each alone on the card
         elastic = phase_train_elastic()
@@ -6265,6 +6450,7 @@ def main() -> int:
         # parity at its own shape
         for row in rows:
             if row["name"] in ("wkv", "wkv_bwd"):
+                row["roofline_launches"] = roofline_launches[row["name"]]
                 row["elastic"] = {
                     "launches_per_rank": {mesh: per[row["name"]] for mesh, per in
                                           elastic["launches_per_rank"].items()},

@@ -29,7 +29,8 @@ device mesh:
     default process group, which the caller set up: the port never picks a
     backend for it), ``make_host_mesh`` and ``make_production_mesh``.
   * ``all_reduce`` / ``broadcast`` over the ranks of some mesh axes, counted
-    in ``COLLECTIVES`` (and their bytes in ``COLLECTIVE_BYTES``), and
+    in ``COLLECTIVES`` (and their bytes in ``COLLECTIVE_BYTES``, and both a
+    kind and group size in ``COLLECTIVE_TOTALS``), and
     ``barrier`` (``BARRIERS``): the only collectives the port issues itself.
   * LM training on a mesh (``train.optimizer``): ``batch_rows`` (a rank's
     rows of every batch leaf over the data axes), ``whole`` (a weight whole
@@ -480,6 +481,10 @@ def axis_group(mesh: DeviceMesh, axes):
 # ---------------------------------------------------------------------------
 COLLECTIVES = {"all_reduce": 0, "broadcast": 0}
 COLLECTIVE_BYTES = {"all_reduce": 0, "broadcast": 0}  # the bytes each rank passed in
+# {(kind, group size): [calls, bytes]}: what roofline.collectives.collective_stats
+# prices (a ring's wire bytes are linear in bytes for a kind and group size, so
+# totals price as the calls would; its size stays that of the kinds and groups)
+COLLECTIVE_TOTALS: dict[tuple[str, int], list[int]] = {}
 BARRIERS = {"barrier": 0}
 REDUCE_OPS = {"+": "SUM", "*": "PRODUCT", "max": "MAX"}  # the merge operators
 
@@ -492,17 +497,24 @@ def all_reduce(t: torch.Tensor, mesh: DeviceMesh, axes, op: str = "+") -> torch.
     if group is None:
         return t
     dist.all_reduce(t, op=getattr(dist.ReduceOp, REDUCE_OPS[op]), group=group)
-    COLLECTIVES["all_reduce"] += 1
-    COLLECTIVE_BYTES["all_reduce"] += t.numel() * t.element_size()
+    _count("all_reduce", t, dist.get_world_size(group))
     return t
 
 
 def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """Broadcast ``t`` in place from global rank ``src`` over ``group``."""
     dist.broadcast(t, src=src, group=group)
-    COLLECTIVES["broadcast"] += 1
-    COLLECTIVE_BYTES["broadcast"] += t.numel() * t.element_size()
+    _count("broadcast", t, dist.get_world_size(group))
     return t
+
+
+def _count(kind: str, t: torch.Tensor, group_size: int) -> None:
+    nbytes = t.numel() * t.element_size()
+    COLLECTIVES[kind] += 1
+    COLLECTIVE_BYTES[kind] += nbytes
+    tot = COLLECTIVE_TOTALS.setdefault((kind.replace("_", "-"), group_size), [0, 0])
+    tot[0] += 1
+    tot[1] += nbytes
 
 
 def barrier() -> None:
@@ -515,6 +527,7 @@ def reset_collectives() -> None:
     for counts in (COLLECTIVES, COLLECTIVE_BYTES, BARRIERS):
         for k in counts:
             counts[k] = 0
+    COLLECTIVE_TOTALS.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -550,6 +563,16 @@ def local_slice(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     return x[shard_slices(x.shape, sharding)].contiguous()
 
 
+def contiguous_stride(shape) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (a DTensor's global
+    strides), with nothing allocated."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(out))
+
+
 def from_local(local: torch.Tensor, sharding: NamedSharding, shape) -> torch.Tensor:
     """``local`` as this rank's part of a tensor of ``shape`` placed by
     ``sharding``: a DTensor where the spec shards a dim, else ``local``
@@ -558,9 +581,9 @@ def from_local(local: torch.Tensor, sharding: NamedSharding, shape) -> torch.Ten
         return local
     from torch.distributed.tensor import DTensor
 
-    stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(local, sharding.mesh, sharding.placements,
-                              run_check=False, shape=torch.Size(shape), stride=stride)
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
 
 
 def device_put(x: torch.Tensor, sharding: NamedSharding):
@@ -570,9 +593,8 @@ def device_put(x: torch.Tensor, sharding: NamedSharding):
 
     if is_dtensor(x):
         x = full_tensor(x)
-    stride = torch.empty(x.shape, device="meta").stride()
     return DTensor.from_local(local_slice(x, sharding), sharding.mesh, sharding.placements,
-                              run_check=False, shape=x.shape, stride=stride)
+                              run_check=False, shape=x.shape, stride=contiguous_stride(x.shape))
 
 
 def full_tensor(x, device=None):
@@ -705,9 +727,10 @@ def place(x, sharding: NamedSharding):
 def zeros(shape, sharding: NamedSharding, dtype, device):
     """Zeros of ``shape`` placed by ``sharding``: only this rank's slice is
     allocated."""
-    part = local_slice(torch.empty(shape, device="meta"), sharding)
-    return from_local(torch.zeros(part.shape, dtype=dtype, device=device), sharding,
-                      tuple(shape))
+    part = list(shape)
+    for dim, sl in enumerate(shard_slices(shape, sharding)):
+        part[dim] = len(range(*sl.indices(shape[dim])))
+    return from_local(torch.zeros(part, dtype=dtype, device=device), sharding, tuple(shape))
 
 
 def _walk_pair(tree, shardings, fn, path):
@@ -889,7 +912,7 @@ def layer_view(x, i: int):
     placements = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p for p in x.placements)
     shape = torch.Size(x.shape[1:])
     return DTensor.from_local(x.to_local()[i], x.device_mesh, placements, run_check=False,
-                              shape=shape, stride=torch.empty(shape, device="meta").stride())
+                              shape=shape, stride=contiguous_stride(shape))
 
 
 def split_axes(x, dims=None) -> tuple[str, ...]:
@@ -1044,6 +1067,7 @@ def make_host_mesh(model_parallel: int = 1, *, device=None) -> DeviceMesh:
 __all__ = [
     "AbstractMesh",
     "COLLECTIVES",
+    "COLLECTIVE_TOTALS",
     "DEFAULT_RULES",
     "FSDP_PARAM_RULES",
     "MODEL_SHARD_RULES",
@@ -1066,6 +1090,7 @@ __all__ = [
     "broadcast_regions",
     "check_tree_shardings",
     "clear_fallbacks",
+    "contiguous_stride",
     "current_mesh",
     "device_put",
     "fallbacks",

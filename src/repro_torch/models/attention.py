@@ -648,9 +648,25 @@ def cross_train(p, x, enc_out, cfg: ModelConfig):
 
 def cross_decode(p, x, cross_kv, cfg: ModelConfig):
     """Decode form: x (B,1,d) over the precomputed encoder K/V
-    ``cross_kv`` {k, v} (B,Ssrc,KVH,hd) -> (B,1,d)."""
+    ``cross_kv`` {k, v} (B,Ssrc,KVH,hd) -> (B,1,d). K/V placed on a mesh
+    (the dry-run's decode): each rank attends over its rows and KV heads,
+    its part in zeros in f32, and one ``all_reduce`` joins the parts
+    (``meshes.join``), as ``_split_dense`` does for the self-attention."""
     dt = x.dtype
-    return _cross_attend(p, _proj(x, p["wq"]), cross_kv["k"].to(dt), cross_kv["v"].to(dt), cfg)
+    q, k, v = _proj(x, p["wq"]), cross_kv["k"], cross_kv["v"]
+    if not meshes.is_dtensor(k):
+        return _cross_attend(p, q, k.to(dt), v.to(dt), cfg)
+    b, sq = q.shape[:2]
+    kvh, hd = cfg.n_kv_heads, cfg.hd
+    qg = q.reshape(b, sq, kvh, cfg.n_heads // kvh, hd)
+    rows, _, heads, _ = meshes.region(k)
+    kl, vl = meshes.local(k).to(dt), meshes.local(v).to(dt)
+    mask = torch.zeros((sq, kl.shape[1]), dtype=torch.float32, device=q.device)
+    part = _sdpa(qg[rows][:, :, heads], kl, vl, mask, 1.0 / math.sqrt(hd))
+    full = torch.zeros(qg.shape, dtype=torch.float32, device=q.device)
+    full[rows, :, heads] = part.to(torch.float32)
+    out = meshes.join(full, k.device_mesh, meshes.split_axes(k))
+    return _out_proj(out.reshape(b, sq, cfg.n_heads, hd).to(dt), p["wo"])
 
 
 @dataclasses.dataclass(frozen=True)

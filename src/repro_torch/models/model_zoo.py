@@ -1,6 +1,6 @@
-"""Uniform model API over every family (counterpart of
-``repro.models.model_zoo``, lines 53-168 and 214-234, which it is held
-against); encoder-decoder models dispatch to ``encdec``, the others to
+"""Uniform model API over every family and the shape cells' input specs
+(counterpart of ``repro.models.model_zoo``, which it is held against);
+encoder-decoder models dispatch to ``encdec``, the others to
 ``transformer``.
 
   init_params(cfg, seed, device, dtype) -> (params, logical-axis specs)
@@ -16,12 +16,19 @@ against); encoder-decoder models dispatch to ``encdec``, the others to
   cache_specs(cache, paged)             -> the caches' logical axes (the
                                            sharded server places them by
                                            these, ``meshes.tree_shardings``)
+  input_specs(cfg, shape, device)       -> the inputs of a shape cell, as
+                                           meta tensors by default (dry-runs)
 
-The shape cells and the dry-run input specs wait for the tooling slice
-(ROADMAP A21).
+Shape cells (``SHAPES``, the reference's four): train_4k / prefill_32k /
+decode_32k / long_500k. ``device="meta"`` gives ``init_params``,
+``make_cache`` and ``input_specs`` (and ``train.optimizer.adamw_init``, which
+follows the parameters' device) their shapes-only form, the counterpart of
+the reference's ``abstract=True``: nothing is allocated and nothing is
+drawn.
 """
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 
 import torch
@@ -34,14 +41,40 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_norm, unembed
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, (
+            "pure full-attention arch: 524k dense-attention decode is "
+            "quadratic/unbounded-cache by construction (DESIGN.md §5)"
+        )
+    return True, ""
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=torch.bfloat16):
     """Random weights drawn on ``device`` (``None``: the card) from a
     ``torch.Generator`` seeded with ``seed``, layer by layer, matrices stored
     as ``dtype`` and norm scales as f32. Serving stores bf16 (cast once);
     training passes ``getattr(torch, cfg.param_dtype)``, the f32 masters.
-    Returns (params, specs)."""
+    On ``"meta"`` the tensors have their shapes and types only, and nothing
+    is drawn (a generator cannot live there). Returns (params, specs)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
     if cfg.family == "encdec":
         return encdec.init_encdec(cfg, gen, device, dtype)
     return transformer.init_lm(cfg, gen, device, dtype)
@@ -104,8 +137,8 @@ def decode_fn(cfg: ModelConfig):
 
 
 def make_cache(cfg: ModelConfig, batch: int, seq: int, device=None):
-    """Dense decode caches; enc-dec's cross K/V hold ``seq`` source rows, as
-    the reference's do."""
+    """Dense decode caches (zeros; on ``"meta"`` shapes only); enc-dec's
+    cross K/V hold ``seq`` source rows, as the reference's do."""
     if cfg.family == "encdec":
         return encdec.init_encdec_cache(cfg, batch, seq, src=seq, device=resolve_device(device))
     return transformer.init_cache(cfg, batch, seq, resolve_device(device))
@@ -196,3 +229,34 @@ def cache_specs(cache, paged: bool = False):
         return axes
 
     return walk(cache)
+
+
+# --------------------------------------------------------------------------
+# the shape cells' inputs (the reference's, lines 188-210)
+# --------------------------------------------------------------------------
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, device="meta") -> dict:
+    """Every model input of the cell ``shape``, as empty tensors on
+    ``device`` (meta: shapes and types only), with the reference's names,
+    shapes and types: decode takes ``tokens`` (B,) and a scalar ``pos``;
+    train and prefill take ``tokens``/``targets``/``loss_mask`` over the
+    text positions, the VLM's ``patches`` and enc-dec's ``frames``."""
+    b, s = shape.global_batch, shape.seq_len
+    empty = partial(torch.empty, device=resolve_device(device))
+    if shape.kind == "decode":
+        return {"tokens": empty((b,), dtype=torch.int32),
+                "pos": empty((), dtype=torch.int32)}
+    t = _text_len(cfg, s)
+    specs = {
+        "tokens": empty((b, t), dtype=torch.int32),
+        "targets": empty((b, t), dtype=torch.int32),
+        "loss_mask": empty((b, t), dtype=torch.float32),
+    }
+    if cfg.vis_tokens:
+        specs["patches"] = empty((b, cfg.vis_tokens, cfg.d_model), dtype=torch.float32)
+    if cfg.family == "encdec":
+        specs["frames"] = empty((b, s, cfg.d_model), dtype=torch.float32)
+    return specs
+
+
+def _text_len(cfg: ModelConfig, s: int) -> int:
+    return s - cfg.vis_tokens if cfg.vis_tokens else s

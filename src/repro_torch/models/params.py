@@ -33,13 +33,16 @@ class Maker:
 
     def param(self, shape, axes, scale: float | str = "fan_in", dtype=None):
         """One N(0, scale) tensor (zeros for ``scale=0``) stored as ``dtype``
-        (the maker's by default), and its logical axes."""
+        (the maker's by default), and its logical axes. On the meta device
+        (no generator) the tensor is its shape and type only."""
         if len(shape) != len(axes):
             raise ValueError(f"{shape} vs {axes}")
         dtype = self.dtype if dtype is None else dtype
         if scale == "fan_in":
             scale = 1.0 / np.sqrt(max(shape[0], 1))
-        if scale == 0.0:
+        if self.device.type == "meta":
+            arr = torch.empty(shape, dtype=dtype, device=self.device)
+        elif scale == 0.0:
             arr = torch.zeros(shape, dtype=dtype, device=self.device)
         else:
             arr = torch.randn(shape, generator=self.gen, dtype=torch.float32,

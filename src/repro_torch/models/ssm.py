@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.wkv import ops as wkv_ops
+from repro_torch.kernels.wkv.ref import wkv_chunked_grouped
 from repro_torch.kernels.wkv.ref import wkv_chunked_ref as wkv_chunked
 from repro_torch.kernels.wkv.ref import wkv_ref as wkv_scan
 from repro_torch.models.config import ModelConfig
@@ -34,7 +35,7 @@ from repro_torch.models.params import Maker
 
 LORA_TM = 32  # token-shift ddlerp lora rank
 LORA_W = 64  # decay lora rank
-WKV_IMPLS = ("kernel", "plain")
+WKV_IMPLS = ("kernel", "plain", "grouped")
 
 
 # ============================ RWKV6 time mix ==================================
@@ -94,8 +95,9 @@ def rwkv_tmix(p, x, cfg: ModelConfig, state=None, shift_prev=None,
               use_chunked=True, wkv_impl: str = "kernel"):
     """Full time-mix block body. Returns (out, (wkv_state, shift_state)).
     ``wkv_impl="plain"`` runs the chunked WKV as plain PyTorch on any
-    device (the comparison path of ``chip_smoke.py``); ``"kernel"`` goes
-    through ``kernels.wkv.ops``."""
+    device (the comparison path of ``chip_smoke.py``); ``"grouped"`` the
+    same function in far fewer ops (``wkv_chunked_grouped``, the dry-run's
+    form on meta tensors); ``"kernel"`` goes through ``kernels.wkv.ops``."""
     if wkv_impl not in WKV_IMPLS:
         raise ValueError(f"wkv_impl must be one of {WKV_IMPLS}, got {wkv_impl!r}")
     b, t, d = x.shape
@@ -104,7 +106,8 @@ def rwkv_tmix(p, x, cfg: ModelConfig, state=None, shift_prev=None,
     if state is None:
         state = torch.zeros((b, h, hs, hs), dtype=torch.float32, device=x.device)
     if use_chunked and t % cfg.chunk_len == 0 and t > 1:
-        wkv = wkv_ops.wkv if wkv_impl == "kernel" else wkv_chunked
+        wkv = {"kernel": wkv_ops.wkv, "plain": wkv_chunked,
+               "grouped": wkv_chunked_grouped}[wkv_impl]
         y, state = wkv(r, k, v, lw, p["u"], state, cfg.chunk_len)
     else:
         y, state = wkv_scan(r, k, v, lw, p["u"], state)

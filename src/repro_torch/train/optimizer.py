@@ -58,16 +58,19 @@ class OptConfig:
     zero_sharding: bool = True
 
 
-def adamw_init(params, cfg: OptConfig, param_specs=None):
-    """Zero moments and step counter. On a mesh the moments are placed by
-    ``state_specs`` (``state_shardings``): each rank allocates its slice
-    only. ``param_specs`` (the port's own keyword) gives the weights'
-    logical axes; without it every dim counts as unnamed."""
+def adamw_init(params, cfg: OptConfig, param_specs=None, rules=None):
+    """Zero moments and step counter, on the parameters' device (on
+    ``"meta"``: shapes only). On a mesh the moments are placed by
+    ``state_specs`` (``state_shardings``) under ``rules`` (the default
+    table, or ``meshes.FSDP_PARAM_RULES``): each rank allocates its slice
+    only. ``param_specs`` and ``rules`` are the port's own keywords:
+    ``param_specs`` gives the weights' logical axes; without it every dim
+    counts as unnamed."""
     dt = getattr(torch, cfg.state_dtype)
     device = meshes.local(next(leaves(params))).device
     mesh = meshes.current_mesh()
     if meshes.is_multi_rank(mesh):
-        sh = state_shardings(params, cfg, mesh, param_specs)
+        sh = state_shardings(params, cfg, mesh, param_specs, rules)
         zeros = lambda p, s: meshes.zeros(p.shape, s, dt, meshes.local(p).device)
         return {"mu": tree_map(zeros, params, sh["mu"]), "nu": tree_map(zeros, params, sh["nu"]),
                 "step": torch.zeros((), dtype=torch.int32, device=device)}
@@ -90,13 +93,13 @@ def param_shardings(params, mesh, param_specs=None):
     return meshes.tree_shardings(specs, params, mesh)
 
 
-def state_shardings(params, cfg: OptConfig, mesh, param_specs=None):
+def state_shardings(params, cfg: OptConfig, mesh, param_specs=None, rules=None):
     """The optimizer state's ``NamedSharding`` tree on ``mesh``: the moments
-    by ``state_specs`` (the ``zero`` axis on the data axes), the step
-    replicated."""
+    by ``state_specs`` (the ``zero`` axis on the data axes) under ``rules``
+    (the default table when None), the step replicated."""
     specs = unnamed_specs(params) if param_specs is None else param_specs
     shapes = {"mu": params, "nu": params, "step": torch.empty(())}
-    return meshes.tree_shardings(state_specs(specs, cfg, params), shapes, mesh)
+    return meshes.tree_shardings(state_specs(specs, cfg, params), shapes, mesh, rules=rules)
 
 
 def state_specs(param_specs, cfg: OptConfig, param_shapes=None):
@@ -201,10 +204,26 @@ def adamw_update(params, grads, state, cfg: OptConfig):
                 if x32 is not x:
                     x.copy_(x32)
     if placed:
+        # a region goes to the ranks that hold the same slice of the weight:
+        # over the data axes that do not split the weight itself (all of
+        # them, but where FSDP's rules shard it)
         mesh = placed[0][1].device_mesh
-        meshes.broadcast_regions(placed, mesh, meshes.mesh_data_axes(mesh))
+        data = meshes.mesh_data_axes(mesh)
+        groups: dict[tuple, list] = {}
+        for p, mu in placed:
+            axes = tuple(a for a in data if a not in meshes.split_axes(p))
+            groups.setdefault(axes, []).append((p, mu))
+        for axes, pairs in groups.items():
+            if axes:
+                meshes.broadcast_regions(pairs, mesh, axes)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _microbatches(batch, n: int) -> list[dict]:
+    """``batch`` split along its rows into ``n`` equal pieces (views)."""
+    split = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:]) for k, v in batch.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
 def make_train_step(loss_fn, opt_cfg: OptConfig, compress=None, microbatches: int = 1):
@@ -216,8 +235,9 @@ def make_train_step(loss_fn, opt_cfg: OptConfig, compress=None, microbatches: in
     ``microbatches`` > 1 splits the global batch and accumulates the
     gradients in f32 over the pieces: per-layer saved activations shrink by
     the microbatch factor while the gradient math is the same up to f32
-    accumulation order. The parameters' leaves become autograd leaves
-    (``requires_grad``) at the first step.
+    accumulation order. On a mesh each rank splits its own rows so, and
+    sums the gradient over the data axes once. The parameters' leaves become
+    autograd leaves (``requires_grad``) at the first step.
     """
 
     def _grads(params, batch):
@@ -229,11 +249,9 @@ def make_train_step(loss_fn, opt_cfg: OptConfig, compress=None, microbatches: in
             loss = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, flat)
             return loss.detach(), grads
-        split = {k: v.reshape(microbatches, v.shape[0] // microbatches, *v.shape[1:])
-                 for k, v in batch.items()}
         loss_sum, gsum = None, None
-        for i in range(microbatches):
-            loss = loss_fn(params, {k: v[i] for k, v in split.items()})
+        for piece in _microbatches(batch, microbatches):
+            loss = loss_fn(params, piece)
             g = torch.autograd.grad(loss, flat)
             if gsum is None:
                 loss_sum, gsum = loss.detach(), [_f32(x).clone() for x in g]
@@ -263,14 +281,25 @@ def make_train_step(loss_fn, opt_cfg: OptConfig, compress=None, microbatches: in
             summed = torch.stack([local[k].to(torch.float32) for k in names])
             meshes.all_reduce(summed, mesh, axes)
             counts = dict(zip(names, summed.unbind()))
-        with global_counts(counts) if counts is not None else contextlib.nullcontext():
-            loss = loss_fn(whole, rows)
-        if counts is None and axes:
-            # a loss without counts is a mean over its rows: the ranks' equal
-            # shares weigh 1 / ranks each
-            loss = loss / ranks
-        grads = [g if g.is_contiguous() else g.contiguous()
-                 for g in torch.autograd.grad(loss, flat)]
+        pieces = [rows] if microbatches <= 1 else _microbatches(rows, microbatches)
+        loss, grads = None, None
+        for piece in pieces:
+            with global_counts(counts) if counts is not None else contextlib.nullcontext():
+                part = loss_fn(whole, piece)
+            if counts is None and (axes or len(pieces) > 1):
+                # a loss without counts is a mean over its rows: the ranks'
+                # and the microbatches' equal shares weigh 1 / (ranks * pieces)
+                part = part / (ranks * len(pieces))
+            g = torch.autograd.grad(part, flat)
+            if len(pieces) == 1:
+                loss, grads = part, [x if x.is_contiguous() else x.contiguous() for x in g]
+            elif grads is None:
+                loss, grads = part.detach(), [_f32(x).clone() for x in g]
+            else:
+                loss = loss + part.detach()
+                for a, x in zip(grads, g):
+                    a.add_(_f32(x))
+            del g
         del whole, flat
         loss = loss.detach()
         if axes:
@@ -283,9 +312,6 @@ def make_train_step(loss_fn, opt_cfg: OptConfig, compress=None, microbatches: in
     def step(params, opt_state, batch, error_fb=None):
         mesh = meshes.current_mesh()
         if meshes.is_multi_rank(mesh):
-            if microbatches > 1:
-                raise NotImplementedError("microbatches on a mesh: each rank takes its own "
-                                          "rows of the batch instead")
             loss, flat_g = _mesh_grads(params, batch, mesh)
         else:
             loss, flat_g = _grads(params, batch)

@@ -966,3 +966,42 @@ def _tree_to(tree, device):
     if isinstance(tree, list):
         return [_tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def test_roofline_prediction_of_a_train_step_on_card(card):
+    """The dry-run's prediction of a small rwkv6 train step (meta tensors,
+    one-rank mesh) against the same step on the card through B6 and
+    B6-bwd: the predicted argument bytes are the card's bytes of weights,
+    moments and inputs exactly, and the step is no shorter than the compute
+    term at the H100's bf16 peak."""
+    import time
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.dist import meshes
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model_zoo
+    from repro_torch.roofline.analysis import H100
+    from repro_torch.train.optimizer import OptConfig, adamw_init, make_train_step
+
+    cfg = get_reduced_config("rwkv6-3b")
+    shape = model_zoo.ShapeSpec("tiny", 256, 2, "train")
+    pred = dryrun._lower_and_measure(cfg, shape, meshes.AbstractMesh((1, 1), ("data", "model")))
+    params, _ = model_zoo.init_params(cfg, seed=0, device=card, dtype=torch.float32)
+    opt = adamw_init(params, OptConfig())
+    batch = model_zoo.demo_batch(cfg, shape.global_batch, shape.seq_len, device=card)
+    storages = {}
+    for t in torch.utils._pytree.tree_leaves((params, opt, batch)):
+        storages[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    assert pred["memory"]["argument_bytes"] == sum(storages.values())
+    step = make_train_step(model_zoo.loss_fn(cfg, remat="full", wkv_impl="kernel"), OptConfig())
+    wkv_kernel.wkv_forward.launches = wkv_kernel.wkv_backward.launches = 0
+    step(params, opt, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, metrics = step(params, opt, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    assert seconds >= pred["cost"]["flops"] / H100.peak_flops
+    assert torch.isfinite(metrics["loss"])
+    assert wkv_kernel.wkv_forward.launches == 2 * 2 * cfg.n_layers
+    assert wkv_kernel.wkv_backward.launches == 2 * cfg.n_layers

@@ -393,6 +393,21 @@ def case_train_mesh(rank, world, workdir, device):
                 out[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                              "params": _whole_tree(tp), "fallbacks": meshes.fallbacks(),
                              "collectives": dict(meshes.COLLECTIVES)}
+        # the unequal batch again: each rank's rows in 2 microbatches, and
+        # with the weights and moments placed by FSDP's rules
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in unequal_mask_batch(cfg.vocab_size).items()}
+        for name, micro, rules in (("micro2", 2, None), ("fsdp", 1, meshes.FSDP_PARAM_RULES)):
+            with meshes.use_mesh(mesh):
+                tp = params_from_numpy(cfg, weights, device=device, dtype=torch.float32)
+                tp = meshes.place_tree(tp, meshes.tree_shardings(specs, tp, mesh, rules=rules))
+                opt = adamw_init(tp, opt_cfg, param_specs=specs, rules=rules)
+                step = make_train_step(model_zoo.loss_fn(cfg, remat="none"), opt_cfg,
+                                       microbatches=micro)
+                tp, opt, m = step(tp, opt, batch)
+                out[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                             "params": _whole_tree(tp), "placements": _placements_tree(tp),
+                             "opt": _whole_tree(opt)}
     finally:
         undo()
 
@@ -751,10 +766,49 @@ def case_serve_card(rank, world, workdir, device):
     return out
 
 
+def case_encdec_mesh(rank, world, workdir, device):
+    """Reduced seamless-m4t-medium's decode step on (world/2 x 2) from the
+    parent's numpy weights, caches and inputs, the caches placed as the
+    dry-run places them (``dryrun._place_cache``): layer 0's cross attention
+    over its placed cross K/V, the joins it issued, and the whole step's
+    logits."""
+    import torch
+
+    from repro_torch.dist import meshes
+    from repro_torch.launch import dryrun
+    from repro_torch.models import attention, model_zoo
+    from repro_torch.models.transformer import _layer
+
+    forbidden = _guard_collectives()
+    cfg, params, _ = _serve_inputs("seamless-m4t-medium", workdir, device)
+    inp = np.load(os.path.join(workdir, "encdec_inputs.npz"))
+    cache = {k: torch.from_numpy(inp[k]).to(device, torch.bfloat16) for k in ENCDEC_CACHE}
+    mesh = meshes.make_mesh((world // 2, 2), ("data", "model"), device=device)
+    with meshes.use_mesh(mesh):
+        placed = dryrun._place_cache(cache, mesh)
+        c0 = _layer(placed, 0)
+        x = torch.from_numpy(inp["x"]).to(device, torch.bfloat16)
+        meshes.reset_collectives()
+        cross = attention.cross_decode(_layer(params["dec"], 0)["cross"], x,
+                                       {"k": c0["xk"], "v": c0["xv"]}, cfg)
+        joins = dict(meshes.COLLECTIVES)
+        logits, _ = model_zoo.decode_fn(cfg)(params, torch.from_numpy(inp["tokens"]).to(device),
+                                             placed, torch.from_numpy(inp["pos"]).to(device))
+    return {"cross": cross.float().cpu().numpy(), "joins": joins,
+            "logits": logits[:, :cfg.vocab_size].float().cpu().numpy(),
+            "layout": {k: (placements(c), tuple(meshes.local(c).shape))
+                       for k, c in placed.items()},
+            "forbidden": list(forbidden)}
+
+
+# the enc-dec decode cache's leaves, as ``model_zoo.make_cache`` names them
+ENCDEC_CACHE = ("k", "v", "xk", "xv")
+
 CASES = {"engine": case_engine, "train_mesh": case_train_mesh,
          "train_families": case_train_families, "elastic": case_elastic,
          "lm_card": case_lm_card, "serve_mesh": case_serve_mesh,
-         "serve_families": case_serve_families, "serve_card": case_serve_card}
+         "serve_families": case_serve_families, "serve_card": case_serve_card,
+         "encdec_mesh": case_encdec_mesh}
 
 
 def main(argv) -> int:

@@ -259,8 +259,14 @@ _ISOLATION_SCRIPT = textwrap.dedent(
                  "kernels.wkv.ref", "kernels.wkv.kernel", "kernels.wkv.ops", "models.ssm",
                  "train.optimizer", "train.grad_compress", "train.checkpoint",
                  "train.train_loop", "data.pipeline", "launch.train", "dist",
-                 "launch.mesh", "kernels.strider.ops", "kernels.engine.ops"):
+                 "launch.mesh", "kernels.strider.ops", "kernels.engine.ops",
+                 "launch.dryrun", "launch.perf", "roofline", "roofline.analysis",
+                 "roofline.collectives", "roofline.report"):
         assert "repro_torch." + name in sys.modules, name
+    # importing starts no process group (the dry-run makes its fake one
+    # when it runs)
+    import torch.distributed as dist
+    assert not dist.is_initialized(), "a module started a process group on import"
     # the mesh layer's lazy imports: a one-rank mesh, a DTensor, a sharded epoch
     import torch
     from repro_torch.algorithms import linear_regression

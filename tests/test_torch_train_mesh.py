@@ -366,6 +366,29 @@ def test_unequal_masks_tell_the_global_mean_from_the_mean_of_means(one_cpu_threa
     assert abs(np.mean(means) - whole) / whole > 3e-2
 
 
+@pytest.mark.parametrize("name", ["micro2", "fsdp"])
+def test_8_ranks_microbatches_and_fsdp_rules_take_the_same_step(eight_ranks, name):
+    """The unequal-mask step again, each rank's rows in 2 microbatches
+    (gradients summed over the pieces, then over the data axes), and with
+    weights and moments placed by FSDP's rules (the embed dim over the data
+    axes too, made whole on use; a rank updates its own region and sends
+    nothing): the same loss and weights as the one-piece default step, the
+    same on every rank."""
+    ranks = eight_ranks[0]
+    for got in ranks:
+        want = got["unequal"]
+        assert got[name]["loss"] == pytest.approx(want["loss"], rel=1e-6)
+        assert got[name]["grad_norm"] == pytest.approx(want["grad_norm"], rel=1e-5)
+        for k, w in want["params"].items():
+            np.testing.assert_allclose(got[name]["params"][k], w, rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
+    _same_on_every_rank(ranks, name, "params")
+    if name == "fsdp":  # FSDP's rules place some weights other than the default's
+        fsdp, default = ranks[0]["fsdp"]["placements"], ranks[0]["run"]["placements"]
+        assert fsdp.keys() == default.keys()
+        assert any(fsdp[k] != default[k] for k in fsdp)
+
+
 def test_8_ranks_batch_that_does_not_divide_stays_whole(eight_ranks):
     """6 rows on 4 data ranks: the drop recorded with repro's resolver text,
     every rank on the whole batch, no reduction over the data axis, and the

@@ -253,3 +253,28 @@ def test_cuda_wrappers_reject_cpu_tensors():
         kernel.wkv_forward(*tin, chunk)
     with pytest.raises(ValueError, match="CUDA"):
         kernel.wkv_backward(*tin, None, None, None, None, chunk)
+
+
+@pytest.mark.parametrize("case", ["chunk8", "chunk16", "k_ne_v", "clip_mixed", "t64_c8"])
+def test_wkv_chunked_grouped_is_the_chunked_function(case, monkeypatch):
+    """The dry-run's WKV form (``wkv_chunked_grouped``, a group of chunks at
+    a time) computes ``wkv_chunked_ref``'s function: its outputs and
+    gradients within f32 rounding of the per-chunk form's, its outputs
+    within the reference's tolerance of ``repro``'s ``wkv_scan``, with a
+    group smaller than the chunk count and one larger."""
+    jin, tin, chunk = _both(case)
+    want = jssm.wkv_scan(*jin)
+    for group in (2, 64):
+        monkeypatch.setattr(ref, "CHUNK_GROUP", group)
+        a = [x.clone().requires_grad_(True) for x in tin]
+        b = [x.clone().requires_grad_(True) for x in tin]
+        ya, sa = ref.wkv_chunked_grouped(*a, chunk)
+        yb, sb = ref.wkv_chunked_ref(*b, chunk)
+        for g, w, j in ((ya, yb, want[0]), (sa, sb, want[1])):
+            np.testing.assert_allclose(g.detach().numpy(), w.detach().numpy(),
+                                       rtol=1e-5, atol=1e-5)
+            _close(g, j)
+        (ya.square().sum() + sa.sum()).backward()
+        (yb.square().sum() + sb.sum()).backward()
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(x.grad.numpy(), y.grad.numpy(), rtol=1e-4, atol=1e-5)
