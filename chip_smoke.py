@@ -8,8 +8,9 @@ greedy decode) at full width and depth, LM serving of mistral-nemo-12b
 (GQA), minicpm3-4b (MLA) and internvl2-26b (the VLM) and LM training of
 olmoe-1b-7b and internvl2-26b at full width and cut depth (and of rwkv6-3b
 on meshes of 4 gloo ranks, a checkpoint resharded between them), through the
-port's hand-written CUDA kernels, and LM PREDICT of mistral-nemo-12b from
-SQL over a token table.
+port's hand-written CUDA kernels, LM PREDICT of mistral-nemo-12b from
+SQL over a token table, and the three example drivers (quickstart, serve_lm,
+train_lm) as the port's launch modules.
 
 Phases, one JSON line each:
 
@@ -230,6 +231,21 @@ Phases, one JSON line each:
            B5's calls at step 100 and at the decode-only step with the most
            context captured for the kernels line
   launch-train  launch/train.py's main() at full width for 2 steps
+  examples  (in a process of its own, beside serve-mla) the three example
+           drivers through main(argv) of launch/quickstart.py, serve_lm.py
+           and train_lm.py on the card, each printing OK, a line each:
+           quickstart (its TRAIN: B1 once an epoch and once for the
+           convergence check's batch, B2's chunk walk once an epoch and its
+           one-batch gradient once an epoch for the check; its three scans:
+           B3 and B4 once each; one join an epoch and a scan); serve_lm at
+           the example's settings (three reduced archs, dense KV, the
+           gather path: no kernel; tokens/s an arch) and at internlm2-20b's
+           full width on 2 layers through B5 (paged KV, KVH 8, G 6, D 128:
+           once a layer a fused step, the first fused step's calls against
+           the plain version at 2e-5, the last one's first call kept for
+           the kernels line); train_lm at its defaults (200 steps of 4 x 128
+           at width 512, the preemption at step 120 and the resume from 100:
+           B1 once a step run, no other kernel)
   train-elastic  LM training on a mesh: rwkv6-3b at full width, its depth cut
            to 2 layers, 8 x 512 tokens from pages, full remat, AdamW; the
            same 5 steps unsharded on the card first, on the whole batch and
@@ -310,7 +326,9 @@ Phases, one JSON line each:
            with its launches; under "vlm" serve-vlm's two calls (KVH 8, G
            6, D 128), with and without runs, and their launches; under
            "sharded" serve-sharded's per-rank call (KVH 4, G 4, D 128) and
-           each rank's launches; B6's
+           each rank's launches, and under "examples" serve_lm's full-width
+           call (KVH 8, G 6, D 128, decode-only); the example drivers'
+           launches under "examples_launches" in B1-B5's rows; B6's
            two kernels and B6-bwd's three a call, each one's time,
            registers and CTAs per SM, beside the bytes its design moves
 
@@ -318,7 +336,7 @@ The serving phases are bound by their host's launches and the card idles most
 of the time in each, so some run beside others, each in a process of its own
 (``chip_smoke.py --beside NAME``, its lines printed when it is joined, its
 phase's result handed back through a file under build/chip_smoke/):
-lm-predict, serve-rwkv and serve-vlm beside serve-mla, then serve-moe and
+lm-predict, serve-rwkv, serve-vlm and examples beside serve-mla, then serve-moe and
 serve-hybrid (which starts its own gather run) and roofline-host beside
 serve and launch;
 train-sharded (which starts its 4 ranks) runs through both stages. The peak device memory of the phases
@@ -2865,7 +2883,7 @@ def _beside_phases():
             "serve-hybrid": phase_serve_hybrid, "lm-predict": phase_lm_predict,
             "serve-vlm": phase_serve_vlm, "train-sharded": phase_train_sharded,
             "train-elastic": phase_train_elastic, "serve-sharded": phase_serve_sharded,
-            "roofline-host": phase_roofline_host}
+            "roofline-host": phase_roofline_host, "examples": phase_examples}
 
 
 def _beside_result(name):
@@ -3082,18 +3100,19 @@ def phase_train_sharded():
             "parity": ranks[0]["data"]["parity"]}
 
 
-class _GlmGradCheck:
-    """Stands in for B2's one-batch wrapper while it is installed (a context
-    manager): every call launches the kernel, and the first ``calls`` are
-    held against glm_grad_ref on the same inputs, the error kept on the
-    card. ``launches`` is the kernel wrapper's own count."""
+class _FirstCalls:
+    """Stands in for a kernel's wrapper on its module while installed (a
+    context manager): every call launches the kernel, and the first
+    ``calls`` are held against ``plain`` on the same inputs, output by
+    output, by ``compare`` (output, plain) -> (excess, max |error|), the
+    excess over the tolerance above 0 where a value falls outside. The
+    errors stay on the card until ``result``. ``launches`` is the wrapper's
+    own count, and the plain calls launch nothing."""
 
-    def __init__(self, calls):
-        from repro_torch.kernels.engine import kernel as glm_kernel
-
-        self.module, self.real, self.left = glm_kernel, glm_kernel.glm_grad, calls
-        self.worst = self.excess = None
-        self.checked = 0
+    def __init__(self, module, name, plain, compare, tolerance, calls=1):
+        self.module, self.name, self.real = module, name, getattr(module, name)
+        self.plain, self.compare, self.tolerance = plain, compare, tolerance
+        self.left, self.errs = calls, []
 
     @property
     def launches(self):
@@ -3103,33 +3122,61 @@ class _GlmGradCheck:
     def launches(self, n):
         self.real.launches = n
 
-    def __call__(self, x, y, w, mask, act):
+    def __call__(self, *args):
         import torch
 
-        from repro_torch.kernels.engine import ref as glm_ref
-
-        out = self.real(x, y, w, mask, act)
+        out = self.real(*args)
         if self.left > 0:
-            want = glm_ref.glm_grad_ref(x, y, w, mask, act)
-            err = (out - want).abs()
-            excess = (err - B2_TOL["atol"] - B2_TOL["rtol"] * want.abs()).max()
-            self.worst = err.max() if self.worst is None else torch.maximum(self.worst,
-                                                                            err.max())
-            self.excess = excess if self.excess is None else torch.maximum(self.excess, excess)
             self.left -= 1
-            self.checked += 1
+            outs, plains = (x if isinstance(x, tuple) else (x,) for x in (out, self.plain(*args)))
+            errs = [torch.stack(self.compare(o, p)) for o, p in zip(outs, plains)]
+            self.errs.append(torch.stack(errs).amax(0))
         return out
 
     def __enter__(self):
-        self.module.glm_grad = self
+        setattr(self.module, self.name, self)
         return self
 
     def __exit__(self, *exc):
-        self.module.glm_grad = self.real
+        setattr(self.module, self.name, self.real)
 
-    def result(self):
-        return {"calls": self.checked, "max_abs_err": float(self.worst),
-                "within_tolerance": bool(float(self.excess) <= 0), **B2_TOL}
+    def result(self, calls):
+        """The check's record, read after the run; raises unless it held
+        ``calls`` calls, each within the tolerance."""
+        import torch
+
+        worst = torch.stack(self.errs).amax(0).tolist() if self.errs else [float("inf")] * 2
+        record = {"calls": len(self.errs), "max_abs_err": worst[1], **self.tolerance}
+        if worst[0] > 0 or len(self.errs) != calls:
+            raise AssertionError(f"{self.name} against its plain version on the main path, "
+                                 f"{calls} calls expected: {record}")
+        return record
+
+
+def _b1_first_calls():
+    """B1's first call held bit for bit against decode_pages_ref."""
+    import torch
+
+    from repro_torch.kernels.strider import kernel, ref
+
+    def bits(out, plain):
+        return ((out.view(torch.int32) != plain.view(torch.int32)).sum().float(),
+                (out - plain).abs().max())
+
+    return _FirstCalls(kernel, "strider_decode", ref.decode_pages_ref, bits, {"bit_exact": True})
+
+
+def _b2_first_calls(name="glm_sgd_chunk", calls=1):
+    """B2's first ``calls`` calls of ``name`` (the chunk walk: the new
+    weights and every batch's gradient norm; or ``glm_grad``, one batch)
+    held against its ``ref`` at B2_TOL."""
+    from repro_torch.kernels.engine import kernel, ref
+
+    def within(out, plain):
+        err = (out - plain).abs()
+        return (err - B2_TOL["atol"] - B2_TOL["rtol"] * plain.abs()).max(), err.max()
+
+    return _FirstCalls(kernel, name, getattr(ref, name + "_ref"), within, B2_TOL, calls)
 
 
 def sharded_rank(rank: int, world: int, work: str) -> int:
@@ -3192,7 +3239,7 @@ def sharded_rank(rank: int, world: int, work: str) -> int:
             seen.append(placements(models[0]))
             return res
 
-        check = _GlmGradCheck(first_chunk if (rank == 0 and not shard_model) else 0)
+        check = _b2_first_calls("glm_grad", first_chunk if (rank == 0 and not shard_model) else 0)
         box = {}
 
         def run():
@@ -3233,10 +3280,8 @@ def sharded_rank(rank: int, world: int, work: str) -> int:
                      "device_syncs": res.device_syncs, "total_s": total_s,
                      "epoch_s": [b - a for a, b in zip([t0] + sync_at[:-1], sync_at)],
                      "busy_s": busy_s, "w": res.models[0], "backend": dist.get_backend()}
-        if check.checked:
-            out[name]["parity"] = check.result()
-            if not out[name]["parity"]["within_tolerance"] or check.checked != first_chunk:
-                raise AssertionError(f"glm_grad against glm_grad_ref: {out[name]['parity']}")
+        if check.errs:
+            out[name]["parity"] = check.result(first_chunk)
 
     # the LRMF case on the model mesh: the gspmd path, items Shard(0)
     mesh = meshes.make_mesh(SHARDED_MESHES["model"][:2], ("data", "model"))
@@ -5451,6 +5496,181 @@ def phase_launch_train():
 
 
 # ---------------------------------------------------------------------------
+# examples: the three example drivers as the port's launch modules
+# ---------------------------------------------------------------------------
+# serve_lm's full-width run: internlm2-20b at its published width (6,144, 48/8
+# heads of 128), its depth cut to EXAMPLES_SERVE_LAYERS, paged KV through B5 at
+# KVH 8, G 6, D 128 (1.9 B parameters, 3.8 GB in bf16)
+EXAMPLES_SERVE_ARGV = ["--arch", "internlm2-20b", "--full-width", "--layers", "2",
+                       "--kv", "paged", "--attn-impl", "kernel"]
+EXAMPLES_SERVE_B5 = (8, 6, 128)  # (KV heads, group, head dim) of its B5 calls
+# the quickstart's TRAIN converges in this many epochs on the card: one chunk
+# of its 37 pages an epoch (B1 and B2's chunk walk once each), and the
+# convergence check's batch (decoded by B1 once a statement, its gradient by
+# B2's glm_grad once an epoch); each of the three scans (one chunk of the
+# scoring table) runs B3 and B4 once
+EXAMPLES_QUICKSTART_EPOCHS = 1
+# the kernels line's rows that the drivers' launches add to (B1-B5)
+EXAMPLES_ROWS = ("strider_decode", "glm_sgd_chunk", "glm_grad", "strider_decode_projected",
+                 "glm_predict", "paged_attn")
+
+
+def _run_driver(module, argv):
+    """``module.main(argv)`` on the card with its standard output captured,
+    between zero_launches and read_launches: (its result, its lines, its
+    seconds, the launches)."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    lines = out.getvalue().splitlines()
+    if not lines or lines[-1] != "OK":
+        raise AssertionError(f"{module.__name__} {argv}: {lines[-5:]}")
+    return result, lines, seconds, launches
+
+
+def phase_examples():
+    """The three example drivers through their launch modules' ``main`` on
+    the card, each printing OK: quickstart (B1 and B2's chunk walk once an
+    epoch, B3 and B4 once a scan, the convergence check's batch through B1
+    once and B2's one-batch gradient once an epoch; B1's first call held bit
+    for bit against its plain version and B2's first chunk walk at B2_TOL,
+    B3 and B4 by the driver's own check of the predictions), serve_lm at
+    the example's own settings (no kernel) and at internlm2-20b's full width
+    on EXAMPLES_SERVE_LAYERS layers through B5 (once a layer a fused step,
+    every call of the first fused step against its plain version at 2e-5,
+    the call of the last fused step kept for the kernels line), and
+    train_lm at its defaults (B1 once a step run, no other kernel; its
+    first call held bit for bit against its plain version). A line
+    per driver; returns the launches and B5's captured call. It runs at a
+    lower priority than the serving phases beside it, which are bound by the
+    host's cores."""
+    import types
+
+    import torch
+
+    from repro_torch.kernels.paged_attn import kernel as pa_kernel
+    from repro_torch.kernels.paged_attn import ops as pa_ops
+    from repro_torch.launch import quickstart, serve_lm, train_lm
+    from repro_torch.serve import serving
+
+    os.nice(10)
+    work = os.path.join(SCRATCH, "examples")
+    shutil.rmtree(work, ignore_errors=True)
+    result = {"launches": {}}
+
+    def line(driver, argv, lines, seconds, launches, key=None, **extra):
+        result["launches"][key or driver] = launches
+        emit(dict({"phase": "examples", "driver": driver, "argv": argv, "seconds": seconds,
+                   "lines": lines[:6], "launches": launches}, **extra))
+
+    def only(launches, want):
+        full = {k: 0 for k in launches}
+        full.update(want)
+        return launches == full, full
+
+    # quickstart: TRAIN, then the three scans
+    argv = ["--workdir", os.path.join(work, "quickstart")]
+    with _b1_first_calls() as b1, _b2_first_calls() as b2:
+        qs, lines, seconds, launches = _run_driver(quickstart, argv)
+    plain = {"strider_decode": b1.result(1), "glm_sgd_chunk": b2.result(1)}
+    epochs = qs["epochs_run"]
+    held, want = only(launches, {"strider_decode": epochs + 1, "glm_sgd_chunk": epochs,
+                                 "glm_grad": epochs, "strider_decode_projected": 3,
+                                 "glm_predict": 3})
+    line("quickstart", argv, lines, seconds, launches, epochs=epochs, syncs=qs["syncs"],
+         err=qs["err"], launches_expected=want, plain_check=plain)
+    if not held or (EXAMPLES_QUICKSTART_EPOCHS is not None
+                    and epochs != EXAMPLES_QUICKSTART_EPOCHS):
+        raise AssertionError(f"quickstart: launches {launches}, expected {want}; "
+                             f"{epochs} epochs")
+
+    # serve_lm at the example's settings: dense KV, the gather path
+    served, lines, seconds, launches = _run_driver(serve_lm, [])
+    tok_s = {arch: run["tok_s"] for arch, run in served["archs"].items()}
+    line("serve_lm", [], lines, seconds, launches, tok_s=tok_s)
+    if list(served["archs"]) != list(serve_lm.ARCHS) or any(launches.values()):
+        raise AssertionError(f"serve_lm: {list(served['archs'])}, launches {launches}")
+
+    # serve_lm at internlm2-20b's full width through B5: the fused steps
+    # counted, the first one's calls held to the plain version, the last
+    # one's first call kept
+    forwards, check, kept = [0], _PlainCheck(), {}
+    real_forward, real_call = serving.BatchedServer._forward, pa_kernel.paged_attention
+
+    def forward(self, *args, **kw):
+        forwards[0] += 1
+        return real_forward(self, *args, **kw)
+
+    def capture(q, k_pool, v_pool, table, pos, **kw):
+        out = real_call(q, k_pool, v_pool, table, pos, **kw)
+        if len(check.errs) < layers:
+            check(out, q, k_pool, v_pool, table, pos, kw)
+        if calls[0] % layers == 0:  # a fused step's first layer
+            kept.update(q=q.clone(), pools=(k_pool.clone(), v_pool.clone()), latent=False,
+                        table=table.clone(), pos=pos.clone(), runs=kw.get("runs"),
+                        kw={k: v for k, v in kw.items() if k != "runs"}, step=forwards[0])
+        calls[0] += 1
+        return out
+
+    layers, calls = int(EXAMPLES_SERVE_ARGV[EXAMPLES_SERVE_ARGV.index("--layers") + 1]), [0]
+    serving.BatchedServer._forward = forward
+    pa_ops.kernel = types.SimpleNamespace(paged_attention=capture)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        full, lines, seconds, launches = _run_driver(serve_lm, EXAMPLES_SERVE_ARGV)
+    finally:
+        serving.BatchedServer._forward = real_forward
+        pa_ops.kernel = pa_kernel
+    run = full["archs"]["internlm2-20b"]
+    held, want = only(launches, {"paged_attn": layers * forwards[0]})
+    b5 = tuple(kept["q"].shape[1:]) if kept else None
+    line("serve_lm", EXAMPLES_SERVE_ARGV, lines, seconds, launches, key="serve_lm_full_width",
+         tok_s=run["tok_s"],
+         fused_steps=forwards[0], launches_expected=want, b5_call=b5,
+         plain_check=check.result(layers, "every call of the first fused step"),
+         peak_bytes=torch.cuda.max_memory_allocated(), attn_impl=run["attn_impl"])
+    if not held or forwards[0] == 0 or run["attn_impl"] != "kernel" or \
+            b5 != EXAMPLES_SERVE_B5:
+        raise AssertionError(f"serve_lm at full width: launches {launches}, expected {want}, "
+                             f"B5 at {b5}, attn {run['attn_impl']}")
+    if kept["runs"] is None:  # chunked stepping passes none: each row its own run
+        kept["runs"] = torch.tensor([[i, 1] for i in range(kept["q"].shape[0])],
+                                    dtype=torch.int32, device=kept["q"].device)
+    result["b5_capture"] = kept
+    result["b5_launches"] = launches["paged_attn"]
+
+    # train_lm at its defaults: 60% of the steps, the resume from the last
+    # checkpoint, the rest; B1 once a step run
+    argv = ["--workdir", os.path.join(work, "train_lm")]
+    with _b1_first_calls() as b1:
+        trained, lines, seconds, launches = _run_driver(train_lm, argv)
+    plain = {"strider_decode": b1.result(1)}
+    steps_run = trained["preempted_at"] + trained["step"] - trained["resumed_at"]
+    held, want = only(launches, {"strider_decode": steps_run})
+    line("train_lm", argv, lines, seconds, launches, steps_run=steps_run,
+         preempted_at=trained["preempted_at"], resumed_at=trained["resumed_at"],
+         losses=[r["loss"] for r in trained["history"]], launches_expected=want,
+         plain_check=plain)
+    if not held:
+        raise AssertionError(f"train_lm: launches {launches}, expected {want}")
+    shutil.rmtree(work, ignore_errors=True)
+    return result
+
+
+# ---------------------------------------------------------------------------
 # train-elastic: LM training on a mesh of gloo ranks sharing the card
 # ---------------------------------------------------------------------------
 # rwkv6-3b at its published width, its depth cut to ELASTIC_LAYERS: in a step
@@ -6375,18 +6595,19 @@ def main() -> int:
         del heap, engine, res, db
         # train-sharded (its 4 ranks, ~3 GB) runs through both serving
         # stages: bound by gloo's latency, it takes about as long as they do.
-        # lm-predict (30 GB at its peak), serve-rwkv (9 GB) and serve-vlm
-        # (17 GB) beside serve-mla (5 GB)
+        # lm-predict (30 GB at its peak), serve-rwkv (9 GB), serve-vlm (17 GB)
+        # and the examples (5 GB) beside serve-mla (5 GB)
         sharded = _phase_beside("train-sharded")
-        lm, rwkv, vlm = (_phase_beside(name) for name in ("lm-predict", "serve-rwkv",
-                                                           "serve-vlm"))
+        lm, rwkv, vlm, examples = (_phase_beside(name) for name in (
+            "lm-predict", "serve-rwkv", "serve-vlm", "examples"))
         try:
             mla_captured, mla_launches = phase_serve_mla()
             lm_launches, lm_b3, lm_timing = _join_beside(lm)
             _join_beside(rwkv)
             vlm_captured, vlm_launches = _join_beside(vlm)
+            examples_result = _join_beside(examples)
         except BaseException:
-            _stop_beside(lm, rwkv, vlm, sharded)
+            _stop_beside(lm, rwkv, vlm, examples, sharded)
             raise
         # serve-moe (17 GB) and serve-hybrid (6 GB and its gather run's 5)
         # beside serve and launch (16 and 25 GB)
@@ -6445,6 +6666,13 @@ def main() -> int:
                      "F.scaled_dot_product_attention(attn_mask=valid rows, enable_gqa)"))
         b5_row["launches"] += sum(sharded_serve["launches_per_rank"])
         del sharded_serve
+        # B5 at internlm2-20b's full width (serve_lm), timed alone on the card
+        b5_row["examples"] = _paged_attn_call(examples_result["b5_capture"])
+        b5_row["examples"].update(
+            launches=examples_result["b5_launches"], argv=EXAMPLES_SERVE_ARGV,
+            library=("composite, no single call: gather k_pool[table], v_pool[table] + "
+                     "F.scaled_dot_product_attention(attn_mask=valid rows, enable_gqa)"))
+        del examples_result["b5_capture"]
         rows.extend(kernel_rows_wkv(wkv_calls, train_launches, *wkv_kernels))
         # B6 and B6-bwd on the mesh path: each rank's launches and its calls'
         # parity at its own shape
@@ -6459,6 +6687,13 @@ def main() -> int:
                 row["elastic_launches_per_rank"] = {
                     mesh: per["strider_decode"]
                     for mesh, per in elastic["launches_per_rank"].items()}
+            # the example drivers' launches, by driver (serve_lm's full-width run
+            # under its argv's own key)
+            if row["name"] in EXAMPLES_ROWS:
+                per = {driver: launches[row["name"]]
+                       for driver, launches in examples_result["launches"].items()}
+                row["examples_launches"] = per
+                row["launches"] += sum(per.values())
         emit({"kernels": rows})
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)

@@ -62,7 +62,7 @@ def _teacher_forced_logits(decode, params, cache, seq, make_tok, to_numpy):
 
 
 def assert_greedy_matches(cfg, tparams, jcfg, jparams, prompt, got, want,
-                          limit=DEVIATION_LIMIT):
+                          limit=DEVIATION_LIMIT, jdecode=None):
     """``got`` (the port's greedy tokens) equals ``want`` (``repro``'s) except
     at a near-tie: at the first token where they differ, the reference's
     top-2 logit margin must be below the logits' measured deviation. The
@@ -70,8 +70,10 @@ def assert_greedy_matches(cfg, tparams, jcfg, jparams, prompt, got, want,
     difference between the two packages' logits, teacher-forced along the
     common history; a margin can move by no more than that. The deviation
     itself must stay within ``limit`` (DEVIATION_LIMIT unless the family's
-    logit bound is wider). Returns None when the tokens agree, else (index,
-    margin, deviation)."""
+    logit bound is wider). ``jdecode`` is the reference's decode function
+    (default ``decode_fn(jcfg)``, run op by op; a jitted one, as ``repro``'s
+    server runs it, takes a fraction of the time on long histories). Returns
+    None when the tokens agree, else (index, margin, deviation)."""
     import jax.numpy as jnp
     from repro.models import model_zoo as jzoo
 
@@ -80,7 +82,7 @@ def assert_greedy_matches(cfg, tparams, jcfg, jparams, prompt, got, want,
         return None
     k = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
     seq = list(prompt) + list(want[:k])
-    jl = _teacher_forced_logits(jzoo.decode_fn(jcfg), jparams,
+    jl = _teacher_forced_logits(jdecode or jzoo.decode_fn(jcfg), jparams,
                                 jzoo.make_cache(jcfg, 1, len(seq)), seq,
                                 lambda t: jnp.asarray(t, jnp.int32),
                                 lambda x: np.asarray(x, np.float32))

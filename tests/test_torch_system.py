@@ -261,7 +261,8 @@ _ISOLATION_SCRIPT = textwrap.dedent(
                  "train.train_loop", "data.pipeline", "launch.train", "dist",
                  "launch.mesh", "kernels.strider.ops", "kernels.engine.ops",
                  "launch.dryrun", "launch.perf", "roofline", "roofline.analysis",
-                 "roofline.collectives", "roofline.report"):
+                 "roofline.collectives", "roofline.report", "launch.quickstart",
+                 "launch.serve_lm", "launch.train_lm"):
         assert "repro_torch." + name in sys.modules, name
     # importing starts no process group (the dry-run makes its fake one
     # when it runs)

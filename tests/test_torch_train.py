@@ -272,6 +272,46 @@ def test_adamw_update_matches_repro():
     assert int(tstate["step"]) == int(jstate["step"]) == 3
 
 
+def test_grad_norm_of_a_large_leaf_matches_repro():
+    """The gradient norm over a leaf of 2**20 elements (and a scalar one)
+    is ``repro``'s within 1e-6 and the float64 norm's. The pin of ROADMAP
+    §C's fault: ``torch.linalg.vector_norm`` on the CPU came 1.2e-5 short
+    here, and 1.6e-3 short at rwkv6-3b's full width
+    (``tools/fullwidth_loss.py``)."""
+    rng = np.random.default_rng(5)
+    ngrads = {"w": rng.normal(0, 1e-3, (1024, 1024)).astype(np.float32),
+              "s": np.float32(0.25)}
+    nparams = {"w": np.zeros((1024, 1024), np.float32), "s": np.float32(0.0)}
+    jp = jax.tree.map(jnp.asarray, nparams)
+    tp = {k: torch.tensor(v) for k, v in nparams.items()}
+    _, _, jinfo = jopt.adamw_update(jp, jax.tree.map(jnp.asarray, ngrads),
+                                    jopt.adamw_init(jp, jopt.OptConfig()), jopt.OptConfig())
+    _, _, tinfo = adamw_update(tp, {k: torch.tensor(v) for k, v in ngrads.items()},
+                               adamw_init(tp, OptConfig()), OptConfig())
+    exact = np.sqrt(np.sum(ngrads["w"].astype(np.float64) ** 2) + 0.25 ** 2)
+    np.testing.assert_allclose(float(tinfo["grad_norm"]), float(jinfo["grad_norm"]), rtol=1e-6)
+    np.testing.assert_allclose(float(tinfo["grad_norm"]), exact, rtol=1e-6)
+
+
+@pytest.mark.parametrize("leaf", ["scalar", "short", "ragged", "empty", "expanded", "bf16"])
+def test_leaf_norm_is_the_float64_norm(leaf):
+    """The gradient norm's one form (blocks of NORM_BLOCK, then the blocks'
+    norms) on leaves that fill no block, end in a part of one, hold nothing,
+    are an expanded view or are bf16: within 1e-6 of the float64 norm."""
+    from repro_torch.train.optimizer import NORM_BLOCK, _leaf_norm
+
+    gen = torch.Generator().manual_seed(7)
+    g = {"scalar": lambda: torch.tensor(-0.25),
+         "short": lambda: torch.randn(3, generator=gen),
+         "ragged": lambda: torch.randn(3 * NORM_BLOCK + 5, generator=gen),
+         "empty": lambda: torch.zeros(0, 4),
+         "expanded": lambda: torch.randn(1, 4096, generator=gen).expand(512, 4096),
+         "bf16": lambda: torch.randn(1000, 100, generator=gen).to(torch.bfloat16)}[leaf]()
+    got = _leaf_norm(g)
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_allclose(float(got), float(torch.sum(g.double() ** 2).sqrt()), rtol=1e-6)
+
+
 def test_adamw_update_in_pieces_is_the_same_update(monkeypatch):
     """Walking each leaf in pieces along its leading axis (here of 7
     elements, so stacked leaves split mid-layer)
