@@ -231,9 +231,10 @@ Phases, one JSON line each:
            B5's calls at step 100 and at the decode-only step with the most
            context captured for the kernels line
   launch-train  launch/train.py's main() at full width for 2 steps
-  examples  (in a process of its own, beside serve-mla) the three example
-           drivers through main(argv) of launch/quickstart.py, serve_lm.py
-           and train_lm.py on the card, each printing OK, a line each:
+  examples  (in a process of its own, beside serve-mla) the four example
+           drivers through main(argv) of launch/quickstart.py, serve_lm.py,
+           train_lm.py and dana_vs_madlib.py on the card, each printing OK,
+           a line each:
            quickstart (its TRAIN: B1 once an epoch and once for the
            convergence check's batch, B2's chunk walk once an epoch and its
            one-batch gradient once an epoch for the check; its three scans:
@@ -245,7 +246,13 @@ Phases, one JSON line each:
            the plain version at 2e-5, the last one's first call kept for
            the kernels line); train_lm at its defaults (200 steps of 4 x 128
            at width 512, the preemption at step 120 and the resume from 100:
-           B1 once a step run, no other kernel)
+           B1 once a step run, no other kernel); dana_vs_madlib (the
+           paper's comparison on remote_sensing_lr at 0.01: MADlib on the
+           host, dana-nostrider, dana, each mode's seconds and the ratios;
+           B1 2, B2's chunk walk 4; the modes' coefficients at repro's own
+           tolerances), then dana and dana-nostrider at Table 3's full size
+           through launch/workloads.py's time_mode (B1 and B2 once a chunk
+           a run; seconds, tuples/s, their ratio; coefficients equal)
   train-elastic  LM training on a mesh: rwkv6-3b at full width, its depth cut
            to 2 layers, 8 x 512 tokens from pages, full remat, AdamW; the
            same 5 steps unsharded on the card first, on the whole batch and
@@ -5496,7 +5503,7 @@ def phase_launch_train():
 
 
 # ---------------------------------------------------------------------------
-# examples: the three example drivers as the port's launch modules
+# examples: the four example drivers as the port's launch modules
 # ---------------------------------------------------------------------------
 # serve_lm's full-width run: internlm2-20b at its published width (6,144, 48/8
 # heads of 128), its depth cut to EXAMPLES_SERVE_LAYERS, paged KV through B5 at
@@ -5510,6 +5517,15 @@ EXAMPLES_SERVE_B5 = (8, 6, 128)  # (KV heads, group, head dim) of its B5 calls
 # B2's glm_grad once an epoch); each of the three scans (one chunk of the
 # scoring table) runs B3 and B4 once
 EXAMPLES_QUICKSTART_EPOCHS = 1
+# dana_vs_madlib: each mode's coefficients against dana's at repro's own
+# tolerances (tests/test_system.py:39 and :47). The MADlib analogue batches
+# the tuples of each page (138 here) where the engine batches the stream
+# (256), so it is held against dana run with merge batches of a page's tuples
+EXAMPLES_MODE_TOL = {"dana-nostrider": dict(rtol=1e-5, atol=1e-6),
+                     "madlib": dict(rtol=1e-4, atol=1e-5)}
+# its Fig. 11 ablation at Table 3's full size (EXPECT's geometry), dana and
+# dana-nostrider only: repro's bench_speedup.py:14 runs MADlib to 6,000 tuples
+EXAMPLES_FULL_MODES = ("dana", "dana-nostrider")
 # the kernels line's rows that the drivers' launches add to (B1-B5)
 EXAMPLES_ROWS = ("strider_decode", "glm_sgd_chunk", "glm_grad", "strider_decode_projected",
                  "glm_predict", "paged_attn")
@@ -5553,10 +5569,10 @@ def phase_examples():
     every call of the first fused step against its plain version at 2e-5,
     the call of the last fused step kept for the kernels line), and
     train_lm at its defaults (B1 once a step run, no other kernel; its
-    first call held bit for bit against its plain version). A line
-    per driver; returns the launches and B5's captured call. It runs at a
-    lower priority than the serving phases beside it, which are bound by the
-    host's cores."""
+    first call held bit for bit against its plain version), and
+    dana_vs_madlib (``_dana_vs_madlib``). A line per driver; returns the
+    launches and B5's captured call. It runs at a lower priority than the
+    serving phases beside it, which are bound by the host's cores."""
     import types
 
     import torch
@@ -5666,8 +5682,119 @@ def phase_examples():
          plain_check=plain)
     if not held:
         raise AssertionError(f"train_lm: launches {launches}, expected {want}")
+    _dana_vs_madlib(os.path.join(work, "dana_vs_madlib"), line, only, result)
     shutil.rmtree(work, ignore_errors=True)
     return result
+
+
+def _mode_parity(coefficients, reference, tolerances):
+    """Each mode's coefficients against ``reference``'s at its tolerance:
+    (whether all held, a record per mode)."""
+    import numpy as np
+
+    record = {mode: dict(tolerances[mode], max_abs_err=float(
+        np.abs(coefficients[mode] - reference[mode]).max()),
+        held=bool(np.allclose(coefficients[mode], reference[mode], **tolerances[mode])))
+        for mode in tolerances}
+    return all(r["held"] for r in record.values()), record
+
+
+def _dana_vs_madlib(work, line, only, result):
+    """The paper's comparison through ``dana_vs_madlib.main`` at the
+    example's scale (one 43-page chunk): B1 in dana's untimed and timed
+    runs, B2's chunk walk in those and in dana-nostrider's (the engine on
+    host-parsed tuples), none in madlib (the host); B1's first call bit for
+    bit, B2's first walk at B2_TOL; dana-nostrider's coefficients against
+    dana's, madlib's against dana with merge batches of a page's tuples (a
+    run after the driver's, uncounted). Then the Fig. 11 ablation through
+    ``workloads.time_mode`` at Table 3's full size, each mode after its
+    untimed run: B1 and B2 once a 512-page chunk a run in dana, B2 alone in
+    dana-nostrider. Each run's host load and torch's threads on its line:
+    the MADlib analogue and the host decode share the host's cores with the
+    serving phases beside this process."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import solver
+    from repro_torch.core.engine import make_engine
+    from repro_torch.data.synthetic import WORKLOADS
+    from repro_torch.launch import dana_vs_madlib, workloads
+
+    w = WORKLOADS[dana_vs_madlib.WORKLOAD]
+
+    def chunks(heap):
+        return -(-heap.n_pages // solver.MAX_RESIDENT_PAGES)
+
+    argv = ["--workdir", work]
+    loadavg = os.getloadavg()
+    with _b1_first_calls() as b1, _b2_first_calls() as b2:
+        ran, lines, seconds, launches = _run_driver(dana_vs_madlib, argv)
+    plain = {"strider_decode": b1.result(1), "glm_sgd_chunk": b2.result(1)}
+    heap = workloads.build_heap(w, dana_vs_madlib.SCALE, directory=work)
+    n = chunks(heap)
+    held, want = only(launches, {"strider_decode": 2 * n, "glm_sgd_chunk": 4 * n})
+    coefficients = {mode: r["models"][0] for mode, r in ran["results"].items()}
+    g, part = workloads.traced(w)
+    engine = make_engine(g, part, merge_coef=heap.layout.tuples_per_page, device="cuda")
+    on_pages = solver.train(g, part, heap, mode="dana", engine=engine,
+                            max_epochs=dana_vs_madlib.EPOCHS).models[0]
+    agree, parity = _mode_parity(
+        coefficients, {"dana-nostrider": coefficients["dana"], "madlib": on_pages},
+        EXAMPLES_MODE_TOL)
+    parity["madlib"]["against"] = (f"dana, merge batches of a page's "
+                                   f"{heap.layout.tuples_per_page} tuples")
+    parity["madlib"]["max_abs_err_vs_dana"] = float(
+        np.abs(coefficients["madlib"] - coefficients["dana"]).max())
+    fpga = {k: ran["fpga_point"][k] for k in ("n_threads", "acs_per_thread", "n_striders",
+                                              "cycles_per_batch", "est_epoch_cycles")}
+    line("dana_vs_madlib", argv, lines, seconds, launches, mode_seconds=ran["seconds"],
+         ratios=ran["ratios"], n_tuples=ran["n_tuples"], pages=ran["n_pages"],
+         epochs_run={m: r["epochs_run"] for m, r in ran["results"].items()},
+         device_syncs={m: r["device_syncs"] for m, r in ran["results"].items()},
+         launches_expected=want, plain_check=plain, coefficients=parity,
+         fpga_model=dict(fpga, **ran["fpga_rt"]), loadavg=loadavg,
+         torch_threads=torch.get_num_threads())
+    bad = [m for m, r in ran["results"].items() if r["epochs_run"] != dana_vs_madlib.EPOCHS
+           or not np.isfinite(coefficients[m]).all()]
+    if not held or not agree or bad:
+        raise AssertionError(f"dana_vs_madlib: launches {launches}, expected {want}; "
+                             f"coefficients {parity}; modes {bad}")
+
+    # the Fig. 11 ablation at Table 3's full size
+    t0 = time.perf_counter()
+    heap = workloads.build_heap(w, 1.0, directory=work)
+    build_s = time.perf_counter() - t0
+    geometry = (heap.n_tuples, heap.layout.n_features, heap.layout.tuples_per_page,
+                heap.n_pages)
+    n = chunks(heap)
+    runs, coefficients, total = {}, {}, {}
+    expected = {"dana": {"strider_decode": 2 * n, "glm_sgd_chunk": 2 * n},
+                "dana-nostrider": {"glm_sgd_chunk": 2 * n}}
+    held = geometry == EXPECT["geometry"]
+    for mode in EXAMPLES_FULL_MODES:
+        loadavg = os.getloadavg()
+        zero_launches()
+        seconds, res = workloads.time_mode(w, heap, mode, epochs=1, device="cuda")
+        launches = read_launches()
+        ok, want = only(launches, expected[mode])
+        held = held and ok and res.epochs_run == 1 and res.device_syncs == 1
+        coefficients[mode] = res.models[0]
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        runs[mode] = {"seconds": seconds, "tuples_per_s": heap.n_tuples / seconds,
+                      "epochs_run": res.epochs_run, "device_syncs": res.device_syncs,
+                      "launches": launches, "launches_expected": want, "loadavg": loadavg}
+    result["launches"]["dana_vs_madlib_full_size"] = total
+    agree, parity = _mode_parity(coefficients, {"dana-nostrider": coefficients["dana"]},
+                                 {"dana-nostrider": EXAMPLES_MODE_TOL["dana-nostrider"]})
+    emit({"phase": "examples", "driver": "dana_vs_madlib_full_size",
+          "seconds": time.perf_counter() - t0, "workload": w.name, "geometry": geometry,
+          "heap_bytes": heap.n_pages * heap.layout.page_bytes, "chunks": n,
+          "build_s": build_s, "modes": runs,
+          "nostrider_over_dana": runs["dana-nostrider"]["seconds"] / runs["dana"]["seconds"],
+          "coefficients": parity, "torch_threads": torch.get_num_threads()})
+    if not held or not agree or not np.isfinite(coefficients["dana"]).all():
+        raise AssertionError(f"dana_vs_madlib at full size: geometry {geometry}, "
+                             f"runs {runs}, coefficients {parity}")
 
 
 # ---------------------------------------------------------------------------

@@ -63,9 +63,10 @@ def _outer_broadcast(a, b, out_shape):
         return a, b
     if a.dim() != b.dim():
         # right-aligned replication of the lower-rank operand, computed from
-        # the operands so post_fn stays shape-polymorphic
-        tgt = torch.broadcast_shapes(a.shape, b.shape)
-        return a.broadcast_to(tgt), b.broadcast_to(tgt)
+        # the operands so post_fn stays shape-polymorphic (broadcast_tensors,
+        # not broadcast_shapes: that one's Python reference costs ~45 us a
+        # call, and its first call imports sympy, seconds)
+        return torch.broadcast_tensors(a, b)
     # equal rank, outer replication: a -> prefix_a x 1s x suffix, b -> 1s x prefix_b x suffix
     k = 0
     while k < a.dim() and a.shape[a.dim() - 1 - k] == b.shape[b.dim() - 1 - k]:

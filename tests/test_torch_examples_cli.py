@@ -1,8 +1,10 @@
-"""The command lines of ``repro_torch.launch.quickstart``, ``serve_lm`` and
-``train_lm`` (the ports of ``examples/quickstart.py``, ``serve_lm.py`` and
-``train_lm.py``): with ``--device cpu``, in a subprocess, each prints the
-example's lines and ``OK`` (serve_lm at the example's own settings,
-sampling at 0.7: 8 x 48 tokens for each of the three archs); without it,
+"""The command lines of ``repro_torch.launch.quickstart``, ``serve_lm``,
+``train_lm`` and ``dana_vs_madlib`` (the ports of ``examples/quickstart.py``,
+``serve_lm.py``, ``train_lm.py`` and ``dana_vs_madlib.py``): with ``--device
+cpu``, in a subprocess, each prints the example's lines and ``OK`` (serve_lm
+at the example's own settings, sampling at 0.7: 8 x 48 tokens for each of
+the three archs; dana_vs_madlib with its heap in a temporary directory);
+without it,
 on a box with no card, each raises ``RuntimeError`` before it builds
 anything, as ``test_torch_system.test_entry_points_raise_without_a_card``
 holds the other entry points."""
@@ -16,8 +18,9 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MODULES = ("quickstart", "serve_lm", "train_lm")
-ARGV = {"quickstart": [], "serve_lm": [], "train_lm": ["--small", "--steps", "8"]}
+MODULES = ("quickstart", "serve_lm", "train_lm", "dana_vs_madlib")
+ARGV = {"quickstart": [], "serve_lm": [], "train_lm": ["--small", "--steps", "8"],
+        "dana_vs_madlib": []}
 
 
 @pytest.mark.parametrize("name", MODULES)
@@ -37,6 +40,10 @@ def test_command_line_on_the_cpu_prints_ok(name):
         assert "scored 2403/5000 rows (2597 filtered), schema ('c0', 'prediction')" in lines
     if name == "train_lm":
         assert any(ln.startswith("-- simulated preemption at step 4 --") for ln in lines)
+    if name == "dana_vs_madlib":
+        assert lines[0] == ("workload remote_sensing_lr: 5811 tuples x 54 features "
+                            "(43 pages) [scaled from 581,102]")
+        assert lines[5].startswith("FPGA cycle model @ full size (581,102 tuples): ")
 
 
 @pytest.mark.parametrize("name", MODULES)

@@ -262,7 +262,8 @@ _ISOLATION_SCRIPT = textwrap.dedent(
                  "launch.mesh", "kernels.strider.ops", "kernels.engine.ops",
                  "launch.dryrun", "launch.perf", "roofline", "roofline.analysis",
                  "roofline.collectives", "roofline.report", "launch.quickstart",
-                 "launch.serve_lm", "launch.train_lm"):
+                 "launch.serve_lm", "launch.train_lm", "launch.workloads",
+                 "launch.dana_vs_madlib"):
         assert "repro_torch." + name in sys.modules, name
     # importing starts no process group (the dry-run makes its fake one
     # when it runs)

@@ -16,7 +16,7 @@ one call of this script (host times spread between calls).
 
   mla CHECKOUT_DIR [--order ABBA]
       ``phase_serve_mla`` (minicpm3-4b served at full width) the same way,
-      alone (A) or with ``phase_examples`` (the three example drivers)
+      alone (A) or with ``phase_examples`` (the four example drivers)
       beside it (B), as the smoke runs them; the B line also has the
       drivers' seconds and when the examples process ended after serve-mla.
 
